@@ -1,0 +1,205 @@
+"""The IBL-NeRF neural field (forward only).
+
+Counterpart of ibl_nerf_tpu/models/field.py: an 8x256 trunk MLP with a
+skip connection at layer 4, plus heads for density sigma(1), albedo(3),
+roughness(1), irradiance(1), radiance(3) and K "coarse (prefiltered)
+radiance" heads (3 each). Raw output channel layout is
+``[sigma, albedo3, rough, irrad, rad3, coarse3*K]``; activations are
+applied by the renderer.
+
+Params are a dict of (in, out) tensors mirroring the JAX pytree, so a
+JAX checkpoint converts with one numpy round-trip
+(`utils.port.field_params_from_numpy`). The freeze/detach sites of
+training come with the training slice; this module is used under
+`torch.no_grad()`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from ibl_nerf_tpu_torch.ops.embedding import embedding_dim
+from ibl_nerf_tpu_torch.utils.device import resolve_device
+
+Params = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class FieldConfig:
+    """Static architecture config."""
+
+    depth: int = 8
+    width: int = 256
+    multires: int = 10          # positional-encoding bands for positions
+    multires_views: int = 4     # positional-encoding bands for directions
+    skips: tuple[int, ...] = (4,)
+    coarse_radiance_number: int = 3
+    color_independent_to_direction: bool = False
+
+    @property
+    def input_ch(self) -> int:
+        return embedding_dim(3, self.multires)
+
+    @property
+    def input_ch_views(self) -> int:
+        return embedding_dim(3, self.multires_views)
+
+
+def field_raw_channels(cfg: FieldConfig) -> int:
+    """sigma(1) + albedo(3) + rough(1) + irrad(1) + rad(3) + K*3."""
+    return 9 + 3 * cfg.coarse_radiance_number
+
+
+def _linear_init(rng: np.random.Generator, fan_in: int, fan_out: int,
+                 device: torch.device):
+    """torch.nn.Linear default init: U(-1/sqrt(fan_in), 1/sqrt(fan_in))
+    for both weight and bias."""
+    bound = 1.0 / np.sqrt(fan_in)
+    w = rng.uniform(-bound, bound, (fan_in, fan_out)).astype(np.float32)
+    b = rng.uniform(-bound, bound, (fan_out,)).astype(np.float32)
+    return {"w": torch.from_numpy(w).to(device),
+            "b": torch.from_numpy(b).to(device)}
+
+
+def init_field_params(rng: np.random.Generator, cfg: FieldConfig,
+                      device: str | torch.device | None = None) -> Params:
+    """Random field params drawn from `rng`, on `device` (CUDA unless
+    the caller names another)."""
+    device = resolve_device(device)
+    W, D = cfg.width, cfg.depth
+    in_ch, in_ch_views = cfg.input_ch, cfg.input_ch_views
+    K = cfg.coarse_radiance_number
+
+    def lin(fan_in, fan_out):
+        return _linear_init(rng, fan_in, fan_out, device)
+
+    trunk = []
+    for i in range(D):
+        fan_in = in_ch if i == 0 else (W + in_ch if (i - 1) in cfg.skips else W)
+        trunk.append(lin(fan_in, W))
+
+    return {
+        "trunk": trunk,
+        "sigma": lin(W, 1),
+        "albedo_feat": lin(W, W // 2),
+        "albedo": lin(W // 2, 3),
+        "roughness": lin(W, 1),
+        "irradiance_feat": lin(W, W // 2),
+        "irradiance": lin(W // 2, 1),
+        "feature": lin(W, W),
+        "views": [lin(in_ch_views + W, W)],
+        "radiance": lin(W, 3),
+        "coarse_feat": [lin(W, W // 2) for _ in range(K)],
+        "coarse": [lin(W // 2, 3) for _ in range(K)],
+    }
+
+
+def _mm_f32out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Matmul whose output keeps f32: bf16 operands are multiplied
+    exactly and summed in f32 (the raw heads, sigma above all, leave the
+    network at f32 precision); f32 operands take the plain product."""
+    if x.dtype == torch.bfloat16:
+        return x.float() @ w.float()
+    return x @ w
+
+
+def _dense(p, x):
+    return x @ p["w"] + p["b"]
+
+
+def _trunk(params: Params, pts_emb: torch.Tensor, cfg: FieldConfig) -> torch.Tensor:
+    h = pts_emb
+    for i, layer in enumerate(params["trunk"]):
+        h = torch.relu(_dense(layer, h))
+        if i in cfg.skips:
+            h = torch.cat([pts_emb, h], dim=-1)
+    return h
+
+
+def _pos_features(params: Params, h: torch.Tensor) -> torch.Tensor:
+    """Fused position-branch feature heads: (N, 2·half) =
+    relu(h @ [albedo_feat | irradiance_feat])."""
+    wf = torch.cat([params["albedo_feat"]["w"], params["irradiance_feat"]["w"]], dim=1)
+    bf = torch.cat([params["albedo_feat"]["b"], params["irradiance_feat"]["b"]], dim=0)
+    return torch.relu(h @ wf + bf)
+
+
+def _coarse_features(params: Params, h2: torch.Tensor) -> torch.Tensor | None:
+    """Fused K coarse-radiance feature heads: (N, K·half)."""
+    if not params["coarse_feat"]:
+        return None
+    wf = torch.cat([p["w"] for p in params["coarse_feat"]], dim=1)
+    bf = torch.cat([p["b"] for p in params["coarse_feat"]], dim=0)
+    return torch.relu(h2 @ wf + bf)
+
+
+def _zero_cols(w: torch.Tensor, n: int) -> torch.Tensor:
+    return w.new_zeros((w.shape[0], n))
+
+
+def _assembly_matrices(params: Params, cfg: FieldConfig):
+    """Column-packed output projections: the raw layout
+    [σ, albedo3, ρ, irrad, rad3, coarse3K] is h@A + pos_feat@B + h2@C +
+    view_feat@D + bias."""
+    K = cfg.coarse_radiance_number
+    w_sig, w_rough = params["sigma"]["w"], params["roughness"]["w"]
+    A = torch.cat([w_sig, _zero_cols(w_sig, 3), w_rough,
+                   _zero_cols(w_sig, 4 + 3 * K)], dim=1)
+
+    w_alb, w_irr = params["albedo"]["w"], params["irradiance"]["w"]
+    B = torch.cat([
+        torch.cat([_zero_cols(w_alb, 1), w_alb, _zero_cols(w_alb, 5 + 3 * K)], dim=1),
+        torch.cat([_zero_cols(w_irr, 5), w_irr, _zero_cols(w_irr, 3 + 3 * K)], dim=1),
+    ], dim=0)
+
+    w_rad = params["radiance"]["w"]
+    C = torch.cat([_zero_cols(w_rad, 6), w_rad, _zero_cols(w_rad, 3 * K)], dim=1)
+
+    D = None
+    if K:
+        D = torch.cat([
+            torch.cat([_zero_cols(p["w"], 9 + 3 * k), p["w"],
+                       _zero_cols(p["w"], 3 * (K - k - 1))], dim=1)
+            for k, p in enumerate(params["coarse"])], dim=0)  # (K*half, n_out)
+
+    bias = torch.cat(
+        [params["sigma"]["b"], params["albedo"]["b"], params["roughness"]["b"],
+         params["irradiance"]["b"], params["radiance"]["b"]]
+        + [p["b"] for p in params["coarse"]], dim=0)
+    return A, B, C, D, bias
+
+
+def apply_field_density(params: Params, pts_emb: torch.Tensor,
+                        cfg: FieldConfig) -> torch.Tensor:
+    """Density-only query: raw sigma (..., 1)."""
+    h = _trunk(params, pts_emb, cfg)
+    return _mm_f32out(h, params["sigma"]["w"]) + params["sigma"]["b"]
+
+
+def apply_field(params: Params, pts_emb: torch.Tensor, dirs_emb: torch.Tensor,
+                cfg: FieldConfig) -> torch.Tensor:
+    """Full field query -> raw (..., 9 + 3K)."""
+    W = params["feature"]["w"].shape[0]
+    h = _trunk(params, pts_emb, cfg)
+    pos_feat = _pos_features(params, h)
+
+    if cfg.color_independent_to_direction:
+        h2 = h
+    else:
+        feat = _dense(params["feature"], h)
+        vw, vb = params["views"][0]["w"], params["views"][0]["b"]
+        h2 = torch.relu(feat @ vw[:W] + dirs_emb @ vw[W:] + vb)
+        for layer in params["views"][1:]:
+            h2 = torch.relu(_dense(layer, h2))
+
+    view_feat = _coarse_features(params, h2)
+    A, B, C, D, bias = _assembly_matrices(params, cfg)
+    raw = (_mm_f32out(h, A) + _mm_f32out(pos_feat, B)
+           + _mm_f32out(h2, C) + bias)
+    if view_feat is not None:
+        raw = raw + _mm_f32out(view_feat, D)
+    return raw

@@ -1,0 +1,20 @@
+"""Pure tensor math: encoding, rays, compositing, sampling, LUT
+sampling, Fresnel, geometry, color."""
+
+from ibl_nerf_tpu_torch.ops.embedding import positional_encoding, embedding_dim
+from ibl_nerf_tpu_torch.ops.rays import get_rays_full_image, get_rays_for_pixels
+from ibl_nerf_tpu_torch.ops.compositing import (
+    dists_from_z_vals,
+    alpha_from_sigma,
+    weights_from_alpha,
+    accumulate,
+    composite_depth_disp_acc,
+)
+from ibl_nerf_tpu_torch.ops.sampling import sample_pdf, stratified_z_vals
+from ibl_nerf_tpu_torch.ops.texture import grid_sample_2d, mip_interp
+from ibl_nerf_tpu_torch.ops.color import rgb_to_srgb, tonemap_reinhard, to8b
+from ibl_nerf_tpu_torch.ops.shading import fresnel_schlick_roughness, reflect
+from ibl_nerf_tpu_torch.ops.geometry import (
+    depth_to_position,
+    depth_to_normal_image_space,
+)

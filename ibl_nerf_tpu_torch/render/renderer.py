@@ -1,0 +1,461 @@
+"""The volumetric renderer: hierarchical sampling, intrinsic
+compositing, and split-sum image-based-lighting shading (forward only).
+
+Counterpart of ibl_nerf_tpu/render/renderer.py for the inference path:
+the coarse pass (density-only on the `coarse_shading=False` fast path),
+deterministic `sample_pdf`, and the fine pass with ε-normals, the
+BRDF-LUT fetch and Fresnel, the reflected march, `mip_interp` and the
+diffuse + specular combine. Everything runs under `torch.no_grad()`.
+
+With `use_pallas` the no-grad sweeps (ε-offset density sweeps,
+reflected march) go through the fused-field kernel K1
+(`kernels/fused_field.py`), as the JAX renderer routes them through its
+Pallas kernel. Modes not ported yet raise NotImplementedError naming
+the mode.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from ibl_nerf_tpu_torch.kernels.fused_field import (
+    fused_field_apply,
+    fused_field_density,
+    pack_field_weights,
+)
+from ibl_nerf_tpu_torch.models.field import apply_field, apply_field_density
+from ibl_nerf_tpu_torch.ops.color import rgb_to_srgb, tonemap_reinhard
+from ibl_nerf_tpu_torch.ops.compositing import (
+    accumulate,
+    alpha_from_sigma,
+    composite_depth_disp_acc,
+    dists_from_z_vals,
+    transmittance_and_weights,
+    weights_from_alpha,
+)
+from ibl_nerf_tpu_torch.ops.embedding import positional_encoding
+from ibl_nerf_tpu_torch.ops.rays import get_rays_full_image
+from ibl_nerf_tpu_torch.ops.sampling import sample_pdf, stratified_z_vals
+from ibl_nerf_tpu_torch.ops.shading import fresnel_schlick_roughness, reflect
+from ibl_nerf_tpu_torch.ops.texture import grid_sample_2d, mip_interp
+from ibl_nerf_tpu_torch.render import normals as normals_mod
+from ibl_nerf_tpu_torch.render.config import RenderConfig
+from ibl_nerf_tpu_torch.utils.device import pin_f32_matmul
+
+_EPSILON_NORMALS = ("normal_map_from_depth_gradient_epsilon",
+                    "normal_map_from_depth_gradient_direction_epsilon")
+
+
+def _check_supported(rcfg: RenderConfig) -> None:
+    """Raise NotImplementedError, naming the mode, for what the port
+    does not cover yet."""
+    def missing(mode):
+        raise NotImplementedError(f"{mode} is not ported to ibl_nerf_tpu_torch yet")
+
+    if rcfg.compute_dtype not in ("float32", "bf16_grad"):
+        missing(f"compute_dtype={rcfg.compute_dtype}")
+    if rcfg.use_pallas_train:
+        missing("use_pallas_train")
+    if rcfg.perturb:
+        missing("perturb (random stratified samples)")
+    if rcfg.raw_noise_std > 0.0:
+        missing("raw_noise_std")
+    if rcfg.edit is not None:
+        missing("edit")
+    for aux in ("infer_normal", "infer_depth", "infer_albedo_separate",
+                "infer_roughness_separate", "infer_irradiance_separate"):
+        if getattr(rcfg, aux):
+            missing(aux)
+    for gt in ("depth_map_from_ground_truth", "calculate_albedo_from_gt",
+               "calculate_roughness_from_gt", "calculate_irradiance_from_gt"):
+        if getattr(rcfg, gt):
+            missing(gt)
+    if rcfg.approximate_radiance:
+        if rcfg.shading_mode != "split_sum":
+            missing(f"shading_mode={rcfg.shading_mode}")
+        if rcfg.normal_type not in _EPSILON_NORMALS:
+            missing(f"normal_type={rcfg.normal_type}")
+
+
+# ---------------------------------------------------------------------------
+# Field query helpers
+# ---------------------------------------------------------------------------
+
+def _grad_dtype(rcfg: RenderConfig) -> torch.dtype:
+    """Dtype of the primary-march queries: bf16 under "bf16_grad"."""
+    return torch.bfloat16 if rcfg.compute_dtype == "bf16_grad" else torch.float32
+
+
+def _make_queries(field_params, rcfg: RenderConfig):
+    """(query_full, query_sigma, query_full_ng, query_sigma_ng).
+
+    compute_dtype "float32": everything f32; "bf16_grad": the primary
+    march in bf16 (f32 raw heads), the no-grad sweeps (ε-normals,
+    reflected march) in f32. With use_pallas the `_ng` pair is K1.
+    """
+    fcfg = rcfg.field
+    dt_grad, dt_ng = _grad_dtype(rcfg), torch.float32
+    query_full, query_sigma = _make_query_pair(field_params, rcfg, dt_grad)
+
+    if rcfg.use_pallas:
+        packed = pack_field_weights(field_params, fcfg)
+
+        def query_full_ng(pts, viewdirs):
+            return fused_field_apply(packed, pts, viewdirs, fcfg)
+
+        def query_sigma_ng(pts):
+            return fused_field_density(packed, pts, fcfg)
+    elif dt_ng != dt_grad:
+        query_full_ng, query_sigma_ng = _make_query_pair(field_params, rcfg, dt_ng)
+    else:
+        query_full_ng, query_sigma_ng = query_full, query_sigma
+    return query_full, query_sigma, query_full_ng, query_sigma_ng
+
+
+def _cast_params(tree, dt):
+    if isinstance(tree, dict):
+        return {k: _cast_params(v, dt) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_params(v, dt) for v in tree]
+    return tree.to(dt)
+
+
+def _make_query_pair(field_params, rcfg: RenderConfig, dt: torch.dtype):
+    """(query_full, query_sigma) closures at compute dtype `dt`; raw
+    outputs are f32."""
+    fcfg = rcfg.field
+    params_c = _cast_params(field_params, dt) if dt != torch.float32 else field_params
+
+    def query_full(pts, viewdirs):
+        # pts (B, S, 3); viewdirs (B, 3) broadcast over samples.
+        pe = positional_encoding(pts, fcfg.multires).to(dt)
+        de = positional_encoding(viewdirs, fcfg.multires_views).to(dt)
+        de = de[..., None, :].expand(*pts.shape[:-1], de.shape[-1])
+        return apply_field(params_c, pe, de, fcfg).float()
+
+    def query_sigma(pts):
+        pe = positional_encoding(pts, fcfg.multires).to(dt)
+        return apply_field_density(params_c, pe, fcfg).float()
+
+    return query_full, query_sigma
+
+
+def _radiance_f(rcfg: RenderConfig):
+    return torch.relu if rcfg.use_radiance_linear else torch.sigmoid
+
+
+# ---------------------------------------------------------------------------
+# Sub-renderers
+# ---------------------------------------------------------------------------
+
+def _composite_radiance_stack(raw, z_vals, rays_d, rcfg: RenderConfig):
+    """radiance + K coarse-radiance maps from a raw field output.
+    Returns (radiance_map (B,3), [coarse maps (B,3)])."""
+    rf = _radiance_f(rcfg)
+    weights = weights_from_alpha(
+        alpha_from_sigma(raw[..., 0], dists_from_z_vals(z_vals, rays_d)))
+    radiance_map = accumulate(weights, rf(raw[..., 6:9]))
+    coarse_maps = [accumulate(weights, rf(raw[..., 9 + 3 * k: 12 + 3 * k]))
+                   for k in range(rcfg.field.coarse_radiance_number)]
+    return radiance_map, coarse_maps
+
+
+def _render_depth_only(query_sigma, rays_o, rays_d, z_vals):
+    """Depth/visibility-only pass."""
+    pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
+    raw = query_sigma(pts)[..., 0]
+    alpha = alpha_from_sigma(raw, dists_from_z_vals(z_vals, rays_d))
+    weights, visibility = transmittance_and_weights(alpha)
+    depth_map = torch.sum(weights * z_vals, dim=-1)
+    return {"depth_map": depth_map, "weights": weights,
+            "visibility": visibility}
+
+
+# ---------------------------------------------------------------------------
+# The main per-ray renderer
+# ---------------------------------------------------------------------------
+
+def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
+                 near, far, rcfg: RenderConfig):
+    """Full compositing + split-sum shading for one sample set."""
+    rf = _radiance_f(rcfg)
+    (query_full, _, query_full_ng, query_sigma_ng) = _make_queries(
+        variables["coarse_or_fine"], rcfg)
+
+    # --- primary march -----------------------------------------------------
+    pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
+    raw = query_full(pts, rays_d)
+    alpha = alpha_from_sigma(raw[..., 0], dists_from_z_vals(z_vals, rays_d))
+    weights = weights_from_alpha(alpha)
+    depth_map, disp_map, acc_map = composite_depth_disp_acc(weights, z_vals)
+    x_surface = rays_o + rays_d * depth_map[..., None]
+
+    # --- intrinsic maps ------------------------------------------------------
+    albedo_map = accumulate(weights, torch.sigmoid(raw[..., 1:4]))
+    roughness_map = accumulate(weights, torch.sigmoid(raw[..., 4]))
+    irradiance_map = accumulate(weights, rf(raw[..., 5]))
+    radiance_map = accumulate(weights, rf(raw[..., 6:9]))
+    coarse_radiance_maps = [
+        accumulate(weights, rf(raw[..., 9 + 3 * k: 12 + 3 * k]))
+        for k in range(rcfg.field.coarse_radiance_number)]
+    irradiance_map = irradiance_map[..., None]
+
+    # --- split-sum shading --------------------------------------------------
+    target_normal_map = approximated_radiance_map = None
+    specular_map = diffuse_map = n_dot_v = None
+    reflected_radiance_map = prefiltered_reflected_map = None
+    reflected_coarse_maps = []
+
+    if rcfg.approximate_radiance:
+        target_normal_map = _estimate_normal(query_sigma_ng, rays_o, rays_d,
+                                             z_vals, rcfg)
+        n_dot_v = torch.clamp(torch.sum(-rays_d * target_normal_map, -1), 0.0, 1.0)
+
+        # BRDF LUT fetch
+        lut_uv = torch.stack(
+            [2.0 * n_dot_v - 1.0, 2.0 * roughness_map - 1.0], dim=-1)
+        env_brdf = grid_sample_2d(consts["brdf_lut"], lut_uv)
+        env_c1 = env_brdf[..., 0:1]
+        env_c0 = env_brdf[..., 1:2]
+
+        # dielectric F0 with metallic = 1 - roughness
+        metallic = (1.0 - roughness_map)[..., None]
+        f0 = torch.full((3,), 0.04, dtype=raw.dtype, device=raw.device)
+        f0 = f0 * (1.0 - metallic) + albedo_map * metallic
+
+        fresnel_map = fresnel_schlick_roughness(n_dot_v, f0, roughness_map)
+        if rcfg.lut_coefficient == "F":
+            spec_coeff = fresnel_map * env_c1 + env_c0
+        elif rcfg.lut_coefficient == "F0":
+            spec_coeff = f0 * env_c1 + env_c0
+        else:
+            raise ValueError(rcfg.lut_coefficient)
+
+        # reflected-ray second march along the constant coarse z
+        reflected_dirs = reflect(rays_d, target_normal_map)
+        reflected_pts = (x_surface[..., None, :]
+                         + reflected_dirs[..., None, :]
+                         * z_vals_constant[..., :, None])
+        query = (query_full if rcfg.use_gradient_for_incident_radiance
+                 else query_full_ng)
+        r_raw = query(reflected_pts, reflected_dirs)
+        reflected_radiance_map, reflected_coarse_maps = _composite_radiance_stack(
+            r_raw, z_vals_constant, reflected_dirs, rcfg)
+        prefiltered = torch.stack(
+            [reflected_radiance_map] + list(reflected_coarse_maps), dim=1)
+
+        # roughness-driven mip level
+        if rcfg.correct_depth_for_prefiltered_radiance_infer:
+            depth_0 = (far + near) * 0.5
+            mip_level = torch.clamp(roughness_map * depth_map / depth_0[..., 0],
+                                    0.0, 1.0)
+        else:
+            mip_level = roughness_map
+        prefiltered_reflected_map = mip_interp(prefiltered, mip_level)
+
+        diffuse_map = ((1.0 - fresnel_map) * (1.0 - metallic)
+                       * albedo_map * irradiance_map)
+        specular_map = spec_coeff * prefiltered_reflected_map
+        approximated_radiance_map = diffuse_map + specular_map
+
+    return _assemble_outputs(
+        rcfg, approximated_radiance_map, radiance_map, coarse_radiance_maps,
+        reflected_coarse_maps, irradiance_map, reflected_radiance_map,
+        prefiltered_reflected_map, albedo_map, roughness_map, specular_map,
+        diffuse_map, n_dot_v, target_normal_map, disp_map, acc_map, depth_map,
+        weights)
+
+
+def _assemble_outputs(rcfg, approximated_radiance_map, radiance_map,
+                      coarse_radiance_maps, reflected_coarse_maps,
+                      target_irradiance_map, reflected_radiance_map,
+                      prefiltered_reflected_map, target_albedo_map,
+                      target_roughness_map, specular_map, diffuse_map,
+                      n_dot_v, target_normal_map, disp_map, acc_map,
+                      depth_map, weights):
+    """Output transforms + map dict, with the reference's key names."""
+    ldr = tonemap_reinhard if rcfg.use_radiance_linear else (lambda x: x)
+    gam = rgb_to_srgb if rcfg.gamma_correct else (lambda x: x)
+
+    def out_f(x):
+        return None if x is None else gam(ldr(x))
+
+    results: dict[str, Any] = {}
+    results["color_map"] = out_f(approximated_radiance_map)
+    results["radiance_map"] = out_f(radiance_map)
+    for k, cm in enumerate(coarse_radiance_maps):
+        results[f"radiance_map_{k + 1}"] = out_f(cm)
+    for k, cm in enumerate(reflected_coarse_maps):
+        results[f"reflected_coarse_radiance_map_{k + 1}"] = out_f(cm)
+
+    results["irradiance_map"] = out_f(target_irradiance_map)
+    results["reflected_radiance_map"] = out_f(reflected_radiance_map)
+    results["prefiltered_reflected_map"] = out_f(prefiltered_reflected_map)
+
+    results["albedo_map"] = gam(target_albedo_map)
+    results["roughness_map"] = target_roughness_map
+    results["specular_map"] = out_f(specular_map)
+    results["diffuse_map"] = out_f(diffuse_map)
+    results["n_dot_v_map"] = n_dot_v
+
+    results["target_normal_map"] = target_normal_map
+    # the estimator's own key, for losses that name it
+    if target_normal_map is not None:
+        results[rcfg.normal_type] = target_normal_map
+
+    results["disp_map"] = disp_map
+    results["acc_map"] = acc_map
+    results["depth_map"] = depth_map
+    results["target_depth_map"] = depth_map
+    results["weights"] = weights
+    return {k: v for k, v in results.items() if v is not None}
+
+
+def _estimate_normal(query_sigma_ng, rays_o, rays_d, z_vals, rcfg: RenderConfig):
+    """The ε finite-difference shading normal, on the no-grad query."""
+    if rcfg.normal_type == "normal_map_from_depth_gradient_epsilon":
+        return normals_mod.normal_from_depth_gradient_epsilon(
+            query_sigma_ng, rays_o, rays_d, z_vals, rcfg.epsilon,
+            scan=rcfg.sweep_scan)
+    return normals_mod.normal_from_depth_gradient_direction_epsilon(
+        query_sigma_ng, rays_o, rays_d, z_vals, rcfg.epsilon_direction,
+        scan=rcfg.sweep_scan)
+
+
+# ---------------------------------------------------------------------------
+# render_rays: coarse -> importance resample -> fine
+# ---------------------------------------------------------------------------
+
+def make_ray_batch(rays_o, rays_d, near, far):
+    """Pack a ray batch dict; near/far scalars or (B,) tensors."""
+    b = rays_o.shape[0]
+
+    def per_ray(v):
+        v = torch.as_tensor(v, dtype=rays_o.dtype, device=rays_o.device)
+        return v.expand(b)[..., None]
+
+    viewdirs = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
+    return {"rays_o": rays_o, "rays_d": rays_d, "viewdirs": viewdirs,
+            "near": per_ray(near), "far": per_ray(far)}
+
+
+@torch.no_grad()
+def render_rays(variables, consts, batch, rcfg: RenderConfig,
+                is_depth_only: bool = False):
+    """Render a ray batch into all output maps.
+
+    variables: {'coarse': field params, 'fine': field params | absent}
+    consts:    {'brdf_lut': (H, W, C)} non-trainable assets.
+    batch:     make_ray_batch output.
+    Returns a dict of maps; coarse-pass results are suffixed '0' when a
+    fine pass runs. No draws: samples are deterministic (perturb=False).
+    """
+    _check_supported(rcfg)
+    pin_f32_matmul()
+    rays_o, rays_d = batch["rays_o"], batch["rays_d"]
+    near, far = batch["near"], batch["far"]
+
+    z_vals = stratified_z_vals(near, far, rcfg.n_samples, lindisp=rcfg.lindisp)
+    z_vals_constant = z_vals
+
+    def depth_only(field_params, rc, z):
+        query_sigma = _make_query_pair(field_params, rc, _grad_dtype(rc))[1]
+        return _render_depth_only(query_sigma, rays_o, rays_d, z)
+
+    if is_depth_only or (not rcfg.coarse_shading and rcfg.n_importance > 0):
+        # Inference fast path: the coarse pass only has to produce the
+        # importance-resampling weights (+ depth); the density query
+        # shares trunk+sigma with the full one, so every fine buffer is
+        # unchanged.
+        result = depth_only(variables["coarse"], rcfg, z_vals)
+    else:
+        coarse_vars = dict(variables, coarse_or_fine=variables["coarse"])
+        result = _raw2outputs(coarse_vars, consts, rays_o, rays_d, z_vals,
+                              z_vals_constant, near, far, rcfg)
+
+    if rcfg.n_importance > 0:
+        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        z_samples = sample_pdf(z_mid, result["weights"][..., 1:-1],
+                               rcfg.n_importance, det=True)
+        z_all, _ = torch.sort(torch.cat([z_vals, z_samples], -1), dim=-1)
+
+        fine_params = variables.get("fine", variables["coarse"])
+        # Distinct fine architecture: swap the field config for the fine
+        # pass only (multires/K are shared, so every shape is unchanged).
+        rcfg_f = rcfg
+        if rcfg.field_fine is not None:
+            rcfg_f = rcfg.replace(field=rcfg.field_fine, field_fine=None)
+
+        if is_depth_only:
+            result_fine = depth_only(fine_params, rcfg_f, z_all)
+        else:
+            fine_vars = dict(variables, coarse_or_fine=fine_params)
+            result_fine = _raw2outputs(fine_vars, consts, rays_o, rays_d,
+                                       z_all, z_vals_constant, near, far,
+                                       rcfg_f)
+        for k, v in result.items():
+            result_fine[k + "0"] = v
+        result = result_fine
+        result["z_std"] = torch.std(z_samples, dim=-1, correction=0)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# Whole-frame rendering (inference fast path)
+# ---------------------------------------------------------------------------
+
+def make_frame_render_fn(variables, consts, rcfg: RenderConfig,
+                         output_keys: tuple[str, ...] | None = None):
+    """A function that renders a frame pre-tiled as (n_chunks, chunk, 3)
+    ray tensors, one chunk after another, keeping only `output_keys`.
+
+    Returns fn(rays_o_t, rays_d_t, near, far) -> {name: (n_chunks, chunk, C?)}.
+    """
+    _check_supported(rcfg)
+
+    def run(rays_o_t, rays_d_t, near, far):
+        outs = []
+        for ro, rd in zip(rays_o_t, rays_d_t):
+            out = render_rays(variables, consts, make_ray_batch(ro, rd, near, far),
+                              rcfg)
+            if output_keys is not None:
+                out = {k: out[k] for k in output_keys if k in out}
+            outs.append(out)
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    return run
+
+
+def _pad_tile(x: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Pad (N, ...) to a chunk multiple by repeating the last row, then
+    tile to (n_chunks, chunk, ...)."""
+    pad = (-x.shape[0]) % chunk
+    if pad:
+        x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])], dim=0)
+    return x.reshape(-1, chunk, *x.shape[1:])
+
+
+def render_frame(fn, rays_o, rays_d, near, far, chunk: int):
+    """Drive a make_frame_render_fn function over flat (N, 3) rays: pad
+    to a chunk multiple, tile, run, un-tile. Returns {name: (N, C?)}."""
+    n = rays_o.shape[0]
+    out = fn(_pad_tile(rays_o, chunk), _pad_tile(rays_d, chunk), near, far)
+    return {k: v.reshape(-1, *v.shape[2:])[:n] for k, v in out.items()}
+
+
+def render_image(variables, consts, H, W, K, c2w, near, far,
+                 rcfg: RenderConfig, chunk: int = 2048):
+    """Render a full image chunk by chunk; every per-ray map comes back
+    as (H, W, C?)."""
+    rays_o, rays_d = get_rays_full_image(H, W, K, c2w)
+    rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+    n = rays_o.shape[0]
+    outs = [render_rays(variables, consts, make_ray_batch(ro, rd, near, far), rcfg)
+            for ro, rd in zip(_pad_tile(rays_o, chunk), _pad_tile(rays_d, chunk))]
+    merged = {}
+    for k in outs[0]:
+        v = torch.cat([o[k] for o in outs], dim=0)[:n]
+        merged[k] = v.reshape(H, W, *v.shape[1:]) if v.shape[0] == n else v
+    return merged

@@ -1,0 +1,7 @@
+"""Utilities: device selection and weight conversion."""
+
+from ibl_nerf_tpu_torch.utils.device import pin_f32_matmul, resolve_device
+from ibl_nerf_tpu_torch.utils.port import (
+    field_params_from_numpy,
+    field_params_from_torch_state,
+)

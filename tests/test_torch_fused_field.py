@@ -1,0 +1,131 @@
+"""K1's plain PyTorch version against the JAX Pallas kernel.
+
+The JAX side runs `fused_field_apply` / `fused_field_density` in
+interpret mode, as tests/test_kernels.py does. Both sides compute the
+embedding as sin(t + phase) from the same packed weights; tolerance
+atol 2e-5 / rtol 1e-4, the bound tests/test_kernels.py holds the JAX
+kernel to. The CUDA kernel itself runs only on the card, where
+chip_smoke.py holds it against this plain version.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ibl_nerf_tpu.kernels import fused_field as jff
+from ibl_nerf_tpu.models import field as jfield
+from ibl_nerf_tpu.ops.embedding import positional_encoding as jpe
+from ibl_nerf_tpu_torch.kernels import fused_field as tff
+from ibl_nerf_tpu_torch.models import field as tfield
+from ibl_nerf_tpu_torch.utils.port import field_params_from_numpy
+
+torch.set_num_threads(2)
+
+
+def _setup(width, k=3, seed=0):
+    kw = dict(depth=8, width=width, coarse_radiance_number=k)
+    jcfg, tcfg = jfield.FieldConfig(**kw), tfield.FieldConfig(**kw)
+    jp = jax.jit(jfield.init_field_params, static_argnums=1)(jax.random.key(seed), jcfg)
+    tp = field_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    rng = np.random.default_rng(seed + 1)
+    # 7 x 19 = 133 points: not a multiple of any tile
+    pts = rng.uniform(-1.5, 1.5, (7, 19, 3)).astype(np.float32)
+    dirs = rng.standard_normal((7, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    return jcfg, tcfg, jp, tp, pts, dirs
+
+
+@pytest.fixture(scope="module", params=[32, 256], ids=["w32", "w256"])
+def setup(request):
+    return _setup(request.param)
+
+
+def test_full_variant_matches_jax_kernel(setup):
+    jcfg, tcfg, jp, tp, pts, dirs = setup
+    ref = jff.fused_field_apply(jff.pack_field_weights(jp, jcfg), jnp.asarray(pts),
+                                jnp.asarray(dirs), jcfg, interpret=True)
+    packed = tff.pack_field_weights(tp, tcfg)
+    out = tff.fused_field_apply_plain(packed, torch.from_numpy(pts),
+                                      torch.from_numpy(dirs), tcfg)
+    assert out.shape == ref.shape == (7, 19, 18)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=1e-4)
+
+
+def test_density_variant_matches_jax_kernel(setup):
+    jcfg, tcfg, jp, tp, pts, _ = setup
+    ref = jff.fused_field_density(jff.pack_field_weights(jp, jcfg),
+                                  jnp.asarray(pts), jcfg, interpret=True)
+    packed = tff.pack_field_weights(tp, tcfg)
+    out = tff.fused_field_density_plain(packed, torch.from_numpy(pts), tcfg)
+    assert out.shape == ref.shape == (7, 19, 1)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=1e-4)
+
+
+def test_plain_matches_eager_field(setup):
+    """The kernel's math (sin(t + π/2) embedding, packed heads) equals
+    the eager field (cos embedding, concatenated skip)."""
+    jcfg, tcfg, _, tp, pts, dirs = setup
+    packed = tff.pack_field_weights(tp, tcfg)
+    pe = torch.from_numpy(np.array(jpe(jnp.asarray(pts), jcfg.multires)))
+    de = torch.from_numpy(np.array(jpe(jnp.asarray(dirs), jcfg.multires_views)))
+    ref = tfield.apply_field(tp, pe, de[:, None, :].expand(7, 19, -1), tcfg)
+    out = tff.fused_field_apply_plain(packed, torch.from_numpy(pts),
+                                      torch.from_numpy(dirs), tcfg)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=2e-5, rtol=1e-4)
+
+
+def test_pack_matches_jax_pack(setup):
+    """Same matrices as the JAX packing, minus its TPU-only padding (the
+    128-lane output columns and the 2-D bias lift)."""
+    jcfg, tcfg, jp, tp, _, _ = setup
+    ref = jax.tree.map(np.asarray, jff.pack_field_weights(jp, jcfg))
+    out = tff.pack_field_weights(tp, tcfg)
+    assert sorted(out) == sorted(tff._WEIGHT_ORDER) == sorted(jff._WEIGHT_ORDER)
+    n_out = 9 + 3 * tcfg.coarse_radiance_number
+    for k in tff._WEIGHT_ORDER:
+        r = ref[k]
+        if k in ("A", "B", "C", "D"):
+            r = r[:, :n_out]
+        elif k == "bias":
+            r = r[0, :n_out]
+        elif r.ndim == 2 and r.shape[0] == 1:
+            r = r[0]
+        assert out[k].dtype == torch.float32 and out[k].is_contiguous()
+        np.testing.assert_array_equal(out[k].numpy(), r, err_msg=k)
+
+
+def test_cpu_wrappers_take_the_plain_version(setup):
+    _, tcfg, _, tp, pts, dirs = setup
+    packed = tff.pack_field_weights(tp, tcfg)
+    before = dict(tff.LAUNCHES)
+    p, d = torch.from_numpy(pts), torch.from_numpy(dirs)
+    assert torch.equal(tff.fused_field_apply(packed, p, d, tcfg),
+                       tff.fused_field_apply_plain(packed, p, d, tcfg))
+    assert torch.equal(tff.fused_field_density(packed, p, tcfg),
+                       tff.fused_field_density_plain(packed, p, tcfg))
+    assert tff.LAUNCHES == before  # the plain version is no launch
+
+
+def test_kernel_input_checks():
+    def packed_for(width):
+        cfg = tfield.FieldConfig(depth=8, width=width, coarse_radiance_number=1)
+        params = tfield.init_field_params(np.random.default_rng(0), cfg, "cpu")
+        return cfg, params, tff.pack_field_weights(params, cfg)
+
+    x = tff._pack_inputs(torch.rand(7, 19, 3), None)
+    cfg, _, packed = packed_for(32)
+    with pytest.raises(ValueError, match="width"):
+        tff._check(packed, x, cfg)
+    cfg, params, packed = packed_for(256)
+    tff._check(packed, x, cfg)
+    with pytest.raises(ValueError, match="f32"):
+        tff._check(dict(packed, w1=packed["w1"].bfloat16()), x, cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        tff._check(packed, x[:, :4], cfg)
+    with pytest.raises(ValueError):
+        tff.fused_field_density(packed, torch.zeros(4, 3, device="meta"), cfg)
+    with pytest.raises(ValueError, match="skip"):
+        tff.pack_field_weights(params, tfield.FieldConfig(depth=8, width=256,
+                                                          skips=(3,)))

@@ -1,0 +1,250 @@
+"""The port's inference slice against the JAX renderer.
+
+`render_rays` (coarse pass -> deterministic sample_pdf -> fine pass with
+ε-normals, the BRDF-LUT fetch, the reflected march and mip_interp) and
+`render_path` run on both sides with the same weights (JAX init through
+`field_params_from_numpy`), the same rays and the real LUT. Depth 8,
+width 32, 8 rays, 8+8 samples. Tolerances follow
+tests/test_renderer_parity.py: atol 5e-4 / rtol 1e-3 on the basic maps,
+atol 2e-3 / rtol 5e-3 on the shaded maps.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ibl_nerf_tpu.data.brdf_lut import load_brdf_lut as j_load_lut
+from ibl_nerf_tpu.eval.render_path import render_path as j_render_path
+from ibl_nerf_tpu.models.field import FieldConfig as JFieldConfig
+from ibl_nerf_tpu.models.field import init_field_params as j_init
+from ibl_nerf_tpu.render import RenderConfig as JRenderConfig
+from ibl_nerf_tpu.render import make_ray_batch as j_batch
+from ibl_nerf_tpu.render import render_image as j_render_image
+from ibl_nerf_tpu.render import render_rays as j_render_rays
+from ibl_nerf_tpu_torch.data.brdf_lut import load_brdf_lut
+from ibl_nerf_tpu_torch.eval.render_path import render_path
+from ibl_nerf_tpu_torch.models.field import FieldConfig
+from ibl_nerf_tpu_torch.render import (RenderConfig, make_frame_render_fn,
+                                       make_ray_batch, render_frame,
+                                       render_image, render_rays)
+from ibl_nerf_tpu_torch.render.config import EditConfig
+from ibl_nerf_tpu_torch.utils.port import field_params_from_numpy
+
+torch.set_num_threads(2)
+
+FIELD = dict(depth=8, width=32, coarse_radiance_number=3)
+BASE = dict(n_samples=8, n_importance=8, perturb=False,
+            approximate_radiance=True,
+            normal_type="normal_map_from_depth_gradient_epsilon",
+            correct_depth_for_prefiltered_radiance_infer=True)
+SHADED = {"color_map", "specular_map", "diffuse_map", "n_dot_v_map",
+          "target_normal_map", "normal_map_from_depth_gradient_epsilon",
+          "normal_map_from_depth_gradient_direction_epsilon",
+          "reflected_radiance_map", "prefiltered_reflected_map"}
+
+
+def _cfgs(**kw):
+    jr = JRenderConfig(field=JFieldConfig(**FIELD), **BASE).replace(**kw)
+    fields = {f.name: getattr(jr, f.name) for f in dataclasses.fields(jr)}
+    for name in ("field", "field_fine"):
+        if fields[name] is not None:
+            fields[name] = FieldConfig(**dataclasses.asdict(fields[name]))
+    return jr, RenderConfig(**fields)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = JFieldConfig(**FIELD)
+    k1, k2 = jax.random.split(jax.random.key(7))
+    jvars = {"coarse": j_init(k1, jcfg), "fine": j_init(k2, jcfg)}
+    for v in jvars.values():  # visible density, so depth and normals mean something
+        v["sigma"]["b"] = v["sigma"]["b"] + 0.5
+    tvars = field_params_from_numpy(jax.tree.map(np.asarray, jvars), "cpu")
+    jconsts = {"brdf_lut": jnp.asarray(j_load_lut())}
+    tconsts = {"brdf_lut": load_brdf_lut(device="cpu")}
+    rng = np.random.default_rng(3)
+    rays_o = (rng.standard_normal((8, 3)) * 0.1).astype(np.float32)
+    rays_d = rng.standard_normal((8, 3)).astype(np.float32)
+    return jvars, tvars, jconsts, tconsts, rays_o, rays_d
+
+
+def _render_both(setup, is_depth_only=False, **kw):
+    jvars, tvars, jconsts, tconsts, rays_o, rays_d = setup
+    jr, tr = _cfgs(**kw)
+    ref = jax.jit(lambda b: j_render_rays(jax.random.key(0), jvars, jconsts, b, jr,
+                                          is_depth_only=is_depth_only))(
+        j_batch(jnp.asarray(rays_o), jnp.asarray(rays_d), 2.0, 6.0))
+    out = render_rays(tvars, tconsts, make_ray_batch(
+        torch.from_numpy(rays_o), torch.from_numpy(rays_d), 2.0, 6.0), tr,
+        is_depth_only=is_depth_only)
+    return {k: np.asarray(v) for k, v in ref.items()}, {k: v.numpy() for k, v in out.items()}
+
+
+def _assert_maps(ref, out, basic_tol=(5e-4, 1e-3), shaded_tol=(2e-3, 5e-3)):
+    assert set(out) == set(ref)
+    for k, r in ref.items():
+        atol, rtol = shaded_tol if k.rstrip("0") in SHADED else basic_tol
+        assert out[k].shape == r.shape, k
+        np.testing.assert_allclose(out[k], r, atol=atol, rtol=rtol, err_msg=k)
+
+
+# each value of each switch, in pairs that cover every two-way combination
+# of use_pallas with the other two
+@pytest.mark.parametrize("use_pallas,coarse_shading,sweep_scan", [
+    (False, True, False), (True, True, True), (False, False, True),
+    (True, False, False),
+], ids=["eager-coarse-batched", "k1-coarse-scan", "eager-fast-scan",
+        "k1-fast-batched"])
+def test_render_rays_float32(setup, use_pallas, coarse_shading, sweep_scan):
+    ref, out = _render_both(setup, use_pallas=use_pallas,
+                            coarse_shading=coarse_shading, sweep_scan=sweep_scan)
+    assert "target_normal_map" in out and "color_map" in out
+    assert ("color_map0" in out) == coarse_shading
+    _assert_maps(ref, out)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(normal_type="normal_map_from_depth_gradient_direction_epsilon",
+         use_pallas=True),
+    dict(use_radiance_linear=True, gamma_correct=True, lut_coefficient="F0",
+         correct_depth_for_prefiltered_radiance_infer=False),
+    dict(approximate_radiance=False),
+], ids=["direction_eps", "hdr_gamma_F0", "unshaded"])
+def test_render_rays_modes(setup, kw):
+    _assert_maps(*_render_both(setup, **kw))
+
+
+def test_render_rays_depth_only(setup):
+    ref, out = _render_both(setup, is_depth_only=True)
+    assert "depth_map" in out and "visibility0" in out
+    _assert_maps(ref, out)
+
+
+def test_render_rays_distinct_fine_field(setup):
+    """field_fine: the fine pass runs another architecture (depth 4,
+    width 16) on its own weights."""
+    jvars, tvars, jconsts, tconsts, rays_o, rays_d = setup
+    fine = JFieldConfig(depth=4, width=16, coarse_radiance_number=3)
+    jf = dict(jvars, fine=j_init(jax.random.key(11), fine))
+    tf = dict(tvars, fine=field_params_from_numpy(
+        jax.tree.map(np.asarray, jf["fine"]), "cpu"))
+    _assert_maps(*_render_both((jf, tf, jconsts, tconsts, rays_o, rays_d),
+                               field_fine=fine, use_pallas=False))
+
+
+def test_render_image(setup):
+    jvars, tvars, jconsts, tconsts, _, _ = setup
+    jr, tr = _cfgs(coarse_shading=False, use_pallas=True)
+    scene = _Scene()
+    K = np.array([[7.0, 0, 4.0], [0, 7.0, 3.0], [0, 0, 1]], np.float32)
+    fn = jax.jit(lambda k, b, g: j_render_rays(k, jvars, jconsts, b, jr, g))
+    ref = j_render_image(jax.random.key(0), jvars, jconsts, 6, 8, jnp.asarray(K),
+                         jnp.asarray(scene.poses[0]), 2.0, 6.0, jr, chunk=16,
+                         render_fn=fn)
+    out = render_image(tvars, tconsts, 6, 8, torch.from_numpy(K),
+                       torch.from_numpy(scene.poses[0]), 2.0, 6.0, tr, chunk=16)
+    assert out["color_map"].shape == (6, 8, 3)
+    _assert_maps({k: np.asarray(v) for k, v in ref.items()},
+                 {k: v.numpy() for k, v in out.items()})
+
+
+def test_render_rays_bf16_grad(setup):
+    """compute_dtype bf16_grad: bf16 primary march (f32 raw heads), f32
+    no-grad sweeps on K1. bf16 keeps 8 mantissa bits and XLA and torch
+    sum the bf16 products in another order, so a hidden unit can round
+    to the neighbouring bf16 value (2^-8 relative); the coarse weights,
+    and with them the importance samples and the ε-normals, move with
+    it. On this input the worst map differs by 2.0e-3 (the normals);
+    atol/rtol 1e-2 keeps a 5x margin and is still two orders below what
+    a wrong head or a missing cast gives."""
+    ref, out = _render_both(setup, compute_dtype="bf16_grad", use_pallas=True,
+                            coarse_shading=False)
+    _assert_maps(ref, out, basic_tol=(1e-2, 1e-2), shaded_tol=(1e-2, 1e-2))
+
+
+def test_frame_render_matches_render_rays(setup):
+    """Tiling with padding (21 rays, chunk 8 -> 3 tiles, the last padded
+    by repeating the last ray) gives the same maps as one batch."""
+    _, tvars, _, tconsts, rays_o, rays_d = setup
+    _, tr = _cfgs(coarse_shading=False)
+    ro, rd = torch.from_numpy(rays_o), torch.from_numpy(rays_d)
+    ro, rd = torch.cat([ro, ro, ro[:5]]), torch.cat([rd, rd, rd[:5]])
+    keys = ("color_map", "depth_map", "target_normal_map")
+    fn = make_frame_render_fn(tvars, tconsts, tr, output_keys=keys)
+    out = render_frame(fn, ro, rd, 2.0, 6.0, chunk=8)
+    ref = render_rays(tvars, tconsts, make_ray_batch(ro, rd, 2.0, 6.0), tr)
+    assert set(out) == set(keys)
+    for k in keys:
+        assert out[k].shape[0] == 21
+        np.testing.assert_allclose(out[k].numpy(), ref[k].numpy(), atol=1e-6,
+                                   err_msg=k)
+
+
+class _Scene:
+    height, width, focal, near, far = 6, 8, 7.0, 2.0, 6.0
+
+    def __init__(self):
+        rng = np.random.default_rng(9)
+        poses = []
+        for _ in range(2):
+            q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+            poses.append(np.concatenate([q, rng.standard_normal((3, 1)) * 0.1], 1))
+        self.poses = np.stack(poses).astype(np.float32)
+
+    def gt_buffers(self):
+        return {}
+
+
+def test_render_path(setup):
+    jvars, tvars, jconsts, tconsts, _, _ = setup
+    jr, tr = _cfgs(use_pallas=True)
+    scene = _Scene()
+    ref = j_render_path(jvars, jconsts, scene, jr, savedir=None, chunk=16)
+    out = render_path(tvars, tconsts, scene, tr, chunk=16)
+    assert set(out) == set(ref)
+    for k, r in ref.items():
+        assert out[k].shape == r.shape, k
+        assert out[k].shape[:3] == (2, 6, 8), k
+        shaded = k in ("rgb", "specular", "diffuse", "n_dot_v", "target_normal_map",
+                       "reflected_radiance", "prefiltered_reflected",
+                       "normal_from_depth") or k.startswith("reflected_coarse")
+        atol, rtol = (2e-3, 5e-3) if shaded else (5e-4, 1e-3)
+        np.testing.assert_allclose(out[k], r, atol=atol, rtol=rtol, err_msg=k)
+
+
+@pytest.mark.parametrize("kw,mode", [
+    (dict(normal_type="normal_map_from_sigma_gradient_surface"), "normal_type"),
+    (dict(normal_type="normal_map_from_depth_gradient"), "normal_type"),
+    (dict(normal_type="ground_truth"), "normal_type"),
+    (dict(shading_mode="monte_carlo"), "monte_carlo"),
+    (dict(edit=EditConfig()), "edit"),
+    (dict(infer_normal=True), "infer_normal"),
+    (dict(infer_depth=True), "infer_depth"),
+    (dict(calculate_albedo_from_gt=True), "calculate_albedo_from_gt"),
+    (dict(depth_map_from_ground_truth=True), "depth_map_from_ground_truth"),
+    (dict(use_pallas_train=True), "use_pallas_train"),
+    (dict(compute_dtype="amp"), "amp"),
+    (dict(compute_dtype="mixed"), "mixed"),
+    (dict(compute_dtype="bfloat16"), "bfloat16"),
+    (dict(compute_dtype="float64"), "float64"),
+    (dict(perturb=True), "perturb"),
+])
+def test_uncovered_modes_raise(setup, kw, mode):
+    _, tvars, _, tconsts, rays_o, rays_d = setup
+    _, tr = _cfgs(**kw)
+    batch = make_ray_batch(torch.from_numpy(rays_o), torch.from_numpy(rays_d), 2.0, 6.0)
+    with pytest.raises(NotImplementedError, match=mode):
+        render_rays(tvars, tconsts, batch, tr)
+
+
+def test_render_path_uncovered_options_raise(setup):
+    _, tvars, _, tconsts, _, _ = setup
+    _, tr = _cfgs()
+    with pytest.raises(NotImplementedError, match="savedir"):
+        render_path(tvars, tconsts, _Scene(), tr, savedir="out")
+    with pytest.raises(NotImplementedError, match="fast"):
+        render_path(tvars, tconsts, _Scene(), tr, fast=False)
