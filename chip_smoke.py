@@ -5,20 +5,32 @@
 
 Phases, one JSON line each; any failure exits non-zero:
   device  the card's name and power limit (nvidia-smi); fails without CUDA.
-  build   nvcc builds every kernel source of the path, all at once.
-  kernel  each kernel against its plain PyTorch version on the card at
-          the shapes the main path gives it, and at a ragged point count:
-          errors against the stated tolerance, kernel and plain times
-          (CUDA events, after warm-up), and the least time the card could
-          take (FLOPs over the f32 rate, bytes over the memory rate).
-  slice   the main path — `render_path` at full width (8x256 field, K=3,
-          64+128 samples, ε-normals, split-sum, bf16_grad, K1 on the
-          no-grad sweeps, chunks of 2048 rays) over two 160x120 poses
-          with weights from a seed — with the kernels' launch counts
-          zeroed before it and read after it; every exported buffer must
-          be finite, and one chunk must match the eager path's render.
-Then the per-kernel JSON line, the card line, and the ok line last.
-Every number printed is measured in this run, on this card.
+  build   nvcc builds every kernel source, one process per source, at once.
+  kernel  each kernel against its plain PyTorch version on the card at the
+          shapes the main paths give it, and at a ragged point count:
+          K1 (both variants), K2 (raw and the 11 residuals) and K3 (the 24
+          weight gradients, and two runs bit-identical); errors against the
+          stated tolerance, kernel and plain times (CUDA events, after
+          warm-up), and the least time the card could take (FLOPs over the
+          f32 or bf16 tensor-core rate, bytes over the memory rate). Also
+          the field gradients of K2/K3 and of the eager bf16 query against
+          the eager f32 one.
+  slice   the serving path -- `render_path` at full width (8x256 field,
+          K=3, 64+128 samples, ε-normals, split-sum, bf16_grad, K1 on the
+          no-grad sweeps, chunks of 2048 rays) over two 160x120 poses --
+          with the launch counts zeroed before it and read after it; every
+          exported buffer must be finite, and one chunk must match the
+          eager path's render.
+  train   the training path -- bench.py's workload with BENCH_PTRAIN=1
+          (512 rays, 64+128 samples, sgs normals, bf16_grad, K2/K3 on the
+          gradient path of both passes, K1 on the reflected march, Adam)
+          on a synthetic 8x480x640 scene: 3 warm-up steps, then timed steps
+          with the launch counts zeroed before them (2 K2, 2 K3 and 2 K1
+          full per step); finite loss and params; the kernel path's
+          gradients against the eager paths'; a profiler breakdown.
+Weights are random from a seed. Then the per-kernel JSON line, the card
+line, and the ok line last. Every number printed is measured in this
+run, on this card.
 """
 
 from __future__ import annotations
@@ -35,14 +47,25 @@ from ibl_nerf_tpu_torch.data.brdf_lut import load_brdf_lut
 from ibl_nerf_tpu_torch.eval.render_path import render_path
 from ibl_nerf_tpu_torch.kernels import build as kernel_build
 from ibl_nerf_tpu_torch.kernels import fused_field as ff
+from ibl_nerf_tpu_torch.kernels import fused_field_train as fft
 from ibl_nerf_tpu_torch.models.field import FieldConfig, init_field_params
 from ibl_nerf_tpu_torch.ops.rays import get_rays_full_image
 from ibl_nerf_tpu_torch.render import RenderConfig, make_ray_batch, render_rays
+from ibl_nerf_tpu_torch.render import renderer
+from ibl_nerf_tpu_torch.train import (
+    LossConfig,
+    build_optimizer,
+    init_train_state,
+    make_train_step,
+    resolve_phase,
+)
+from ibl_nerf_tpu_torch.train.step import _leaves
 from ibl_nerf_tpu_torch.utils.device import resolve_device
 
 # H100 SXM data-sheet rates at the full 700 W: f32 outside the tensor
-# cores, and HBM3.
+# cores, bf16 on the tensor cores (dense), and HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 # K1 against its plain version: both sum f32 products, in other orders
@@ -52,9 +75,39 @@ KERNEL_ATOL, KERNEL_RTOL = 2e-6, 1e-4
 # shaded maps, the repo's shaded-map bound.
 SLICE_ATOL, SLICE_RTOL = 2e-3, 5e-3
 
+# K2/K3 against their plain versions, per output block: ||kernel - plain||
+# / ||plain||. Both round every activation and delta to bf16 after an f32
+# sum taken in another order (mma.sync against cuBLAS), so an element near
+# a rounding tie can land on the neighbouring bf16 value (2^-8 relative)
+# and carry that into the later layers; such flips stay below 1e-3 of a
+# block's norm, while a wrong row, mask or offset gives O(1).
+TRAIN_KERNEL_REL = 1e-2
+
+# The kernel path's gradient error against f32 may be at most this many
+# times the eager bf16 path's (the criterion of tests/test_kernels.py for
+# the JAX kernel): in the kernel phase on the same points and cotangent,
+# and in the train phase for one step from the same state and draws.
+# At the slice's own settings that step is chaotic in its forward values:
+# the importance samples move when a bf16 coarse weight crosses a draw,
+# and the sgs normal is the gradient of the bf16 density; both bf16 paths
+# then sit 5-30% from f32 and their ratio swung from 0.35 to 2.55 per
+# draw, and from 0.94 to 2.07 as the mean of 16 draws. So the gated step
+# holds both fixed -- no importance pass, ε normals on the f32 sweeps --
+# and the slice's own errors are printed beside it.
+GRAD_RATIO = 1.3
+GRAD_DRAWS = 4
+EPS_NORMALS = "normal_map_from_depth_gradient_epsilon"
+
 CHUNK = 2048
 H, W, N_POSES = 120, 160, 2
 SEED = 0
+
+# The train phase: bench.py's workload with BENCH_PTRAIN=1 (512 rays,
+# 64 + 128 samples, sgs normals, bf16_grad, K2/K3 on the gradient path,
+# K1 on the reflected march) on its synthetic Kitchen-shaped scene.
+N_RAND = 512
+TRAIN_H, TRAIN_W, TRAIN_IMAGES = 480, 640, 8
+WARMUP_STEPS, TIMED_STEPS = 3, 10
 
 
 def emit(phase: str, **fields) -> None:
@@ -167,6 +220,129 @@ def kernel_phase(cfg, packed, gen) -> list[dict]:
     return report
 
 
+def train_field_flops(cfg: FieldConfig) -> tuple[int, int]:
+    """FLOPs per point of K2 and of K3 (twice the multiply-adds). K3 runs
+    the transposed products of every layer but the ones fed by the
+    embedding (x gets no gradient), every weight product act^T @ delta,
+    and recomputes the coarse features vf."""
+    w, half, k = cfg.width, cfg.width // 2, cfg.coarse_radiance_number
+    fwd = field_macs(cfg, density_only=False)
+    bwd = (2 * fwd - 2 * cfg.input_ch * w - cfg.input_ch_views * w
+           + w * k * half)
+    return 2 * fwd, 2 * bwd
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+def field_grad_errors(cfg, params, gen, n_rays, n_samples) -> dict:
+    """Gradients of one loss on the field's raw output into the field
+    params, on the same points and target: the gradient-path query on
+    K2/K3 and the eager bf16 query, each against the eager f32 query
+    (relative norm) -- the training step's three paths, at one shape."""
+    leaves = _leaves(params)
+    pts = torch.rand((n_rays, n_samples, 3), device="cuda", generator=gen) * 4 - 2
+    dirs = torch.nn.functional.normalize(
+        torch.randn((n_rays, 3), device="cuda", generator=gen), dim=-1)
+    tgt = torch.randn((n_rays, n_samples, 9 + 3 * cfg.coarse_radiance_number),
+                      device="cuda", generator=gen)
+    grads = {}
+    for name, kw in (("kernels", {}), ("eager_bf16", dict(use_pallas_train=False)),
+                     ("eager_f32", dict(use_pallas_train=False, compute_dtype="float32"))):
+        rcfg = train_config(cfg, use_pallas=False, **kw)[0]
+        query_full = renderer._make_queries(params, rcfg)[0]
+        loss = ((query_full(pts, dirs) - tgt) ** 2).mean()
+        grads[name] = flat_grads(torch.autograd.grad(loss, leaves))
+    ref = grads["eager_f32"]
+    return {k: ((grads[k] - ref).norm() / ref.norm()).item() for k in ("kernels", "eager_bf16")}
+
+
+def train_kernel_phase(cfg, field_params, gen) -> list[dict]:
+    """K2 and K3 against their plain versions at the fine-pass (512x192)
+    and coarse-pass (512x64) point counts and a ragged one, and their
+    gradients against the eager paths'; timed at the fine-pass shape."""
+    w16 = fft.to_bf16(ff.pack_field_weights(field_params, cfg))
+    emb = fft.emb_constants(cfg, torch.device("cuda"))
+    n_out = 9 + 3 * cfg.coarse_radiance_number
+    fine, coarse = 512 * (64 + 128), 512 * 64
+    errs = {"fwd": {}, "bwd": {}}
+    for n in (fine + 37, coarse, fine):
+        pts = torch.rand((n, 1, 3), device="cuda", generator=gen) * 4 - 2
+        dirs = torch.nn.functional.normalize(
+            torch.randn((n, 3), device="cuda", generator=gen), dim=-1)
+        x = ff._pack_inputs(pts, dirs)
+        g = torch.randn((n, n_out), device="cuda", generator=gen) * 1e-3
+        raw, res = fft._launch_fwd(x, w16, emb)
+        raw_p, res_p = fft.train_forward_plain(x, w16, emb)
+        dw = fft._launch_bwd(x, g, res_p, w16, emb)
+        dw_again = fft._launch_bwd(x, g, res_p, w16, emb)
+        dw_p = fft.train_backward_plain(x, g, res_p, w16, emb)
+        torch.cuda.synchronize()
+        fwd = {"raw": rel_err(raw, raw_p)}
+        fwd.update({k: rel_err(res[i], res_p[i]) for i, k in enumerate(fft._RES_ORDER)})
+        bwd = {k: rel_err(dw[k], dw_p[k]) for k in fft._DW_ORDER}
+        if not torch.isfinite(raw).all() or not all(torch.isfinite(v).all() for v in dw.values()):
+            fail("kernel", f"K2/K3: non-finite output at {n} points")
+        if not all(torch.equal(dw[k], dw_again[k]) for k in fft._DW_ORDER):
+            fail("kernel", f"K3: two runs on the same inputs differ at {n} points")
+        for name, e in (("K2", fwd), ("K3", bwd)):
+            worst = max(e, key=e.get)
+            if not e[worst] <= TRAIN_KERNEL_REL:
+                fail("kernel", f"{name} at {n} points: block {worst} off by "
+                     f"{e[worst]:.3e} relative (bound {TRAIN_KERNEL_REL})")
+        errs["fwd"][n], errs["bwd"][n] = fwd, bwd
+        max_abs = {"fwd": (raw - raw_p).abs().max().item(),
+                   "bwd": max((dw[k] - dw_p[k]).abs().max().item() for k in dw)}
+
+    grad_err = field_grad_errors(cfg, field_params, gen, 512, 64 + 128)
+    if not grad_err["kernels"] <= GRAD_RATIO * grad_err["eager_bf16"]:
+        fail("kernel", f"K2/K3 field gradient error {grad_err['kernels']:.3e} exceeds "
+             f"{GRAD_RATIO} x the eager bf16 field's {grad_err['eager_bf16']:.3e}")
+    emit("kernel", name="fused_field_train_grad", points=fine,
+         grad_rel_err_vs_f32=grad_err, ratio_bound=GRAD_RATIO)
+
+    # timing at the fine-pass shape, in turns: plain, kernel, kernel, plain
+    iters = 5
+    f_flops, b_flops = (f * fine for f in train_field_flops(cfg))
+    weight_bytes = sum(v.numel() * 2 for v in w16.values())
+    io_bytes = fine * (ff.IN_COLS * 4 + n_out * 4 + len(fft._RES_ORDER) * cfg.width * 2)
+    dw_bytes = sum(v.numel() * 4 for v in w16.values())
+    cases = [
+        ("fused_field_train_fwd", "ibl_nerf_tpu/kernels/fused_field_train.py:110",
+         lambda: fft._launch_fwd(x, w16, emb),
+         lambda: fft.train_forward_plain(x, w16, emb),
+         f_flops, io_bytes + weight_bytes),
+        ("fused_field_train_bwd", "ibl_nerf_tpu/kernels/fused_field_train.py:143",
+         lambda: fft._launch_bwd(x, g, res_p, w16, emb),
+         lambda: fft.train_backward_plain(x, g, res_p, w16, emb),
+         b_flops, io_bytes + weight_bytes + dw_bytes),
+    ]
+    report = []
+    for (name, replaces, kern, plain, flops, nbytes), which in zip(cases, ("fwd", "bwd")):
+        kern(), plain()
+        p1, k1, k2, p2 = (time_ms(plain, iters), time_ms(kern, iters),
+                          time_ms(kern, iters), time_ms(plain, iters))
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        worst = {n: max(e.values()) for n, e in errs[which].items()}
+        report.append({
+            "name": name, "route": "cuda",
+            "source": "ibl_nerf_tpu_torch/csrc/fused_field_train.cu",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": max_abs[which],
+            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,
+        })
+        emit("kernel", name=name, points=fine, flops=flops, bytes=nbytes,
+             worst_rel_err_by_points=worst, rel_err_fine=errs[which][fine],
+             rel_bound=TRAIN_KERNEL_REL, max_abs_err_fine=max_abs[which],
+             ms=[k1, k2], plain_ms=[p1, p2], bound_ops_ms=t_ops,
+             bound_bytes_ms=t_bytes, tflops=flops / ((k1 + k2) / 2) / 1e9)
+    return report
+
+
 def _look_at(eye: np.ndarray) -> np.ndarray:
     """Camera-to-world (3, 4) at `eye` looking at the origin (-z forward)."""
     z = eye / np.linalg.norm(eye)
@@ -235,14 +411,15 @@ def slice_phase(cfg, variables, consts, kernels, card: str) -> None:
             fail("slice", f"{name} launched {count} times, expected one per "
                  f"chunk ({n_chunks})")
     for row in kernels:
-        row["launches"] = launches[row["name"]]
+        if row["name"] in launches:
+            row["launches"] = launches[row["name"]]
     for k, v in results.items():
         if v.shape[:3] != (N_POSES, H, W) or not np.isfinite(v).all():
             fail("slice", f"buffer {k}: shape {v.shape} or non-finite values")
     for k in ("rgb", "target_normal_map", "reflected_radiance", "depth", "acc"):
         if k not in results:
             fail("slice", f"buffer {k} missing")
-    k1_ms = sum(r["ms"] for r in kernels)
+    k1_ms = sum(r["ms"] for r in kernels if r["name"] in ff.LAUNCHES)
     emit("slice", card=card, poses=N_POSES, height=H, width=W, chunk=CHUNK,
          chunks=n_chunks, seconds=seconds,
          rays_per_s=N_POSES * H * W / seconds,
@@ -252,6 +429,181 @@ def slice_phase(cfg, variables, consts, kernels, card: str) -> None:
          launches=launches, buffers=sorted(results),
          chunk_vs_eager_max_abs_err=chunk_err,
          atol=SLICE_ATOL, rtol=SLICE_RTOL)
+
+
+def train_config(cfg: FieldConfig, **kw):
+    rcfg = RenderConfig(
+        field=cfg, n_samples=64, n_importance=128, perturb=True,
+        normal_type="normal_map_from_sigma_gradient_surface",
+        correct_depth_for_prefiltered_radiance_infer=True,
+        compute_dtype="bf16_grad", use_pallas_train=True, use_pallas=True).replace(**kw)
+    lcfg = LossConfig(load_priors=True, freeze_roughness=True,
+                      n_iter_ignore_approximated_radiance=10000,
+                      n_iter_ignore_prior=100000, beta_prior_albedo=1.0,
+                      beta_irradiance_reg=0.1, coarse_radiance_number=3)
+    return rcfg, lcfg, resolve_phase(50000, lcfg)
+
+
+def train_scene(device, gen, h=TRAIN_H, w=TRAIN_W, n_img=TRAIN_IMAGES) -> dict:
+    """bench.py's synthetic scene, made on the device from a seed: uniform
+    images and K=3 prefiltered stacks, poses stepping along z."""
+    poses = torch.eye(4, device=device).repeat(n_img, 1, 1)
+    poses[:, 2, 3] = torch.linspace(0, 1, n_img, device=device)
+    return {
+        "images": torch.rand((n_img, h, w, 3), device=device, generator=gen),
+        "prefiltered_images": torch.rand((3, n_img, h, w, 3), device=device,
+                                         generator=gen),
+        "poses": poses,
+        "K": torch.tensor([[555.0, 0, w / 2], [0, 555.0, h / 2], [0, 0, 1]],
+                          device=device),
+    }
+
+
+def flat_grads(grads) -> torch.Tensor:
+    return torch.cat([g.reshape(-1).float() for g in _leaves(grads)])
+
+
+# Kernel names of the port's own CUDA kernels, by the row they belong to.
+OWN_KERNELS = {"fused_field_kernel": "K1", "k2_forward": "K2", "k3_": "K3"}
+
+
+def profile_steps(step, state, arrays, gen, n=2) -> dict:
+    """Kernel time on the device over n train steps (torch.profiler), the
+    share of K1/K2/K3 in it, and the device's busy share of the profiled
+    host-clock window (the profiler slows the host). Empty when the
+    profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(state, arrays, generator=gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, launches, host_waits = {}, 0, 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            # operator rows repeat the time of the kernels they launch; count
+            # the runtime calls that make the host wait for the device
+            if "Synchronize" in ev.key or ev.key == "cudaMemcpy":
+                host_waits += ev.count
+            continue
+        launches += ev.count
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3 / n
+    device_ms = sum(by_name.values())
+    if device_ms == 0:
+        return {}
+    own = {}
+    for name, ms in by_name.items():
+        for prefix, row in OWN_KERNELS.items():
+            if prefix in name:
+                own[row] = own.get(row, 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"steps": n, "wall_ms_per_step": wall_ms / n, "device_ms_per_step": device_ms,
+            "device_ops_per_step": launches / n, "host_waits_per_step": host_waits / n,
+            "busy_share": device_ms / (wall_ms / n), "own_ms_per_step": own,
+            "own_share_of_device": sum(own.values()) / device_ms,
+            "top_kernels_ms_per_step": dict(top)}
+
+
+def train_phase(cfg, variables, consts, kernels, card: str, device="cuda",
+                n_rand=N_RAND, scene_hw=(TRAIN_H, TRAIN_W), steps=TIMED_STEPS) -> dict:
+    """The training slice: warm-up steps, then timed steps with the launch
+    counts zeroed before them; the gradients of the kernel path against
+    the eager bf16 path, both against an f32 eager step."""
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    h, w = scene_hw
+    arrays = train_scene(device, gen, h, w)
+    rcfg, lcfg, phase = train_config(cfg)
+    optimizer = build_optimizer(variables, lrate=5e-4, lrate_decay=500, lcfg=lcfg)
+    state = init_train_state(variables, optimizer)
+
+    def make(rc):
+        return make_train_step(rc, lcfg, phase, optimizer, consts, h, w, n_rand,
+                               prior_irradiance_mean=0.7, near=2.0, far=8.0)
+
+    step = make(rcfg)
+    for _ in range(WARMUP_STEPS):
+        state, scalars = step(state, arrays, generator=gen)
+    sync()
+
+    counters = (ff.LAUNCHES, fft.LAUNCHES)
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, scalars = step(state, arrays, generator=gen)
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = {**ff.LAUNCHES, **fft.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+
+    want = {"fused_field_train_fwd": 2 * steps, "fused_field_train_bwd": 2 * steps,
+            "fused_field_apply": 2 * steps, "fused_field_density": 0}
+    for k, n in want.items():
+        if cuda and launches[k] != n:
+            fail("train", f"{k} launched {launches[k]} times in {steps} steps, "
+                 f"expected {n}")
+    for row in kernels:
+        if row["name"] in fft.LAUNCHES:
+            row["launches"] = launches[row["name"]]
+    loss = float(scalars["loss_total"])
+    if not np.isfinite(loss) or not all(torch.isfinite(p).all()
+                                        for p in _leaves(state.variables)):
+        fail("train", f"loss {loss} or a param is not finite after {steps} steps")
+
+    # gradients of one step from the same state and draws, three ways
+    def grad_errors(rc):
+        paths = {"kernels": make(rc),
+                 "eager_bf16": make(rc.replace(use_pallas_train=False, use_pallas=False)),
+                 "eager_f32": make(rc.replace(use_pallas_train=False, use_pallas=False,
+                                              compute_dtype="float32"))}
+        errs = {"kernels": [], "eager_bf16": []}
+        for _ in range(GRAD_DRAWS):
+            draws = paths["kernels"].draw(arrays, gen)
+            grads = {k: flat_grads(p.loss_and_grads(state.variables, arrays, draws)[2])
+                     for k, p in paths.items()}
+            ref = grads["eager_f32"]
+            for k in errs:
+                errs[k].append(((grads[k] - ref).norm() / ref.norm()).item())
+        return errs
+
+    held = grad_errors(rcfg.replace(n_importance=0, normal_type=EPS_NORMALS))
+    err = {k: float(np.mean(v)) for k, v in held.items()}
+    if not err["kernels"] <= GRAD_RATIO * err["eager_bf16"]:
+        fail("train", f"kernel-path gradient error {err['kernels']:.3e} (mean of "
+             f"{GRAD_DRAWS} draws) exceeds {GRAD_RATIO} x the eager bf16 path's "
+             f"{err['eager_bf16']:.3e}")
+    slice_errs = grad_errors(rcfg)
+
+    profile = None
+    if cuda:
+        try:  # reporting only: a tracer the machine lacks fails no phase
+            profile = profile_steps(step, state, arrays, gen)
+        except RuntimeError as e:
+            profile = {"error": str(e)}
+
+    report = dict(card=card, rays=n_rand, steps=steps, seconds=seconds,
+                  ms_per_step=seconds / steps * 1e3, rays_per_s=n_rand * steps / seconds,
+                  launches=launches, loss=loss,
+                  grad_check={"settings": "no importance pass, ε normals",
+                              "rel_err_vs_f32_mean": err, "per_draw": held,
+                              "ratio": err["kernels"] / err["eager_bf16"],
+                              "ratio_bound": GRAD_RATIO},
+                  grad_rel_err_slice_settings_per_draw=slice_errs,
+                  peak_memory_bytes=peak, profile=profile)
+    emit("train", **report)
+    return report
 
 
 def main() -> int:
@@ -282,7 +634,13 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     kernels = kernel_phase(cfg, ff.pack_field_weights(variables["fine"], cfg), gen)
+    train_vars = {"coarse": init_field_params(rng, cfg, device),
+                  "fine": init_field_params(rng, cfg, device)}
+    for v in _leaves(train_vars):
+        v.requires_grad_(True)
+    kernels += train_kernel_phase(cfg, train_vars["fine"], gen)
     slice_phase(cfg, variables, consts, kernels, card)
+    train_phase(cfg, train_vars, consts, kernels, card)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

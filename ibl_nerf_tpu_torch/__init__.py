@@ -2,15 +2,20 @@
 
 The JAX package `ibl_nerf_tpu` is the reference; this package mirrors
 its layout (`ops/`, `models/`, `kernels/`, `render/`, `data/`, `eval/`,
-`utils/`) and public names, so each module has one counterpart there.
+`train/`, `utils/`) and public names, so each module has one
+counterpart there.
 It imports torch and numpy only — never jax, never `ibl_nerf_tpu`.
 
-Covered so far: split-sum inference rendering (`eval.render_path` →
-`render.render_rays`, ε-normals, the BRDF-LUT fetch, the reflected
-march and mip interpolation) in the `float32` and `bf16_grad` compute
-modes, with the no-grad sweeps on the hand-written CUDA kernel K1
-(`kernels/fused_field.py`, `csrc/fused_field.cu`). Modes outside that
-raise NotImplementedError with the mode's name.
+Covered so far, in the `float32` and `bf16_grad` compute modes:
+split-sum inference rendering (`eval.render_path` → `render.render_rays`,
+ε-normals, the BRDF-LUT fetch, the reflected march and mip
+interpolation), and the train step (`train.make_train_step`: pixel
+sampling, the gradient path with random draws, sgs or ε normals, the
+staged losses, named-group Adam). The no-grad sweeps run on the
+hand-written CUDA kernel K1 (`kernels/fused_field.py`,
+`csrc/fused_field.cu`), the gradient-path field query on K2/K3
+(`kernels/fused_field_train.py`, `csrc/fused_field_train.cu`). Modes
+outside that raise NotImplementedError with the mode's name.
 """
 
 __version__ = "0.1.0"

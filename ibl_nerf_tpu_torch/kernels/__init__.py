@@ -8,3 +8,9 @@ from ibl_nerf_tpu_torch.kernels.fused_field import (
     fused_field_apply_plain,
     fused_field_density_plain,
 )
+from ibl_nerf_tpu_torch.kernels.fused_field_train import (
+    FusedFieldTrain,
+    fused_field_apply_train,
+    train_backward_plain,
+    train_forward_plain,
+)

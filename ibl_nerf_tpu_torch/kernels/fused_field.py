@@ -72,6 +72,16 @@ def _embedding_constants(cfg: FieldConfig):
     return E, phase, id_mask
 
 
+@functools.cache
+def embedding_tensors(cfg: FieldConfig, device: torch.device) -> dict[str, torch.Tensor]:
+    """`_embedding_constants` as f32 tensors on `device`, copied there once
+    (a copy from host memory waits for the device)."""
+    E, phase, id_mask = _embedding_constants(cfg)
+    return {"emb_E": torch.from_numpy(E).to(device),
+            "emb_phase": torch.from_numpy(phase).to(device),
+            "emb_id": torch.from_numpy(id_mask).to(device)}
+
+
 def _pad_rows(w: torch.Tensor, rows: int, row0: int = 0) -> torch.Tensor:
     out = w.new_zeros((rows, w.shape[1]))
     out[row0:row0 + w.shape[0]] = w
@@ -130,10 +140,7 @@ def pack_field_weights(params: dict, cfg: FieldConfig) -> dict[str, torch.Tensor
     packed.update(A=A, B=B, C=C, bias=bias,
                   D=D if D is not None else vw.new_zeros((half, n_out)))
 
-    E, phase, id_mask = _embedding_constants(cfg)
-    packed["emb_E"] = torch.from_numpy(E)
-    packed["emb_phase"] = torch.from_numpy(phase)
-    packed["emb_id"] = torch.from_numpy(id_mask)
+    packed.update(embedding_tensors(cfg, device))
     return {k: v.to(device=device, dtype=torch.float32).contiguous()
             for k, v in packed.items()}
 

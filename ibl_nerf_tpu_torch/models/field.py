@@ -1,4 +1,4 @@
-"""The IBL-NeRF neural field (forward only).
+"""The IBL-NeRF neural field.
 
 Counterpart of ibl_nerf_tpu/models/field.py: an 8x256 trunk MLP with a
 skip connection at layer 4, plus heads for density sigma(1), albedo(3),
@@ -9,9 +9,9 @@ applied by the renderer.
 
 Params are a dict of (in, out) tensors mirroring the JAX pytree, so a
 JAX checkpoint converts with one numpy round-trip
-(`utils.port.field_params_from_numpy`). The freeze/detach sites of
-training come with the training slice; this module is used under
-`torch.no_grad()`.
+(`utils.port.field_params_from_numpy`). `freeze_radiance` and
+`freeze_roughness` place `.detach()` exactly where the JAX field places
+`stop_gradient` (the reference's `forward_freezed`).
 """
 
 from __future__ import annotations
@@ -141,12 +141,24 @@ def _zero_cols(w: torch.Tensor, n: int) -> torch.Tensor:
     return w.new_zeros((w.shape[0], n))
 
 
-def _assembly_matrices(params: Params, cfg: FieldConfig):
+def _keep(x):
+    return x
+
+
+def _assembly_matrices(params: Params, cfg: FieldConfig,
+                       freeze_radiance: bool = False,
+                       freeze_roughness: bool = False):
     """Column-packed output projections: the raw layout
     [σ, albedo3, ρ, irrad, rad3, coarse3K] is h@A + pos_feat@B + h2@C +
-    view_feat@D + bias."""
+    view_feat@D + bias.
+
+    Freezing detaches columns: σ and radiance (and the coarse heads) under
+    freeze_radiance, roughness only under both flags. A detached column
+    whose input is detached too is "computed under no_grad"."""
     K = cfg.coarse_radiance_number
-    w_sig, w_rough = params["sigma"]["w"], params["roughness"]["w"]
+    s_rad = torch.Tensor.detach if freeze_radiance else _keep
+    s_rough = torch.Tensor.detach if freeze_radiance and freeze_roughness else _keep
+    w_sig, w_rough = s_rad(params["sigma"]["w"]), s_rough(params["roughness"]["w"])
     A = torch.cat([w_sig, _zero_cols(w_sig, 3), w_rough,
                    _zero_cols(w_sig, 4 + 3 * K)], dim=1)
 
@@ -156,50 +168,66 @@ def _assembly_matrices(params: Params, cfg: FieldConfig):
         torch.cat([_zero_cols(w_irr, 5), w_irr, _zero_cols(w_irr, 3 + 3 * K)], dim=1),
     ], dim=0)
 
-    w_rad = params["radiance"]["w"]
+    w_rad = s_rad(params["radiance"]["w"])
     C = torch.cat([_zero_cols(w_rad, 6), w_rad, _zero_cols(w_rad, 3 * K)], dim=1)
 
     D = None
     if K:
         D = torch.cat([
-            torch.cat([_zero_cols(p["w"], 9 + 3 * k), p["w"],
+            torch.cat([_zero_cols(p["w"], 9 + 3 * k), s_rad(p["w"]),
                        _zero_cols(p["w"], 3 * (K - k - 1))], dim=1)
             for k, p in enumerate(params["coarse"])], dim=0)  # (K*half, n_out)
 
     bias = torch.cat(
-        [params["sigma"]["b"], params["albedo"]["b"], params["roughness"]["b"],
-         params["irradiance"]["b"], params["radiance"]["b"]]
-        + [p["b"] for p in params["coarse"]], dim=0)
+        [s_rad(params["sigma"]["b"]), params["albedo"]["b"],
+         s_rough(params["roughness"]["b"]), params["irradiance"]["b"],
+         s_rad(params["radiance"]["b"])]
+        + [s_rad(p["b"]) for p in params["coarse"]], dim=0)
     return A, B, C, D, bias
 
 
 def apply_field_density(params: Params, pts_emb: torch.Tensor,
-                        cfg: FieldConfig) -> torch.Tensor:
-    """Density-only query: raw sigma (..., 1)."""
+                        cfg: FieldConfig,
+                        freeze_radiance: bool = False) -> torch.Tensor:
+    """Density-only query: raw sigma (..., 1). Under freeze_radiance the
+    trunk and sigma carry no gradient."""
     h = _trunk(params, pts_emb, cfg)
-    return _mm_f32out(h, params["sigma"]["w"]) + params["sigma"]["b"]
+    sigma = _mm_f32out(h, params["sigma"]["w"]) + params["sigma"]["b"]
+    return sigma.detach() if freeze_radiance else sigma
 
 
 def apply_field(params: Params, pts_emb: torch.Tensor, dirs_emb: torch.Tensor,
-                cfg: FieldConfig) -> torch.Tensor:
-    """Full field query -> raw (..., 9 + 3K)."""
+                cfg: FieldConfig, freeze_radiance: bool = False,
+                freeze_roughness: bool = False) -> torch.Tensor:
+    """Full field query -> raw (..., 9 + 3K).
+
+    Under freeze_radiance the trunk, sigma, radiance, the view branch and
+    the coarse heads carry no gradient; albedo and irradiance train their
+    own heads only; roughness is frozen too under freeze_roughness.
+    """
     W = params["feature"]["w"].shape[0]
     h = _trunk(params, pts_emb, cfg)
-    pos_feat = _pos_features(params, h)
+    h_heads = h.detach() if freeze_radiance else h
+    pos_feat = _pos_features(params, h_heads)
 
     if cfg.color_independent_to_direction:
-        h2 = h
+        h2 = h_heads
     else:
-        feat = _dense(params["feature"], h)
+        feat = _dense(params["feature"], h_heads)
         vw, vb = params["views"][0]["w"], params["views"][0]["b"]
         h2 = torch.relu(feat @ vw[:W] + dirs_emb @ vw[W:] + vb)
         for layer in params["views"][1:]:
             h2 = torch.relu(_dense(layer, h2))
 
     view_feat = _coarse_features(params, h2)
-    A, B, C, D, bias = _assembly_matrices(params, cfg)
-    raw = (_mm_f32out(h, A) + _mm_f32out(pos_feat, B)
-           + _mm_f32out(h2, C) + bias)
+    A, B, C, D, bias = _assembly_matrices(params, cfg, freeze_radiance,
+                                          freeze_roughness)
+    # under freeze the radiance and coarse columns are dead ends for the
+    # view branch too: its inputs to them are detached
+    h2_in = h2.detach() if freeze_radiance else h2
+    raw = (_mm_f32out(h_heads, A) + _mm_f32out(pos_feat, B)
+           + _mm_f32out(h2_in, C) + bias)
     if view_feat is not None:
-        raw = raw + _mm_f32out(view_feat, D)
+        vf_in = view_feat.detach() if freeze_radiance else view_feat
+        raw = raw + _mm_f32out(vf_in, D)
     return raw

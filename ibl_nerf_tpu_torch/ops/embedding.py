@@ -7,6 +7,8 @@ log-sampled frequency bands 2**linspace(0, multires-1, multires).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -26,6 +28,14 @@ def frequency_bands(num_freqs: int, log_sampling: bool = True) -> np.ndarray:
     return np.linspace(2.0**0.0, 2.0**max_freq, num_freqs)
 
 
+@functools.cache
+def _bands(num_freqs: int, log_sampling: bool, dtype: torch.dtype,
+           device: torch.device) -> torch.Tensor:
+    """The frequency bands as a tensor, copied to the device once."""
+    return torch.as_tensor(frequency_bands(num_freqs, log_sampling), dtype=dtype,
+                           device=device)
+
+
 def positional_encoding(
     x: torch.Tensor,
     num_freqs: int,
@@ -36,8 +46,7 @@ def positional_encoding(
     per frequency band, sin of all d channels then cos of all d."""
     if num_freqs == 0:
         return x
-    freqs = torch.as_tensor(frequency_bands(num_freqs, log_sampling),
-                            dtype=x.dtype, device=x.device)
+    freqs = _bands(num_freqs, log_sampling, x.dtype, x.device)
     xf = x[..., None, :] * freqs[:, None]                  # (..., F, d)
     enc = torch.stack([torch.sin(xf), torch.cos(xf)], dim=-2)
     enc = enc.reshape(*x.shape[:-1], 2 * num_freqs * x.shape[-1])

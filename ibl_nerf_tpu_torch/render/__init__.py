@@ -1,4 +1,4 @@
-"""Volumetric renderer with split-sum IBL shading (inference path)."""
+"""Volumetric renderer with split-sum IBL shading."""
 
 from ibl_nerf_tpu_torch.render.config import RenderConfig, EditConfig
 from ibl_nerf_tpu_torch.render.renderer import (

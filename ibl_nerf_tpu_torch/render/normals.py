@@ -1,11 +1,15 @@
-"""Finite-difference normal estimators from depth gradients.
+"""Normal estimators: finite differences of the depth, and the density
+gradient.
 
-Counterpart of the ε variants of ibl_nerf_tpu/render/normals.py
+Counterpart of ibl_nerf_tpu/render/normals.py: the ε variants
 (`normal_from_depth_gradient_epsilon`,
-`normal_from_depth_gradient_direction_epsilon`). The autograd and
-sigma-gradient variants come with the training slice.
+`normal_from_depth_gradient_direction_epsilon`) and the sigma-gradient
+variants (`normal_from_sigma_gradient`,
+`normal_from_sigma_gradient_surface`). The autograd depth-gradient
+variants are not ported yet.
 
-`query_sigma` is a callable pts[..., 3] -> raw sigma[..., 1].
+`query_sigma` is a callable pts[..., 3] -> raw sigma[..., 1]. Every
+estimator returns a normal that carries no gradient.
 """
 
 from __future__ import annotations
@@ -26,8 +30,8 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
 
 def _pixel_basis(rays_d: torch.Tensor):
     """right/up basis per ray (unnormalized, as the reference)."""
-    up_world = torch.tensor([0.0, 1.0, 0.0], dtype=rays_d.dtype,
-                            device=rays_d.device).expand(rays_d.shape)
+    up_world = torch.zeros_like(rays_d)
+    up_world[..., 1] = 1.0
     right = torch.linalg.cross(rays_d, up_world, dim=-1)
     up = torch.linalg.cross(right, rays_d, dim=-1)
     return right, up
@@ -92,3 +96,30 @@ def normal_from_depth_gradient_direction_epsilon(query_sigma, rays_o, rays_d,
     pos = [rays_o + _depth_from_sigma(sigma[i], dists, z_vals)[..., None] * nd[i]
            for i in range(4)]
     return _normalize(torch.linalg.cross(pos[0] - pos[1], pos[2] - pos[3], dim=-1))
+
+
+def _sigma_gradient(query_sigma, pts: torch.Tensor) -> torch.Tensor:
+    """d sum(sigma) / d pts, taken with respect to a detached copy of the
+    points only: no gradient reaches the params, no graph is kept. Where
+    sigma carries no gradient (a freeze phase detaches it) the gradient
+    is zero, as jax.grad gives through a stop_gradient."""
+    p = pts.detach().requires_grad_(True)
+    with torch.enable_grad():
+        s = query_sigma(p).sum()
+        if not s.requires_grad:
+            return torch.zeros_like(p)
+        (g,) = torch.autograd.grad(s, p)
+    return g
+
+
+def normal_from_sigma_gradient(query_sigma, pts, weights):
+    """Density-gradient normals composited along the ray:
+    normalize(sum_s weights * -normalize(grad sigma))."""
+    n = -_normalize(_sigma_gradient(lambda p: query_sigma(p)[..., 0], pts))
+    return _normalize(torch.einsum("bs,bsc->bc", weights.detach(), n))
+
+
+def normal_from_sigma_gradient_surface(query_sigma, x_surface):
+    """Density-gradient normals at the composited surface point."""
+    g = _sigma_gradient(lambda p: query_sigma(p[..., None, :])[..., 0], x_surface)
+    return -_normalize(g)

@@ -1,17 +1,25 @@
 """The volumetric renderer: hierarchical sampling, intrinsic
-compositing, and split-sum image-based-lighting shading (forward only).
+compositing, and split-sum image-based-lighting shading.
 
-Counterpart of ibl_nerf_tpu/render/renderer.py for the inference path:
-the coarse pass (density-only on the `coarse_shading=False` fast path),
-deterministic `sample_pdf`, and the fine pass with ε-normals, the
+Counterpart of ibl_nerf_tpu/render/renderer.py: the coarse pass (full
+shading in training, density-only on the `coarse_shading=False` fast
+path), `sample_pdf`, and the fine pass with ε or sgs normals, the
 BRDF-LUT fetch and Fresnel, the reflected march, `mip_interp` and the
-diffuse + specular combine. Everything runs under `torch.no_grad()`.
+diffuse + specular combine. Gradients follow the JAX renderer's
+`stop_gradient` sites: intrinsic maps on detached weights (radiance on
+live ones), a detached surface point, a detached reflected march and
+detached depth in the mip level. The no-grad sweeps run under
+`torch.no_grad()`; `render_image`, `make_frame_render_fn` and the
+serving path render under no-grad throughout.
 
 With `use_pallas` the no-grad sweeps (ε-offset density sweeps,
 reflected march) go through the fused-field kernel K1
-(`kernels/fused_field.py`), as the JAX renderer routes them through its
-Pallas kernel. Modes not ported yet raise NotImplementedError naming
-the mode.
+(`kernels/fused_field.py`); with `use_pallas_train` and bf16 gradients
+the gradient-path full query goes through K2/K3
+(`kernels/fused_field_train.py`), as the JAX renderer routes them
+through its Pallas kernels. Random draws (`perturb`) come from a
+`torch.Generator` or are passed in. Modes not ported yet raise
+NotImplementedError naming the mode.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from ibl_nerf_tpu_torch.kernels.fused_field import (
     fused_field_density,
     pack_field_weights,
 )
+from ibl_nerf_tpu_torch.kernels.fused_field_train import fused_field_apply_train
 from ibl_nerf_tpu_torch.models.field import apply_field, apply_field_density
 from ibl_nerf_tpu_torch.ops.color import rgb_to_srgb, tonemap_reinhard
 from ibl_nerf_tpu_torch.ops.compositing import (
@@ -46,6 +55,8 @@ from ibl_nerf_tpu_torch.utils.device import pin_f32_matmul
 
 _EPSILON_NORMALS = ("normal_map_from_depth_gradient_epsilon",
                     "normal_map_from_depth_gradient_direction_epsilon")
+_SIGMA_NORMALS = ("normal_map_from_sigma_gradient",
+                  "normal_map_from_sigma_gradient_surface")
 
 
 def _check_supported(rcfg: RenderConfig) -> None:
@@ -56,10 +67,6 @@ def _check_supported(rcfg: RenderConfig) -> None:
 
     if rcfg.compute_dtype not in ("float32", "bf16_grad"):
         missing(f"compute_dtype={rcfg.compute_dtype}")
-    if rcfg.use_pallas_train:
-        missing("use_pallas_train")
-    if rcfg.perturb:
-        missing("perturb (random stratified samples)")
     if rcfg.raw_noise_std > 0.0:
         missing("raw_noise_std")
     if rcfg.edit is not None:
@@ -75,7 +82,7 @@ def _check_supported(rcfg: RenderConfig) -> None:
     if rcfg.approximate_radiance:
         if rcfg.shading_mode != "split_sum":
             missing(f"shading_mode={rcfg.shading_mode}")
-        if rcfg.normal_type not in _EPSILON_NORMALS:
+        if rcfg.normal_type not in _EPSILON_NORMALS + _SIGMA_NORMALS:
             missing(f"normal_type={rcfg.normal_type}")
 
 
@@ -93,14 +100,29 @@ def _make_queries(field_params, rcfg: RenderConfig):
 
     compute_dtype "float32": everything f32; "bf16_grad": the primary
     march in bf16 (f32 raw heads), the no-grad sweeps (ε-normals,
-    reflected march) in f32. With use_pallas the `_ng` pair is K1.
+    reflected march) in f32. With use_pallas the `_ng` pair is K1, fed
+    detached weights; call it under torch.no_grad(). With
+    use_pallas_train, bf16 gradients, no freeze and the default
+    architecture, query_full is K2/K3, whose gradients flow through the
+    f32 packing to the params (positions get none); query_sigma stays
+    eager, since the sgs normal needs its position gradient.
     """
     fcfg = rcfg.field
     dt_grad, dt_ng = _grad_dtype(rcfg), torch.float32
     query_full, query_sigma = _make_query_pair(field_params, rcfg, dt_grad)
 
+    if (rcfg.use_pallas_train and dt_grad == torch.bfloat16
+            and not rcfg.freeze_radiance
+            and fcfg.depth == 8 and fcfg.skips == (4,)
+            and not fcfg.color_independent_to_direction):
+        packed32 = pack_field_weights(field_params, fcfg)
+
+        def query_full(pts, viewdirs):  # noqa: F811
+            return fused_field_apply_train(packed32, pts, viewdirs, fcfg)
+
     if rcfg.use_pallas:
-        packed = pack_field_weights(field_params, fcfg)
+        with torch.no_grad():
+            packed = pack_field_weights(field_params, fcfg)
 
         def query_full_ng(pts, viewdirs):
             return fused_field_apply(packed, pts, viewdirs, fcfg)
@@ -133,11 +155,14 @@ def _make_query_pair(field_params, rcfg: RenderConfig, dt: torch.dtype):
         pe = positional_encoding(pts, fcfg.multires).to(dt)
         de = positional_encoding(viewdirs, fcfg.multires_views).to(dt)
         de = de[..., None, :].expand(*pts.shape[:-1], de.shape[-1])
-        return apply_field(params_c, pe, de, fcfg).float()
+        return apply_field(params_c, pe, de, fcfg,
+                           freeze_radiance=rcfg.freeze_radiance,
+                           freeze_roughness=rcfg.freeze_roughness).float()
 
     def query_sigma(pts):
         pe = positional_encoding(pts, fcfg.multires).to(dt)
-        return apply_field_density(params_c, pe, fcfg).float()
+        return apply_field_density(params_c, pe, fcfg,
+                                   freeze_radiance=rcfg.freeze_radiance).float()
 
     return query_full, query_sigma
 
@@ -181,7 +206,7 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
                  near, far, rcfg: RenderConfig):
     """Full compositing + split-sum shading for one sample set."""
     rf = _radiance_f(rcfg)
-    (query_full, _, query_full_ng, query_sigma_ng) = _make_queries(
+    (query_full, query_sigma, query_full_ng, query_sigma_ng) = _make_queries(
         variables["coarse_or_fine"], rcfg)
 
     # --- primary march -----------------------------------------------------
@@ -189,16 +214,17 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
     raw = query_full(pts, rays_d)
     alpha = alpha_from_sigma(raw[..., 0], dists_from_z_vals(z_vals, rays_d))
     weights = weights_from_alpha(alpha)
+    weights_det = weights.detach()
     depth_map, disp_map, acc_map = composite_depth_disp_acc(weights, z_vals)
-    x_surface = rays_o + rays_d * depth_map[..., None]
+    x_surface = (rays_o + rays_d * depth_map[..., None]).detach()
 
-    # --- intrinsic maps ------------------------------------------------------
-    albedo_map = accumulate(weights, torch.sigmoid(raw[..., 1:4]))
-    roughness_map = accumulate(weights, torch.sigmoid(raw[..., 4]))
-    irradiance_map = accumulate(weights, rf(raw[..., 5]))
+    # --- intrinsic maps: detached weights, radiance on live ones -------------
+    albedo_map = accumulate(weights_det, torch.sigmoid(raw[..., 1:4]))
+    roughness_map = accumulate(weights_det, torch.sigmoid(raw[..., 4]))
+    irradiance_map = accumulate(weights_det, rf(raw[..., 5]))
     radiance_map = accumulate(weights, rf(raw[..., 6:9]))
     coarse_radiance_maps = [
-        accumulate(weights, rf(raw[..., 9 + 3 * k: 12 + 3 * k]))
+        accumulate(weights_det, rf(raw[..., 9 + 3 * k: 12 + 3 * k]))
         for k in range(rcfg.field.coarse_radiance_number)]
     irradiance_map = irradiance_map[..., None]
 
@@ -209,8 +235,9 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
     reflected_coarse_maps = []
 
     if rcfg.approximate_radiance:
-        target_normal_map = _estimate_normal(query_sigma_ng, rays_o, rays_d,
-                                             z_vals, rcfg)
+        target_normal_map = _estimate_normal(query_sigma, query_sigma_ng, rays_o,
+                                             rays_d, z_vals, pts, x_surface,
+                                             weights_det, rcfg)
         n_dot_v = torch.clamp(torch.sum(-rays_d * target_normal_map, -1), 0.0, 1.0)
 
         # BRDF LUT fetch
@@ -238,19 +265,23 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
         reflected_pts = (x_surface[..., None, :]
                          + reflected_dirs[..., None, :]
                          * z_vals_constant[..., :, None])
-        query = (query_full if rcfg.use_gradient_for_incident_radiance
-                 else query_full_ng)
-        r_raw = query(reflected_pts, reflected_dirs)
-        reflected_radiance_map, reflected_coarse_maps = _composite_radiance_stack(
-            r_raw, z_vals_constant, reflected_dirs, rcfg)
+        if rcfg.use_gradient_for_incident_radiance:
+            r_raw = query_full(reflected_pts, reflected_dirs)
+            reflected_radiance_map, reflected_coarse_maps = _composite_radiance_stack(
+                r_raw, z_vals_constant, reflected_dirs, rcfg)
+        else:
+            with torch.no_grad():
+                r_raw = query_full_ng(reflected_pts.detach(), reflected_dirs.detach())
+                reflected_radiance_map, reflected_coarse_maps = _composite_radiance_stack(
+                    r_raw, z_vals_constant, reflected_dirs, rcfg)
         prefiltered = torch.stack(
             [reflected_radiance_map] + list(reflected_coarse_maps), dim=1)
 
         # roughness-driven mip level
         if rcfg.correct_depth_for_prefiltered_radiance_infer:
             depth_0 = (far + near) * 0.5
-            mip_level = torch.clamp(roughness_map * depth_map / depth_0[..., 0],
-                                    0.0, 1.0)
+            mip_level = torch.clamp(
+                roughness_map * depth_map.detach() / depth_0[..., 0], 0.0, 1.0)
         else:
             mip_level = roughness_map
         prefiltered_reflected_map = mip_interp(prefiltered, mip_level)
@@ -313,15 +344,24 @@ def _assemble_outputs(rcfg, approximated_radiance_map, radiance_map,
     return {k: v for k, v in results.items() if v is not None}
 
 
-def _estimate_normal(query_sigma_ng, rays_o, rays_d, z_vals, rcfg: RenderConfig):
-    """The ε finite-difference shading normal, on the no-grad query."""
-    if rcfg.normal_type == "normal_map_from_depth_gradient_epsilon":
-        return normals_mod.normal_from_depth_gradient_epsilon(
-            query_sigma_ng, rays_o, rays_d, z_vals, rcfg.epsilon,
+def _estimate_normal(query_sigma, query_sigma_ng, rays_o, rays_d, z_vals,
+                     pts, x_surface, weights_det, rcfg: RenderConfig):
+    """The shading normal, carrying no gradient: the ε finite
+    differences on the no-grad query, or the density gradient of the
+    gradient-path query (bf16 under bf16_grad, as in the JAX renderer)."""
+    nt = rcfg.normal_type
+    if nt == "normal_map_from_sigma_gradient_surface":
+        return normals_mod.normal_from_sigma_gradient_surface(query_sigma, x_surface)
+    if nt == "normal_map_from_sigma_gradient":
+        return normals_mod.normal_from_sigma_gradient(query_sigma, pts, weights_det)
+    with torch.no_grad():
+        if nt == "normal_map_from_depth_gradient_epsilon":
+            return normals_mod.normal_from_depth_gradient_epsilon(
+                query_sigma_ng, rays_o, rays_d, z_vals, rcfg.epsilon,
+                scan=rcfg.sweep_scan)
+        return normals_mod.normal_from_depth_gradient_direction_epsilon(
+            query_sigma_ng, rays_o, rays_d, z_vals, rcfg.epsilon_direction,
             scan=rcfg.sweep_scan)
-    return normals_mod.normal_from_depth_gradient_direction_epsilon(
-        query_sigma_ng, rays_o, rays_d, z_vals, rcfg.epsilon_direction,
-        scan=rcfg.sweep_scan)
 
 
 # ---------------------------------------------------------------------------
@@ -333,31 +373,49 @@ def make_ray_batch(rays_o, rays_d, near, far):
     b = rays_o.shape[0]
 
     def per_ray(v):
-        v = torch.as_tensor(v, dtype=rays_o.dtype, device=rays_o.device)
-        return v.expand(b)[..., None]
+        if not isinstance(v, torch.Tensor):  # filled on the device, no host copy
+            return torch.full((b, 1), float(v), dtype=rays_o.dtype, device=rays_o.device)
+        return v.to(rays_o.dtype).expand(b)[..., None]
 
     viewdirs = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
     return {"rays_o": rays_o, "rays_d": rays_d, "viewdirs": viewdirs,
             "near": per_ray(near), "far": per_ray(far)}
 
 
-@torch.no_grad()
+def draw_render_uniforms(n_rays: int, rcfg: RenderConfig, device,
+                         generator: torch.Generator | None = None) -> dict:
+    """The uniform draws of one render_rays call under perturb: "strat"
+    (B, n_samples) jitters the stratified z, "pdf" (B, n_importance)
+    drives sample_pdf. JAX draws them from k_strat and k_pdf."""
+    def u(n):
+        return torch.rand((n_rays, n), device=device, generator=generator)
+    return {"strat": u(rcfg.n_samples), "pdf": u(rcfg.n_importance)}
+
+
 def render_rays(variables, consts, batch, rcfg: RenderConfig,
-                is_depth_only: bool = False):
+                is_depth_only: bool = False, draws: dict | None = None,
+                generator: torch.Generator | None = None):
     """Render a ray batch into all output maps.
 
     variables: {'coarse': field params, 'fine': field params | absent}
     consts:    {'brdf_lut': (H, W, C)} non-trainable assets.
     batch:     make_ray_batch output.
+    draws:     under perturb, the uniforms of `draw_render_uniforms`;
+               drawn from `generator` on the rays' device when absent.
     Returns a dict of maps; coarse-pass results are suffixed '0' when a
-    fine pass runs. No draws: samples are deterministic (perturb=False).
+    fine pass runs. Differentiable with respect to the params; wrap it in
+    torch.no_grad() to render without a graph.
     """
     _check_supported(rcfg)
     pin_f32_matmul()
     rays_o, rays_d = batch["rays_o"], batch["rays_d"]
     near, far = batch["near"], batch["far"]
+    if rcfg.perturb and draws is None:
+        draws = draw_render_uniforms(rays_o.shape[0], rcfg, rays_o.device, generator)
 
-    z_vals = stratified_z_vals(near, far, rcfg.n_samples, lindisp=rcfg.lindisp)
+    z_vals = stratified_z_vals(near, far, rcfg.n_samples, lindisp=rcfg.lindisp,
+                               perturb=rcfg.perturb,
+                               u=draws["strat"] if rcfg.perturb else None)
     z_vals_constant = z_vals
 
     def depth_only(field_params, rc, z):
@@ -377,8 +435,10 @@ def render_rays(variables, consts, batch, rcfg: RenderConfig,
 
     if rcfg.n_importance > 0:
         z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-        z_samples = sample_pdf(z_mid, result["weights"][..., 1:-1],
-                               rcfg.n_importance, det=True)
+        with torch.no_grad():
+            z_samples = sample_pdf(z_mid, result["weights"][..., 1:-1],
+                                   rcfg.n_importance, det=not rcfg.perturb,
+                                   u=draws["pdf"] if rcfg.perturb else None)
         z_all, _ = torch.sort(torch.cat([z_vals, z_samples], -1), dim=-1)
 
         fine_params = variables.get("fine", variables["coarse"])
@@ -415,6 +475,7 @@ def make_frame_render_fn(variables, consts, rcfg: RenderConfig,
     """
     _check_supported(rcfg)
 
+    @torch.no_grad()
     def run(rays_o_t, rays_d_t, near, far):
         outs = []
         for ro, rd in zip(rays_o_t, rays_d_t):
@@ -445,6 +506,7 @@ def render_frame(fn, rays_o, rays_d, near, far, chunk: int):
     return {k: v.reshape(-1, *v.shape[2:])[:n] for k, v in out.items()}
 
 
+@torch.no_grad()
 def render_image(variables, consts, H, W, K, c2w, near, far,
                  rcfg: RenderConfig, chunk: int = 2048):
     """Render a full image chunk by chunk; every per-ray map comes back

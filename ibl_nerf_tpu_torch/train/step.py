@@ -1,0 +1,300 @@
+"""The train step: pixel sampling -> render -> loss -> Adam.
+
+Counterpart of ibl_nerf_tpu/train/step.py for one device: named Adam
+param groups with per-group exponential learning-rate decay and start
+offsets, the optimizer written out by hand so that it gives optax's
+`scale_by_adam` + `scale_by_schedule` + `scale(-1)` update (eps outside
+the square root, bias correction from count 1). The moments and the
+params are updated in place: the step owns its `TrainState`, as the
+jitted JAX step owns the buffers it donates.
+
+Random draws (image and pixel indices, stratified jitter, importance
+uniforms) come from a `torch.Generator` on the data's device, or are
+passed in as a dict (`TrainStep.draw`) so that two steps can share
+them. `patch` and `merged` sampling and the depth-volume pass of the
+depth-distillation loss are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from ibl_nerf_tpu_torch.data.sampler import draw_pixels, sample_pixel_batch
+from ibl_nerf_tpu_torch.render.config import RenderConfig
+from ibl_nerf_tpu_torch.render.renderer import (
+    draw_render_uniforms,
+    make_ray_batch,
+    render_rays,
+)
+from ibl_nerf_tpu_torch.train.losses import LossConfig, Phase, compute_losses
+
+
+def _leaves(tree) -> list[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _unflatten(tree, leaves):
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in t}
+        if isinstance(t, (list, tuple)):
+            return [build(v) for v in t]
+        return next(it)
+
+    return build(tree)
+
+
+@dataclasses.dataclass
+class TrainState:
+    variables: Any      # {group: param tree}, leaves requiring grad
+    opt_state: dict     # {group: GroupState}
+    step: int           # global step
+
+
+@dataclasses.dataclass
+class GroupState:
+    mu: list[torch.Tensor]   # first moments, one per leaf of the group
+    nu: list[torch.Tensor]   # second moments
+    count: int = 0           # updates of the Adam chain so far
+    seen: int = 0            # updates offered to a delayed group so far
+
+
+# Per-group LR decay start offsets; decay factor 0.1 over lrate_decay*1000
+# steps from each group's start count.
+GROUP_START_KEYS = {
+    "coarse": 0,
+    "fine": 0,
+    "depth_mlp": "n_iter_ignore_depth",
+    "normal_mlp": "n_iter_ignore_normal",
+    "albedo_mlp": "n_iter_ignore_approximated_radiance",
+    "roughness_mlp": "n_iter_ignore_approximated_radiance",
+    "irradiance_mlp": "n_iter_ignore_approximated_radiance",
+    "visibility_mlp": 0,
+}
+
+
+def _group_schedule(lrate: float, decay_steps: float, start: int):
+    """Update #c (0-based) runs at lrate*0.1^(max(c-1-start, 0)/decay_steps),
+    in f32: the reference sets the LR after its optimizer step, so step i
+    uses the LR of global step i-1, decayed only past the group's start."""
+    def sched(count: int) -> np.float32:
+        exponent = np.float32(max(max(count, 0) - 1 - start, 0)) / np.float32(decay_steps)
+        return np.float32(lrate) * np.power(np.float32(0.1), exponent)
+    return sched
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupOptimizer:
+    """Adam(0.9, 0.999, eps 1e-8) at the group's schedule.
+
+    delay > 0 is `_delayed_start`: the group's first `delay` updates are
+    zero and leave its state untouched, as torch skips params whose grad
+    is None until their loss first runs; from then on its Adam count and
+    schedule start at 0."""
+
+    lrate: float
+    decay_steps: float
+    start: int
+    delay: int = 0
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def update_(self, params: list, grads: list, st: GroupState) -> None:
+        """One update of the group, in place on params and moments."""
+        if self.delay > 0:
+            st.seen += 1
+            if st.seen - 1 < self.delay:
+                return
+        lr = float(_group_schedule(self.lrate, self.decay_steps, self.start)(st.count))
+        c = st.count + 1
+        # bias corrections in f32 on the host, as optax computes them
+        bc1 = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(c))
+        bc2 = float(np.float32(1.0) - np.float32(self.b2) ** np.float32(c))
+        # optax: mu = (1-b1) g + b1 mu; nu = (1-b2) g^2 + b2 nu;
+        # u = (mu/bc1) / (sqrt(nu/bc2) + eps); p += -(lr u). The same
+        # elementwise ops over all of the group's tensors at once.
+        g1 = torch._foreach_mul(grads, 1.0 - self.b1)
+        torch._foreach_mul_(st.mu, self.b1)
+        torch._foreach_add_(st.mu, g1)
+        g2 = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(g2, 1.0 - self.b2)
+        torch._foreach_mul_(st.nu, self.b2)
+        torch._foreach_add_(st.nu, g2)
+        den = torch._foreach_div(st.nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        u = torch._foreach_div(st.mu, bc1)
+        torch._foreach_div_(u, den)
+        torch._foreach_mul_(u, lr)
+        torch._foreach_sub_(params, u)
+        st.count = c
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedAdam:
+    groups: dict[str, GroupOptimizer]
+
+    def init(self, variables: dict) -> dict[str, GroupState]:
+        return {name: GroupState(mu=[torch.zeros_like(p) for p in _leaves(variables[name])],
+                                 nu=[torch.zeros_like(p) for p in _leaves(variables[name])])
+                for name in self.groups}
+
+    @torch.no_grad()
+    def update_(self, variables: dict, grads: dict, opt_state: dict) -> None:
+        for name, opt in self.groups.items():
+            opt.update_(_leaves(variables[name]), _leaves(grads[name]), opt_state[name])
+
+
+def build_optimizer(variables: dict, lrate: float = 5e-4,
+                    lrate_decay: int = 250, lcfg: LossConfig | None = None,
+                    group_lr_overrides: dict[str, float] | None = None,
+                    normal_feeds_shading: bool = False) -> NamedAdam:
+    """Named-group Adam with per-group exponential schedules.
+
+    group_lr_overrides: per-group base LR. normal_feeds_shading: the
+    renderer shades with the inferred normal, so the normal MLP gets
+    gradients before its own loss starts and is not start-delayed (its
+    schedule keeps the offset).
+    """
+    decay_steps = lrate_decay * 1000.0
+    overrides = group_lr_overrides or {}
+    groups = {}
+    for name in variables:
+        start_spec = GROUP_START_KEYS.get(name, 0)
+        if isinstance(start_spec, str):
+            start = getattr(lcfg, start_spec) if lcfg is not None else 0
+        else:
+            start = start_spec
+        delay = start
+        if name == "roughness_mlp" and lcfg is not None and lcfg.initialize_roughness:
+            delay = 0
+        if name == "normal_mlp" and normal_feeds_shading:
+            delay = 0
+        groups[name] = GroupOptimizer(
+            lrate=overrides.get(name, lrate), decay_steps=decay_steps,
+            start=0 if delay > 0 else start, delay=max(delay, 0))
+    return NamedAdam(groups)
+
+
+def init_train_state(variables: dict, optimizer: NamedAdam, step: int = 0) -> TrainState:
+    """A state owning f32 copies of `variables` that require grad."""
+    own = _unflatten(variables, [p.detach().clone().requires_grad_(True)
+                                 for p in _leaves(variables)])
+    return TrainState(variables=own, opt_state=optimizer.init(own), step=step)
+
+
+def phase_render_config(rcfg: RenderConfig, phase: Phase) -> RenderConfig:
+    """Specialize the render config to a training phase."""
+    return rcfg.replace(
+        approximate_radiance=phase.approximate_radiance,
+        freeze_radiance=phase.freeze_radiance,
+        freeze_roughness=phase.freeze_roughness,
+    )
+
+
+def loss_from_batch(variables, consts, pixel_info, rays_o, rays_d,
+                    rcfg_phase: RenderConfig, lcfg: LossConfig, phase: Phase,
+                    prior_irradiance_mean: float, near, far,
+                    draws: dict | None = None):
+    """Render + loss for an already-sampled pixel batch; `draws` as
+    `render_rays` takes them."""
+    if phase.depth_loss_on and "normal" in pixel_info:
+        raise NotImplementedError("the depth-volume pass of the depth loss is "
+                                  "not ported to ibl_nerf_tpu_torch yet")
+    batch = make_ray_batch(rays_o, rays_d, near, far)
+    result = render_rays(variables, consts, batch, rcfg_phase, draws=draws)
+    return compute_losses(result, pixel_info, lcfg, phase, prior_irradiance_mean, far)
+
+
+class TrainStep:
+    """One phase's train step. `step(state, arrays)` samples, renders,
+    takes the loss and its gradients and applies Adam in place; it
+    returns (state, scalars)."""
+
+    def __init__(self, rcfg, lcfg, phase, optimizer, consts, H, W, batch_size,
+                 prior_irradiance_mean, near, far, precrop, precrop_frac):
+        self.rcfg = phase_render_config(rcfg, phase)
+        self.lcfg, self.phase, self.optimizer, self.consts = lcfg, phase, optimizer, consts
+        self.H, self.W, self.batch_size = H, W, batch_size
+        self.prior_irradiance_mean, self.near, self.far = prior_irradiance_mean, near, far
+        self.precrop, self.precrop_frac = precrop, precrop_frac
+
+    def draw(self, arrays: dict, generator: torch.Generator | None = None) -> dict:
+        """Every random number of one step: {"pixels": ..., "render": ...}."""
+        images = arrays["images"]
+        draws = {"pixels": draw_pixels(images.shape[0], self.batch_size, self.H, self.W,
+                                       images.device, generator, self.precrop,
+                                       self.precrop_frac)}
+        if self.rcfg.perturb:
+            draws["render"] = draw_render_uniforms(self.batch_size, self.rcfg,
+                                                   images.device, generator)
+        return draws
+
+    def loss(self, variables: dict, arrays: dict, draws: dict):
+        """(total, scalars) of one batch, with a graph to the params."""
+        pixel_info, rays_o, rays_d = sample_pixel_batch(
+            arrays, self.batch_size, self.H, self.W, self.precrop,
+            self.precrop_frac, draws=draws["pixels"])
+        return loss_from_batch(variables, self.consts, pixel_info, rays_o, rays_d,
+                               self.rcfg, self.lcfg, self.phase,
+                               self.prior_irradiance_mean, self.near, self.far,
+                               draws=draws.get("render"))
+
+    def loss_and_grads(self, variables: dict, arrays: dict, draws: dict):
+        """(total, scalars, grads): grads mirror `variables`; a param the
+        loss does not reach gets zeros, as jax.grad gives."""
+        total, scalars = self.loss(variables, arrays, draws)
+        leaves = _leaves(variables)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        scalars = {k: v.detach() if isinstance(v, torch.Tensor) else v
+                   for k, v in scalars.items()}
+        return total.detach(), scalars, _unflatten(variables, grads)
+
+    def __call__(self, state: TrainState, arrays: dict, draws: dict | None = None,
+                 generator: torch.Generator | None = None):
+        if draws is None:
+            draws = self.draw(arrays, generator)
+        _, scalars, grads = self.loss_and_grads(state.variables, arrays, draws)
+        self.optimizer.update_(state.variables, grads, state.opt_state)
+        state.step += 1
+        return state, scalars
+
+
+def make_train_step(
+    rcfg: RenderConfig,
+    lcfg: LossConfig,
+    phase: Phase,
+    optimizer: NamedAdam,
+    consts: dict,
+    H: int,
+    W: int,
+    batch_size: int,
+    prior_irradiance_mean: float,
+    near: float,
+    far: float,
+    precrop: bool = False,
+    precrop_frac: float = 0.5,
+    merged_sampling: bool = False,
+    patch: bool = False,
+) -> TrainStep:
+    """The train step of one phase; it updates its state in place. The
+    depth-volume pass is not ported: the step raises when its loss is
+    on."""
+    if patch:
+        raise NotImplementedError("patch sampling is not ported to ibl_nerf_tpu_torch yet")
+    if merged_sampling:
+        raise NotImplementedError("merged sampling is not ported to ibl_nerf_tpu_torch yet")
+    return TrainStep(rcfg, lcfg, phase, optimizer, consts, H, W, batch_size,
+                     prior_irradiance_mean, near, far, precrop, precrop_frac)

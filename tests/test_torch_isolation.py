@@ -43,8 +43,9 @@ def test_port_imports_nothing_of_jax():
     proc = _run(["-c", _PROBE], REPO)
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "ibl_nerf_tpu_torch.kernels.fused_field" in report["modules"]
-    assert "ibl_nerf_tpu_torch.eval.render_path" in report["modules"]
+    for name in ("kernels.fused_field", "kernels.fused_field_train", "eval.render_path",
+                 "train.step", "train.losses", "data.sampler"):
+        assert f"ibl_nerf_tpu_torch.{name}" in report["modules"]
     assert not set(report["loaded"]) & set(FORBIDDEN), report["loaded"]
 
 

@@ -217,7 +217,7 @@ def test_render_path(setup):
 
 
 @pytest.mark.parametrize("kw,mode", [
-    (dict(normal_type="normal_map_from_sigma_gradient_surface"), "normal_type"),
+    (dict(normal_type="normal_map_from_depth_gradient_direction"), "normal_type"),
     (dict(normal_type="normal_map_from_depth_gradient"), "normal_type"),
     (dict(normal_type="ground_truth"), "normal_type"),
     (dict(shading_mode="monte_carlo"), "monte_carlo"),
@@ -226,12 +226,12 @@ def test_render_path(setup):
     (dict(infer_depth=True), "infer_depth"),
     (dict(calculate_albedo_from_gt=True), "calculate_albedo_from_gt"),
     (dict(depth_map_from_ground_truth=True), "depth_map_from_ground_truth"),
-    (dict(use_pallas_train=True), "use_pallas_train"),
+    (dict(raw_noise_std=0.5), "raw_noise_std"),
     (dict(compute_dtype="amp"), "amp"),
     (dict(compute_dtype="mixed"), "mixed"),
     (dict(compute_dtype="bfloat16"), "bfloat16"),
     (dict(compute_dtype="float64"), "float64"),
-    (dict(perturb=True), "perturb"),
+    (dict(infer_irradiance_separate=True), "infer_irradiance_separate"),
 ])
 def test_uncovered_modes_raise(setup, kw, mode):
     _, tvars, _, tconsts, rays_o, rays_d = setup
