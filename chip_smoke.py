@@ -7,12 +7,13 @@ Phases, one JSON line each; any failure exits non-zero:
   device  the card's name and power limit (nvidia-smi); fails without CUDA.
   build   nvcc builds every kernel source, one process per source, at once.
   kernel  each kernel against its plain PyTorch version on the card at the
-          shapes the main paths give it, and at a ragged point count:
+          shapes the main paths give it, and at ragged point counts:
           K1 (both variants), K2 (raw and the 11 residuals) and K3 (the 24
           weight gradients, and two runs bit-identical); errors against the
           stated tolerance, kernel and plain times (CUDA events, after
           warm-up), and the least time the card could take (FLOPs over the
-          f32 or bf16 tensor-core rate, bytes over the memory rate). Also
+          f32 or bf16 tensor-core rate, bytes over the memory rate); K3's
+          time by stage (torch.profiler) beside its design's floor. Also
           the field gradients of K2/K3 and of the eager bf16 query against
           the eager f32 one.
   slice   the serving path -- `render_path` at full width (8x256 field,
@@ -41,6 +42,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -156,6 +158,30 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def stage_ms(fn, prefix: str, iters: int = 5) -> dict:
+    """Device ms per call of each kernel whose name holds `prefix` (the
+    stages of one wrapper call), from torch.profiler over `iters` calls
+    after a warm-up; empty when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        found = re.search(prefix + r"\w*", ev.key)
+        if ev.device_type != torch.autograd.DeviceType.CUDA or not found:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        out[found.group(0)] = out.get(found.group(0), 0.0) + us / 1e3 / iters
+    return out
+
+
 def kernel_phase(cfg, packed, gen) -> list[dict]:
     """Both variants of K1 against the plain version."""
     rays, n_samples = CHUNK, 64 + 128
@@ -267,16 +293,34 @@ def field_grad_errors(cfg, params, gen, n_rays, n_samples) -> dict:
     return {k: ((grads[k] - ref).norm() / ref.norm()).item() for k in ("kernels", "eager_bf16")}
 
 
+def k3_design_floor(w16: dict, n: int) -> dict:
+    """The least time K3's two-stage design could take on n points: the
+    bytes of its own traffic in device memory over the memory rate. The
+    chain reads x, g, hv and the 9 mask planes and writes the 15 delta
+    planes; the dW stage reads each product's activation and delta planes
+    once, and g for the output bias."""
+    shapes = {k: tuple(v.shape) for k, v in w16.items()}
+    cols = fft.plane_cols(shapes)
+    n_out, width = shapes["bias"][0], shapes["w1"][0]
+    chain = (ff.IN_COLS * 4 + n_out * 4 + 10 * width * 2
+             + sum(cols[k] for k in fft._DELTA_ORDER) * 2)
+    dw = sum(cols[a] + cols[dl] for _, a, dl in fft._DW_PRODUCTS) * 2 + n_out * 4
+    ms = {k: n * b / PEAK_BYTES * 1e3 for k, b in (("chain", chain), ("dw", dw))}
+    return {**ms, "both": ms["chain"] + ms["dw"], "bytes_per_point": chain + dw}
+
+
 def train_kernel_phase(cfg, field_params, gen) -> list[dict]:
     """K2 and K3 against their plain versions at the fine-pass (512x192)
-    and coarse-pass (512x64) point counts and a ragged one, and their
-    gradients against the eager paths'; timed at the fine-pass shape."""
+    and coarse-pass (512x64) point counts and at ragged ones (1 and 63
+    points: fewer pipeline stages than the ring holds; 4,097: a point
+    range of one stage), and their gradients against the eager paths';
+    timed at the fine-pass shape, K3 also by stage."""
     w16 = fft.to_bf16(ff.pack_field_weights(field_params, cfg))
     emb = fft.emb_constants(cfg, torch.device("cuda"))
     n_out = 9 + 3 * cfg.coarse_radiance_number
     fine, coarse = 512 * (64 + 128), 512 * 64
     errs = {"fwd": {}, "bwd": {}}
-    for n in (fine + 37, coarse, fine):
+    for n in (1, 63, 4097, fine + 37, coarse, fine):
         pts = torch.rand((n, 1, 3), device="cuda", generator=gen) * 4 - 2
         dirs = torch.nn.functional.normalize(
             torch.randn((n, 3), device="cuda", generator=gen), dim=-1)
@@ -334,6 +378,8 @@ def train_kernel_phase(cfg, field_params, gen) -> list[dict]:
                           time_ms(kern, iters), time_ms(plain, iters))
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         worst = {n: max(e.values()) for n, e in errs[which].items()}
+        stages = stage_ms(kern, "k3_") if which == "bwd" else None
+        floor = k3_design_floor(w16, fine) if which == "bwd" else None
         report.append({
             "name": name, "route": "cuda",
             "source": "ibl_nerf_tpu_torch/csrc/fused_field_train.cu",
@@ -348,7 +394,8 @@ def train_kernel_phase(cfg, field_params, gen) -> list[dict]:
              worst_rel_err_by_points=worst, rel_err_fine=errs[which][fine],
              rel_bound=TRAIN_KERNEL_REL, max_abs_err_fine=max_abs[which],
              ms=[k1, k2], plain_ms=[p1, p2], bound_ops_ms=t_ops,
-             bound_bytes_ms=t_bytes, tflops=flops / ((k1 + k2) / 2) / 1e9)
+             bound_bytes_ms=t_bytes, design_floor_ms=floor,
+             tflops=flops / ((k1 + k2) / 2) / 1e9, stage_ms=stages)
     return report
 
 

@@ -36,19 +36,23 @@
 //
 // The TPU kernel accumulated all 24 gradients across a sequential grid in
 // VMEM. Blocks here run in parallel, so K3 is split in two stages:
+//   k3_pack_slabs   lays the chain's weights out as [128 n][32 k] slabs in
+//                   the order the chain reads them (~1.7 MB);
 //   k3_delta_chain  per 64-point tile: the reverse chain; writes emb, bf16
 //                   g, vf and the 12 deltas (bf16, as the TPU kernel rounds
-//                   them) to device memory;
-//   k3_dw_gemm      dW = act^T @ delta for the 18 weight matrices, 64x64
-//                   output tiles, the points split into `splits` ranges,
-//                   each range writing its own f32 partial;
-//   k3_colsum       the bias gradients, column sums over the same ranges
-//                   (the output bias sums the f32 g);
+//                   them) to device memory. The weight slabs stream through
+//                   a ring in shared memory (cp.async), shared by all 8
+//                   warps, and reach the tensor cores by ldmatrix;
+//   k3_dw_gemm      dW = act^T @ delta for the 18 weight matrices and the
+//                   bias sums in the same pass, 128-wide output tiles, the
+//                   points split into `splits` ranges, each range writing
+//                   its own f32 partial; operands staged by cp.async;
 //   k3_reduce       sums the partials in a fixed order. Deterministic: no
 //                   atomics, two runs give the same bits. dW stays f32.
-// The ragged last tile is masked in every kernel; offsets are 64-bit; sinf
-// without fast math. Faster designs (wgmma, TMA-fed weight tiles, warp
-// specialisation) are later work.
+// Both stages are bound by their own traffic in device memory: the chain
+// writes 15 delta planes that the dW stage reads back (PERF.md, the design
+// floor). The ragged last tile is masked in every kernel; offsets are
+// 64-bit; sinf without fast math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -369,8 +373,182 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// K3, part 1: the reverse chain
+// K3: asynchronous copies and ldmatrix
 // ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes from device to shared memory; zeros, and src not read, when !live.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(live ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Four 8x8 bf16 matrices; lane l names row l%8 of matrix l/8.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+// The same, each matrix transposed.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
+  return static_cast<uint32_t>(f2bf(lo)) | (static_cast<uint32_t>(f2bf(hi)) << 16);
+}
+__device__ __forceinline__ float lo_bf(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float hi_bf(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+// ---------------------------------------------------------------------------
+// K3, stage 1: the reverse chain, weights streamed through shared memory
+// ---------------------------------------------------------------------------
+
+// The chain's weights, as B = [n][k] operands, are cut into slabs of
+// kSlabN output columns by kSlabK reduction rows and laid out, slab after
+// slab, in the order the chain consumes them (k3_pack_slabs; the plain
+// version is chain_slabs in kernels/fused_field_train.py). A ring of kRing
+// slabs in shared memory is filled by cp.async, kRing - 1 slabs ahead of
+// the products, across pass and layer boundaries; all 8 warps share it.
+constexpr int kSlabN = 128;
+constexpr int kSlabK = 32;
+constexpr int kLdSlab = kSlabK + kPad;         // 80-byte rows: ldmatrix without bank conflicts
+constexpr int kSlabElems = kSlabN * kSlabK;    // in device memory
+constexpr int kSlabSmem = kSlabN * kLdSlab;    // in shared memory
+constexpr int kRing = 6;
+
+struct SlabRing {
+  bf16_t* buf;
+  const bf16_t* src;
+  int total, issued, used;
+
+  __device__ void issue() {
+    if (issued < total) {
+      const bf16_t* s = src + static_cast<long long>(issued) * kSlabElems;
+      bf16_t* d = buf + (issued % kRing) * kSlabSmem;
+      for (int c = threadIdx.x; c < kSlabElems / 8; c += kThreads)
+        cp_async16(d + (c / (kSlabK / 8)) * kLdSlab + (c % (kSlabK / 8)) * 8, s + c * 8, true);
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+    ++issued;
+  }
+  __device__ void start() {
+    for (int i = 0; i < kRing - 1; ++i) issue();
+  }
+  // The next slab, once every thread's copies of it have landed; the
+  // barrier also frees the slot of the one before, which is refilled.
+  __device__ const bf16_t* next() {
+    cp_async_wait<kRing - 2>();
+    __syncthreads();
+    issue();
+    return buf + (used++ % kRing) * kSlabSmem;
+  }
+};
+
+// One summand of a chain layer: A (64 x k_dim bf16 in shared memory, row
+// stride lda, k_dim a multiple of kSlabK); its B comes from the ring.
+struct ChainOp {
+  const bf16_t* a;
+  int lda, k_dim;
+};
+
+// Where a chain layer's f32 sums go: into dst, rounded to bf16, after
+// relu(v + bias) (bias set), where(mask > 0, v, 0) with the mask from a
+// shared tile (mask_s) or from a residual plane (mask_g: (n, 256), rows
+// from base), or as they are.
+struct ChainEpi {
+  bf16_t* dst;
+  int ld;
+  const bf16_t* bias;
+  const bf16_t* mask_s;
+  int ldm;
+  const bf16_t* mask_g;
+  long long base, n;
+};
+
+// out = sum over the operands, for n_cols (a multiple of kSlabN) columns,
+// in passes of kSlabN; warp w owns rows 16*(w%4).. and 64 columns of a
+// pass. No operand's A may be dst. Ends with __syncthreads().
+template <int NOPS>
+__device__ __forceinline__ void chain_layer(const ChainOp (&ops)[NOPS], int n_cols,
+                                            SlabRing& ring, const ChainEpi& epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = (warp & 3) * 16, nl = (warp >> 2) * 64;
+  const int g = lane >> 2, t = lane & 3, q = lane >> 3, rr = lane & 7;
+  for (int c0 = 0; c0 < n_cols; c0 += kSlabN) {
+    // the epilogue's bias or residual mask, fetched before the products
+    // so that its latency hides behind them
+    uint32_t pre[kWide][2];
+#pragma unroll
+    for (int j = 0; j < kWide; ++j) {
+      const int c = c0 + nl + 8 * j + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long p = epi.base + row0 + g + 8 * h;
+        uint32_t v = 0u;
+        if (epi.bias)
+          v = __ldg(reinterpret_cast<const unsigned int*>(epi.bias + c));
+        else if (epi.mask_g && p < epi.n)
+          v = __ldg(reinterpret_cast<const unsigned int*>(epi.mask_g + p * kWidth + c));
+        pre[j][h] = v;
+      }
+    }
+    float acc[kWide][4];
+#pragma unroll
+    for (int j = 0; j < kWide; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+    for (int o = 0; o < NOPS; ++o) {
+      const ChainOp& op = ops[o];
+      for (int k0 = 0; k0 < op.k_dim; k0 += kSlabK) {
+        const bf16_t* slab = ring.next();
+#pragma unroll
+        for (int kk = 0; kk < kSlabK; kk += 16) {
+          uint32_t a[4];
+          ldsm_x4(a, op.a + (row0 + rr + 8 * (q & 1)) * op.lda + k0 + kk + 8 * (q >> 1));
+#pragma unroll
+          for (int j = 0; j < kWide; j += 2) {
+            uint32_t b[4];
+            ldsm_x4(b, slab + (nl + 8 * j + rr + 8 * (q >> 1)) * kLdSlab + kk + 8 * (q & 1));
+            mma16816(acc[j], a[0], a[1], a[2], a[3], b[0], b[1]);
+            mma16816(acc[j + 1], a[0], a[1], a[2], a[3], b[2], b[3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kWide; ++j) {
+      const int c = c0 + nl + 8 * j + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + g + 8 * h;
+        float v0 = acc[j][2 * h], v1 = acc[j][2 * h + 1];
+        if (epi.bias) {
+          v0 = fmaxf(v0 + lo_bf(pre[j][h]), 0.f);
+          v1 = fmaxf(v1 + hi_bf(pre[j][h]), 0.f);
+        } else if (epi.mask_g || epi.mask_s) {
+          const uint32_t m = epi.mask_g
+              ? pre[j][h]
+              : *reinterpret_cast<const uint32_t*>(epi.mask_s + r * epi.ldm + c);
+          v0 = lo_bf(m) > 0.f ? v0 : 0.f;
+          v1 = hi_bf(m) > 0.f ? v1 : 0.f;
+        }
+        *reinterpret_cast<uint32_t*>(epi.dst + r * epi.ld + c) = pack_bf2(v0, v1);
+      }
+    }
+  }
+  __syncthreads();
+}
 
 struct Deltas {
   bf16_t* p[kNumDeltas];
@@ -379,14 +557,19 @@ struct Deltas {
 __global__ void __launch_bounds__(kThreads, 1)
     k3_delta_chain(const float* __restrict__ x, long long n,
                    const float* __restrict__ g, const bf16_t* __restrict__ res,
-                   Emb emb, Weights w, const bf16_t* __restrict__ wcf_t,
-                   Dims d, Deltas out) {
+                   Emb emb, const bf16_t* __restrict__ bcf,
+                   const bf16_t* __restrict__ slabs, int n_slabs, Dims d,
+                   Deltas out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ld_p = max(d.vf_cols, kWidth) + kPad;
   bf16_t* G = reinterpret_cast<bf16_t*>(smem);  // bf16 g   [64][kLdG]
   bf16_t* HV = G + kTile * kLdG;                 // hv, dhv, d7, d4, d1
   bf16_t* P = HV + kTile * kLdH;                 // vf, dvf, dft, d5, d2 (>= 256 wide)
   bf16_t* Q = P + kTile * ld_p;                  // dpf, d6, d3, d0
+  bf16_t* R = Q + kTile * kLdH;                  // the slab ring
+
+  SlabRing ring{R, slabs, n_slabs, 0, 0};
+  ring.start();  // the first weight slabs load while the inputs are set up
 
   const long long base = static_cast<long long>(blockIdx.x) * kTile;
   const long long plane = n * kWidth;
@@ -397,206 +580,303 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float v = embed(x, p, n, l, emb);
     if (p < n) out.p[kX][p * kLane + l] = f2bf(v);
   }
+  // g16 is written kGCols wide, zero past n_out, so the dW stage reads
+  // whole 16-byte rows
   for (int idx = threadIdx.x; idx < kTile * kGCols; idx += kThreads) {
     const int r = idx / kGCols, c = idx % kGCols;
     const long long p = base + r;
-    const bool live = p < n && c < d.n_out;
-    const bf16_t v = live ? f2bf(__ldg(g + p * d.n_out + c)) : bf16_t(0);
+    const bf16_t v = p < n && c < d.n_out ? f2bf(__ldg(g + p * d.n_out + c)) : bf16_t(0);
     G[r * kLdG + c] = v;
-    if (live) out.p[kG16][p * d.n_out + c] = v;
+    if (p < n) out.p[kG16][p * kGCols + c] = v;
   }
   load_tile(HV, kLdH, res + kHv * plane, kWidth, base, n);
   __syncthreads();
 
-  // d = where(mask > 0, sum, 0) rounded to bf16 into `dst`; the mask from a
-  // shared tile (may be dst itself) or from a residual plane.
-  auto masked_smem = [](bf16_t* dst, int ld, const bf16_t* mask, int ldm) {
-    return [=](int r, int c, float v) {
-      dst[r * ld + c] = f2bf(bf2f(mask[r * ldm + c]) > 0.f ? v : 0.f);
-    };
+  auto relu_bias = [](bf16_t* dst, int ld, const bf16_t* bias) {
+    return ChainEpi{dst, ld, bias, nullptr, 0, nullptr, 0, 0};
   };
-  auto masked_res = [=](bf16_t* dst, int ld, int slot) {
-    const bf16_t* m = res + slot * plane;
-    return [=](int r, int c, float v) {
-      const long long p = base + r;
-      const bool on = p < n && bf2f(ldg16(m + p * kWidth + c)) > 0.f;
-      dst[r * ld + c] = f2bf(on ? v : 0.f);
-    };
+  auto mask_smem = [](bf16_t* dst, int ld, const bf16_t* m, int ldm) {
+    return ChainEpi{dst, ld, nullptr, m, ldm, nullptr, 0, 0};
   };
-  // B fragments of the reverse chain: W as packed, [in][out] = [n][k]
-  auto rev = [&](const bf16_t* a, int lda, int k_dim, int wi, int k_valid) {
-    return Operand{a, lda, k_dim, w.p[wi], k_valid, k_valid};
+  auto mask_res = [=](bf16_t* dst, int ld, int slot) {
+    return ChainEpi{dst, ld, nullptr, nullptr, 0, res + slot * plane, base, n};
   };
 
   {  // vf = relu(hv @ wcf + bcf), recomputed
-    const Operand ops[1] = {Operand{HV, kLdH, kWidth, wcf_t, kWidth, kWidth}};
-    run_layer<kWide>(ops, d.vf_cols, [=](int r, int c, float v) {
-      v += bf2f(ldg16(w.p[kBcf] + c));
-      P[r * ld_p + c] = f2bf(fmaxf(v, 0.f));
-    });
+    const ChainOp ops[1] = {{HV, kLdH, kWidth}};
+    chain_layer(ops, d.vf_cols, ring, relu_bias(P, ld_p, bcf));
     store_tile(out.p[kVf], d.vf_cols, P, ld_p, base, n);
   }
   {  // dvf = msk(vf, g16 @ D^T)
-    const Operand ops[1] = {rev(G, kLdG, kGCols, kD, d.n_out)};
-    run_layer<kWide>(ops, d.vf_cols, masked_smem(P, ld_p, P, ld_p));
+    const ChainOp ops[1] = {{G, kLdG, kGCols}};
+    chain_layer(ops, d.vf_cols, ring, mask_smem(P, ld_p, P, ld_p));
     store_tile(out.p[kDvf], d.vf_cols, P, ld_p, base, n);
   }
   {  // dhv = msk(hv, g16 @ C^T + dvf @ wcf^T)
-    const Operand ops[2] = {rev(G, kLdG, kGCols, kC, d.n_out),
-                            rev(P, ld_p, d.vf_cols, kWcf, d.vf_cols)};
-    run_layer<kWide>(ops, kWidth, masked_smem(HV, kLdH, HV, kLdH));
+    const ChainOp ops[2] = {{G, kLdG, kGCols}, {P, ld_p, d.vf_cols}};
+    chain_layer(ops, kWidth, ring, mask_smem(HV, kLdH, HV, kLdH));
     store_tile(out.p[kDhv], kWidth, HV, kLdH, base, n);
   }
   {  // dft = dhv @ wv_f^T (ft has no relu)
-    const Operand ops[1] = {rev(HV, kLdH, kWidth, kWvF, kWidth)};
-    run_layer<kWide>(ops, kWidth,
-                     [=](int r, int c, float v) { P[r * ld_p + c] = f2bf(v); });
+    const ChainOp ops[1] = {{HV, kLdH, kWidth}};
+    chain_layer(ops, kWidth, ring, ChainEpi{P, ld_p, nullptr, nullptr, 0, nullptr, 0, 0});
     store_tile(out.p[kDft], kWidth, P, ld_p, base, n);
   }
   {  // dpf = msk(pf, g16 @ B^T)
-    const Operand ops[1] = {rev(G, kLdG, kGCols, kB, d.n_out)};
-    run_layer<kWide>(ops, kWidth, masked_res(Q, kLdH, kPf));
+    const ChainOp ops[1] = {{G, kLdG, kGCols}};
+    chain_layer(ops, kWidth, ring, mask_res(Q, kLdH, kPf));
     store_tile(out.p[kDpf], kWidth, Q, kLdH, base, n);
   }
   {  // d7 = msk(h7, g16 @ A^T + dft @ wfeat^T + dpf @ wpf^T)
-    const Operand ops[3] = {rev(G, kLdG, kGCols, kA, d.n_out),
-                            rev(P, ld_p, kWidth, kWfeat, kWidth),
-                            rev(Q, kLdH, kWidth, kWpf, kWidth)};
-    run_layer<kWide>(ops, kWidth, masked_res(HV, kLdH, kH7));
+    const ChainOp ops[3] = {{G, kLdG, kGCols}, {P, ld_p, kWidth}, {Q, kLdH, kWidth}};
+    chain_layer(ops, kWidth, ring, mask_res(HV, kLdH, kH7));
     store_tile(out.p[kD7], kWidth, HV, kLdH, base, n);
   }
   // d_{i-1} = msk(h_{i-1}, d_i @ w_i^T), i = 7..1 (w5h for i = 5), rotating
   // through HV -> Q -> P -> HV.
   bf16_t* buf[3] = {HV, Q, P};
   const int ldb[3] = {kLdH, kLdH, ld_p};
-  const int wsrc[8] = {-1, kW1, kW2, kW3, kW4, kW5h, kW6, kW7};
   for (int i = 7, s = 0; i >= 1; --i, s = (s + 1) % 3) {
     const int dst = (s + 1) % 3;
-    const Operand ops[1] = {rev(buf[s], ldb[s], kWidth, wsrc[i], kWidth)};
-    run_layer<kWide>(ops, kWidth, masked_res(buf[dst], ldb[dst], kH0 + i - 1));
+    const ChainOp ops[1] = {{buf[s], ldb[s], kWidth}};
+    chain_layer(ops, kWidth, ring, mask_res(buf[dst], ldb[dst], kH0 + i - 1));
     store_tile(out.p[kD7 + 8 - i], kWidth, buf[dst], ldb[dst], base, n);
+  }
+  cp_async_wait<0>();
+}
+
+// Slabs the chain consumes: vf (vf_cols, k 256), dvf (vf_cols, k 32),
+// dhv (256, k 32 + vf_cols), dft (256, k 256), dpf (256, k 32), d7 (256,
+// k 32 + 256 + 256), d6..d0 (256, k 256 each).
+int chain_slab_count(const Dims& d) {
+  auto passes = [](int cols) { return (cols + kSlabN - 1) / kSlabN; };
+  auto ks = [](int k) { return (k + kSlabK - 1) / kSlabK; };
+  const int w = passes(kWidth);
+  return passes(d.vf_cols) * (ks(kWidth) + ks(kGCols)) + w * (ks(kGCols) + ks(d.vf_cols)) +
+         w * ks(kWidth) + w * ks(kGCols) + w * (ks(kGCols) + 2 * ks(kWidth)) +
+         7 * w * ks(kWidth);
+}
+
+// One weight of the chain, read as B = [n][k] (w itself, or w^T when
+// trans), with the slab index of its first pass's first k-slab and the
+// slabs of one pass of its layer.
+struct SlabOp {
+  const bf16_t* w;
+  int trans, n, k, first, stride;
+};
+constexpr int kMaxSlabOps = 24;
+struct SlabOps {
+  SlabOp o[kMaxSlabOps];
+};
+
+// Lays the chain's weights out slab after slab; block (x, y) writes slab
+// x of op y, zero past its n and k. About 1.7 MB a call.
+__global__ void __launch_bounds__(kThreads)
+    k3_pack_slabs(SlabOps ops, bf16_t* __restrict__ slabs) {
+  const SlabOp o = ops.o[blockIdx.y];
+  const int ks = (o.k + kSlabK - 1) / kSlabK, passes = (o.n + kSlabN - 1) / kSlabN;
+  if (static_cast<int>(blockIdx.x) >= ks * passes) return;
+  const int p = blockIdx.x / ks, s = blockIdx.x % ks;
+  bf16_t* dst = slabs + static_cast<long long>(o.first + p * o.stride + s) * kSlabElems;
+  const int cols = o.trans ? o.n : o.k;  // of w
+  for (int e = threadIdx.x; e < kSlabElems; e += kThreads) {
+    const int nn = p * kSlabN + e / kSlabK, kk = s * kSlabK + e % kSlabK;
+    bf16_t v = 0;
+    if (nn < o.n && kk < o.k) v = o.trans ? o.w[kk * cols + nn] : o.w[nn * cols + kk];
+    dst[e] = v;
   }
 }
 
 // ---------------------------------------------------------------------------
-// K3, part 2: dW = act^T @ delta over the points, split into point ranges
+// K3, stage 2: dW = act^T @ delta and the bias sums, per point range
 // ---------------------------------------------------------------------------
 
-constexpr int kMaxGemm = 24;
-constexpr int kMaxSum = 24;
-constexpr int kGT = 64;          // output tile edge
-constexpr int kGP = 64;          // points per shared-memory stage
-constexpr int kLdS = kGP + kPad;
+// Each block owns one output tile of one gradient (a job of k3_plan in
+// kernels/fused_field_train.py) over one point range (blockIdx.y), and
+// writes its own f32 partial. The act and delta rows of kDwPts points are
+// [point][column] in device memory; a ring of kDwStages stages is filled
+// by 16-byte cp.async, and ldmatrix.trans hands the tensor cores both
+// operands with the points as the reduction axis. A wide job's tile is
+// 128 x 128 (8 warps of 64 x 32), a narrow one's (the output heads, n <=
+// 32) 128 x 32 (8 warps of 16 x 32). Blocks are numbered job-fastest, so
+// the jobs of one range run together and share its planes in L2.
+constexpr int kDwTile = 128;
+constexpr int kDwNarrow = 32;
+constexpr int kDwPts = 32;
+constexpr int kDwStages = 4;
+constexpr int kLdDw = kDwTile + kPad;  // 272-byte rows
+constexpr int kMaxJobs = 64;
+constexpr int kNumPlanes = 26;         // the residuals, then the deltas
 
-struct GemmJob {
-  const bf16_t* act;    // (n, lda)
-  const bf16_t* delta;  // (n, ldd)
-  int lda, ldd, m, n;   // out (m, n) = act[:, :m]^T @ delta[:, :n]
-  long long off;        // of out in the flat gradient
-  int tiles_n, tile_begin;
+// act/delta: plane indices; lda/ldd: their widths; m0, n0: the tile;
+// m, n: the gradient's shape; out: its offset in the flat gradient;
+// sum_out: offset of the bias sums of delta columns n0.. (sum_src 1: of
+// this tile's delta; 2: of the f32 cotangent g, n columns), or unused (0).
+struct DwJob {
+  int act, delta, lda, ldd, m0, n0, m, n, out, sum_out, sum_src;
 };
-struct GemmJobs {
-  GemmJob j[kMaxGemm];
-  int count;
+struct DwJobs {
+  DwJob j[kMaxJobs];
+};
+struct Planes {
+  const bf16_t* p[kNumPlanes];
 };
 
-__global__ void __launch_bounds__(kThreads)
-    k3_dw_gemm(GemmJobs jobs, long long n, long long chunk,
-               float* __restrict__ partial, long long total) {
-  __shared__ __align__(16) bf16_t As[kGT * kLdS];  // [m][point]
-  __shared__ __align__(16) bf16_t Ds[kGT * kLdS];  // [n][point]
-  int jb = 0;
-  while (jb + 1 < jobs.count && static_cast<int>(blockIdx.x) >= jobs.j[jb + 1].tile_begin)
-    ++jb;
-  const GemmJob J = jobs.j[jb];
-  const int local = blockIdx.x - J.tile_begin;
-  const int m0 = (local / J.tiles_n) * kGT, n0 = (local % J.tiles_n) * kGT;
-  const long long p_begin = static_cast<long long>(blockIdx.y) * chunk;
-  const long long p_end = min(n, p_begin + chunk);
+size_t dw_smem() { return sizeof(bf16_t) * kDwStages * kDwPts * 2 * kLdDw; }
 
+template <int BN>
+__device__ __forceinline__ void dw_tile(const DwJob& J, const bf16_t* __restrict__ act,
+                                        const bf16_t* __restrict__ delta, long long p_begin,
+                                        long long p_end, float* __restrict__ dst,
+                                        bf16_t* smem) {
+  constexpr int MT = BN == kDwTile ? 4 : 1;  // m16 tiles of a warp
+  constexpr int WN = BN / 32;                // warps along n
+  constexpr int LDD = BN + kPad;
+  constexpr int kA = kDwPts * kLdDw, kD = kDwPts * LDD;
+  bf16_t* As = smem;
+  bf16_t* Ds = smem + kDwStages * kA;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = (warp & 3) * 16, col0 = (warp >> 2) * 32;
-  const int g = lane >> 2, t = lane & 3;
-  float acc[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int wm = warp / WN, mb = wm * MT * 16, nb = (warp % WN) * 32;
+  const int g = lane >> 2, t = lane & 3, q = lane >> 3, rr = lane & 7;
+  const int steps = p_end > p_begin ? static_cast<int>((p_end - p_begin + kDwPts - 1) / kDwPts) : 0;
+  const bool sums = J.sum_src == 1 && wm == 0;  // one warp row takes the column sums
 
-  for (long long p0 = p_begin; p0 < p_end; p0 += kGP) {
-    for (int idx = threadIdx.x; idx < kGT * kGP; idx += kThreads) {
-      const int pp = idx / kGT, mm = idx % kGT;
-      const long long p = p0 + pp;
-      bf16_t a = 0, dl = 0;
-      if (p < p_end) {
-        if (m0 + mm < J.m) a = ldg16(J.act + p * J.lda + m0 + mm);
-        if (n0 + mm < J.n) dl = ldg16(J.delta + p * J.ldd + n0 + mm);
-      }
-      As[mm * kLdS + pp] = a;
-      Ds[mm * kLdS + pp] = dl;
+  auto load = [&](int stage, int step) {
+    const long long p0 = p_begin + static_cast<long long>(step) * kDwPts;
+    bf16_t* a_s = As + stage * kA;
+    bf16_t* d_s = Ds + stage * kD;
+    for (int c = threadIdx.x; c < kDwPts * (kDwTile / 8); c += kThreads) {
+      const int r = c / (kDwTile / 8), col = (c % (kDwTile / 8)) * 8;
+      const long long p = p0 + r;
+      const bool live = p < p_end && J.m0 + col < J.lda;
+      cp_async16(a_s + r * kLdDw + col, live ? act + p * J.lda + J.m0 + col : act, live);
     }
-    __syncthreads();
-#pragma unroll
-    for (int k0 = 0; k0 < kGP; k0 += 16) {
-      const bf16_t* a = As + (row0 + g) * kLdS + k0 + 2 * t;
-      const uint32_t a0 = *reinterpret_cast<const uint32_t*>(a);
-      const uint32_t a1 = *reinterpret_cast<const uint32_t*>(a + 8 * kLdS);
-      const uint32_t a2 = *reinterpret_cast<const uint32_t*>(a + 8);
-      const uint32_t a3 = *reinterpret_cast<const uint32_t*>(a + 8 * kLdS + 8);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bf16_t* b = Ds + (col0 + 8 * j + g) * kLdS + k0 + 2 * t;
-        mma16816(acc[j], a0, a1, a2, a3, *reinterpret_cast<const uint32_t*>(b),
-                 *reinterpret_cast<const uint32_t*>(b + 8));
-      }
+    for (int c = threadIdx.x; c < kDwPts * (BN / 8); c += kThreads) {
+      const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
+      const long long p = p0 + r;
+      const bool live = p < p_end && J.n0 + col < J.ldd;
+      cp_async16(d_s + r * LDD + col, live ? delta + p * J.ldd + J.n0 + col : delta, live);
     }
-    __syncthreads();
-  }
+  };
 
-  float* dst = partial + static_cast<long long>(blockIdx.y) * total + J.off;
+  float acc[MT][4][4], sum[4][4];
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int r = m0 + row0 + g + 8 * (e >> 1);
-      const int c = n0 + col0 + 8 * j + 2 * t + (e & 1);
-      if (r < J.m && c < J.n) dst[static_cast<long long>(r) * J.n + c] = acc[j][e];
+      sum[j][e] = 0.f;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) acc[mt][j][e] = 0.f;
     }
-}
+  const uint32_t ones = 0x3F803F80u;  // bf16 1.0 twice: the column sums on the tensor cores
 
-// Bias gradients: column sums of a delta over the same point ranges.
-struct SumJob {
-  const void* delta;  // (n, ldd) bf16, or f32 when is_f32
-  int ldd, cols, is_f32;
-  long long off;
-  int col_begin;
-};
-struct SumJobs {
-  SumJob j[kMaxSum];
-  int count, total_cols;
-};
-
-__global__ void k3_colsum(SumJobs jobs, long long n, long long chunk,
-                          float* __restrict__ partial, long long total) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= jobs.total_cols) return;
-  int jb = 0;
-  while (jb + 1 < jobs.count && col >= jobs.j[jb + 1].col_begin) ++jb;
-  const SumJob J = jobs.j[jb];
-  const int c = col - J.col_begin;
-  const long long p_begin = static_cast<long long>(blockIdx.y) * chunk;
-  const long long p_end = min(n, p_begin + chunk);
-  float s = 0.f;
-  if (J.is_f32) {
-    const float* src = static_cast<const float*>(J.delta);
-    for (long long p = p_begin; p < p_end; ++p) s += __ldg(src + p * J.ldd + c);
-  } else {
-    const bf16_t* src = static_cast<const bf16_t*>(J.delta);
-    for (long long p = p_begin; p < p_end; ++p) s += bf2f(ldg16(src + p * J.ldd + c));
+#pragma unroll
+  for (int s = 0; s < kDwStages - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
   }
-  partial[static_cast<long long>(blockIdx.y) * total + J.off + c] = s;
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait<kDwStages - 2>();
+    __syncthreads();
+    if (i + kDwStages - 1 < steps) load((i + kDwStages - 1) % kDwStages, i + kDwStages - 1);
+    cp_async_commit();
+    const bf16_t* a_s = As + (i % kDwStages) * kA;
+    const bf16_t* d_s = Ds + (i % kDwStages) * kD;
+#pragma unroll
+    for (int k0 = 0; k0 < kDwPts; k0 += 16) {
+      uint32_t a[MT][4], b[4][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4_t(a[mt], a_s + (k0 + rr + 8 * (q >> 1)) * kLdDw + mb + 16 * mt + 8 * (q & 1));
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        uint32_t r4[4];
+        ldsm_x4_t(r4, d_s + (k0 + rr + 8 * (q & 1)) * LDD + nb + 8 * (j + (q >> 1)));
+        b[j][0] = r4[0];
+        b[j][1] = r4[1];
+        b[j + 1][0] = r4[2];
+        b[j + 1][1] = r4[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma16816(acc[mt][j], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b[j][0], b[j][1]);
+      if (sums) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma16816(sum[j], ones, ones, ones, ones, b[j][0], b[j][1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = J.m0 + mb + 16 * mt + g + 8 * (e >> 1);
+        const int c = J.n0 + nb + 8 * j + 2 * t + (e & 1);
+        if (r < J.m && c < J.n) dst[J.out + static_cast<long long>(r) * J.n + c] = acc[mt][j][e];
+      }
+  if (sums && g == 0) {  // every row of sum holds the column sums
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = nb + 8 * j + 2 * t + e;
+        if (J.n0 + c < J.n) dst[J.sum_out + c] = sum[j][e];
+      }
+  }
 }
 
+// Column sums of the f32 g (n, cols) over points [p0, p1) into dst, in a
+// fixed order: thread i (< per, a multiple of cols) sums every per-th
+// element from i, all in column i % cols, in batches of 16 loads.
+__device__ __forceinline__ void g_colsum(const float* __restrict__ g, int cols, long long p0,
+                                         long long p1, float* __restrict__ dst) {
+  __shared__ float red[kThreads];
+  const int per = kThreads / cols * cols;
+  float s = 0.f;
+  if (static_cast<int>(threadIdx.x) < per) {
+    const long long end = p1 * cols;
+    for (long long e = p0 * cols + threadIdx.x; e < end; e += 16LL * per) {
+      float v[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) v[u] = e + u * per < end ? __ldg(g + e + u * per) : 0.f;
+#pragma unroll
+      for (int u = 0; u < 16; ++u) s += v[u];
+    }
+  }
+  red[threadIdx.x] = s;
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) < cols) {
+    float v = 0.f;
+    for (int i = threadIdx.x; i < per; i += cols) v += red[i];
+    dst[threadIdx.x] = v;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    k3_dw_gemm(DwJobs jobs, Planes planes, const float* __restrict__ g, long long n,
+               long long chunk, float* __restrict__ partial, long long total) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const DwJob J = jobs.j[blockIdx.x];
+  const long long p_begin = min(n, static_cast<long long>(blockIdx.y) * chunk);
+  const long long p_end = min(n, p_begin + chunk);
+  float* dst = partial + static_cast<long long>(blockIdx.y) * total;
+  const bf16_t* act = planes.p[J.act];
+  const bf16_t* delta = planes.p[J.delta];
+  bf16_t* s = reinterpret_cast<bf16_t*>(smem);
+  if (J.n > kDwNarrow)
+    dw_tile<kDwTile>(J, act, delta, p_begin, p_end, dst, s);
+  else
+    dw_tile<kDwNarrow>(J, act, delta, p_begin, p_end, dst, s);
+  if (J.sum_src == 2) g_colsum(g, J.n, p_begin, p_end, dst + J.sum_out);
+}
+
+// dw = the sum of the point ranges' partials, in range order.
 __global__ void k3_reduce(const float* __restrict__ partial, int splits,
                           long long total, float* __restrict__ dw) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -613,7 +893,8 @@ size_t forward_smem(const Dims& d) {
 }
 
 size_t chain_smem(const Dims& d) {
-  return sizeof(bf16_t) * kTile * (kLdG + 2 * kLdH + max(d.vf_cols, kWidth) + kPad);
+  return sizeof(bf16_t) * (kTile * (kLdG + 2 * kLdH + max(d.vf_cols, kWidth) + kPad) +
+                           kRing * kSlabSmem);
 }
 
 bool dims_ok(long long n, int n_weights, int width, const Dims& d) {
@@ -649,89 +930,93 @@ extern "C" int fused_field_train_fwd_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches K3 on `stream`: the reverse chain into `deltas` (kNumDeltas
-// planes in DeltaIndex order), then the weight products (gemm_*: per job
-// the activation and delta planes, {lda, ldd, m, n} and the offset in the
-// flat gradient) and the bias sums (sum_*: per job the delta plane, {ldd,
-// cols, is_f32} and the offset) over `splits` point ranges into `partial`
-// (splits x total f32), then their fixed-order sum into dw (total f32).
-// wn: kNumDw device pointers in DwIndex order, as packed ([in][out]);
-// wcf_t: wcf transposed. Returns 0, a cudaError_t, or -1 for arguments the
-// kernels do not take.
+// Launches K3 on `stream`, four kernels in order:
+//   k3_pack_slabs   the chain's weights into `slabs` (n_slabs slabs), per
+//                   slab op: {weight index in DwIndex order, trans, n, k,
+//                   first, stride};
+//   k3_delta_chain  the reverse chain into `deltas` (kNumDeltas planes in
+//                   DeltaIndex order, g16 kGCols wide);
+//   k3_dw_gemm      the jobs (11 ints each, DwJob's fields; act and delta
+//                   index `planes`: the 11 residual planes, then the
+//                   deltas) over `splits` point ranges of `chunk` points,
+//                   into `partial` (splits x total f32);
+//   k3_reduce       their fixed-order sum into dw (total f32).
+// wn: kNumDw device pointers in DwIndex order, as packed ([in][out]).
+// Returns 0, a cudaError_t, or -1 for arguments the kernels do not take.
 extern "C" int fused_field_train_bwd_launch(
     const float* x, long long n, const float* g, const void* res,
     const float* emb_E, const float* emb_phase, const float* emb_id,
-    const void* const* wn, int n_weights, const void* wcf_t, int width,
-    int n_out, int vf_cols, void* const* deltas, int n_deltas, int n_gemm,
-    const void* const* gemm_act, const void* const* gemm_delta,
-    const int* gemm_dims, const long long* gemm_off, int n_sum,
-    const void* const* sum_delta, const int* sum_dims,
-    const long long* sum_off, int splits, float* partial, long long total,
-    float* dw, void* stream) {
+    const void* const* wn, int n_weights, int width, int n_out, int vf_cols,
+    const int* slab_ops, int n_slab_ops, void* slabs, int n_slabs,
+    void* const* deltas, int n_deltas, const void* const* planes, int n_planes,
+    const int* jobs, int n_jobs, long long chunk, int splits, float* partial,
+    long long total, float* dw, void* stream) {
   const Dims d{n_out, vf_cols};
-  if (!dims_ok(n, n_weights, width, d) || n_deltas != kNumDeltas ||
-      n_gemm <= 0 || n_gemm > kMaxGemm || n_sum <= 0 || n_sum > kMaxSum ||
-      splits <= 0 || total <= 0)
+  if (!dims_ok(n, n_weights, width, d) || d.vf_cols % kSlabN != 0 ||
+      n_slab_ops <= 0 || n_slab_ops > kMaxSlabOps || n_slabs != chain_slab_count(d) ||
+      n_deltas != kNumDeltas || n_planes != kNumPlanes || n_jobs <= 0 ||
+      n_jobs > kMaxJobs || splits <= 0 || total <= 0 || total > INT_MAX || chunk < 0 ||
+      chunk * splits < n)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long chunk = ((n + splits - 1) / splits + kGP - 1) / kGP * kGP;
 
-  GemmJobs gj;
-  gj.count = n_gemm;
-  int tiles = 0;
-  for (int i = 0; i < n_gemm; ++i) {
-    GemmJob& J = gj.j[i];
-    J.act = static_cast<const bf16_t*>(gemm_act[i]);
-    J.delta = static_cast<const bf16_t*>(gemm_delta[i]);
-    J.lda = gemm_dims[4 * i];
-    J.ldd = gemm_dims[4 * i + 1];
-    J.m = gemm_dims[4 * i + 2];
-    J.n = gemm_dims[4 * i + 3];
-    J.off = gemm_off[i];
-    J.tiles_n = (J.n + kGT - 1) / kGT;
-    J.tile_begin = tiles;
-    tiles += (J.m + kGT - 1) / kGT * J.tiles_n;
+  SlabOps so;
+  int max_slabs = 0;
+  for (int i = 0; i < n_slab_ops; ++i) {
+    const int* v = slab_ops + 6 * i;
+    if (v[0] < 0 || v[0] >= kNumDw || v[2] <= 0 || v[3] <= 0 || v[4] < 0 || v[5] <= 0)
+      return -1;
+    const int ks = (v[3] + kSlabK - 1) / kSlabK, passes = (v[2] + kSlabN - 1) / kSlabN;
+    if (v[4] + (passes - 1) * v[5] + ks > n_slabs) return -1;
+    so.o[i] = SlabOp{static_cast<const bf16_t*>(wn[v[0]]), v[1], v[2], v[3], v[4], v[5]};
+    max_slabs = max(max_slabs, ks * passes);
   }
-  SumJobs sj;
-  sj.count = n_sum;
-  sj.total_cols = 0;
-  for (int i = 0; i < n_sum; ++i) {
-    SumJob& J = sj.j[i];
-    J.delta = sum_delta[i];
-    J.ldd = sum_dims[3 * i];
-    J.cols = sum_dims[3 * i + 1];
-    J.is_f32 = sum_dims[3 * i + 2];
-    J.off = sum_off[i];
-    J.col_begin = sj.total_cols;
-    sj.total_cols += J.cols;
+  DwJobs dj;
+  for (int i = 0; i < n_jobs; ++i) {
+    const int* v = jobs + 11 * i;
+    DwJob& J = dj.j[i];
+    J = DwJob{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8], v[9], v[10]};
+    const int bn = J.n > kDwNarrow ? kDwTile : kDwNarrow;
+    if (J.act < 0 || J.act >= kNumPlanes || J.delta < 0 || J.delta >= kNumPlanes ||
+        J.lda % 8 || J.ldd % 8 || J.m0 < 0 || J.m0 >= J.m || J.n0 < 0 || J.n0 >= J.n ||
+        J.m > J.lda || J.n > J.ldd || (bn == kDwNarrow && J.ldd > kDwNarrow) ||
+        J.out < 0 || static_cast<long long>(J.out) + J.m * J.n > total ||
+        J.sum_src < 0 || J.sum_src > 2 ||
+        (J.sum_src && (J.sum_out < 0 || J.sum_out + min(bn, J.n - J.n0) > total)))
+      return -1;
   }
+  Planes pl;
+  for (int i = 0; i < kNumPlanes; ++i) pl.p[i] = static_cast<const bf16_t*>(planes[i]);
 
+  cudaError_t err;
   if (n > 0) {
-    Weights w;
-    for (int i = 0; i < kNumDw; ++i) w.p[i] = static_cast<const bf16_t*>(wn[i]);
+    k3_pack_slabs<<<dim3(max_slabs, n_slab_ops), kThreads, 0, s>>>(
+        so, static_cast<bf16_t*>(slabs));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
     Deltas out;
     for (int i = 0; i < kNumDeltas; ++i) out.p[i] = static_cast<bf16_t*>(deltas[i]);
     const Emb emb{emb_E, emb_phase, emb_id};
     const size_t smem = chain_smem(d);
-    cudaError_t err = cudaFuncSetAttribute(
-        k3_delta_chain, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    err = cudaFuncSetAttribute(k3_delta_chain, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     const unsigned blocks = static_cast<unsigned>((n + kTile - 1) / kTile);
     k3_delta_chain<<<blocks, kThreads, smem, s>>>(
-        x, n, g, static_cast<const bf16_t*>(res), emb, w,
-        static_cast<const bf16_t*>(wcf_t), d, out);
+        x, n, g, static_cast<const bf16_t*>(res), emb,
+        static_cast<const bf16_t*>(wn[kBcf]), static_cast<const bf16_t*>(slabs), n_slabs,
+        d, out);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  k3_dw_gemm<<<dim3(tiles, splits), kThreads, 0, s>>>(gj, n, chunk, partial, total);
-  cudaError_t err = cudaGetLastError();
+  err = cudaFuncSetAttribute(k3_dw_gemm, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(dw_smem()));
   if (err != cudaSuccess) return static_cast<int>(err);
-  k3_colsum<<<dim3((sj.total_cols + 127) / 128, splits), 128, 0, s>>>(
-      sj, n, chunk, partial, total);
+  k3_dw_gemm<<<dim3(n_jobs, splits), kThreads, dw_smem(), s>>>(dj, pl, g, n, chunk, partial,
+                                                               total);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  k3_reduce<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
-      partial, splits, total, dw);
+  k3_reduce<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(partial, splits,
+                                                                      total, dw);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,11 +11,13 @@ under `use_pallas_train` with bf16 gradients.
   embedding, the 8-layer trunk and every head with bf16 operands and f32
   accumulation. It writes the raw output (N, 9+3K) in f32 and the 11
   bf16 residuals `h0..h7, pf, ft, hv` (`_RES_ORDER`) for the backward.
-- K3 (`k3_delta_chain`, `k3_dw_gemm`, `k3_colsum`, `k3_reduce`, launched
-  together by one entry point): recomputes the embedding and the coarse
-  features `vf`, replays the reverse chain with relu masks read from the
-  residuals, and reduces all 24 weight and bias gradients (`_DW_ORDER`)
-  over the points in f32. dW is never rounded to bf16.
+- K3 (`k3_pack_slabs`, `k3_delta_chain`, `k3_dw_gemm`, `k3_reduce`,
+  launched together by one entry point): recomputes the embedding and the
+  coarse features `vf`, replays the reverse chain with relu masks read
+  from the residuals, its weights streamed as slabs (`chain_schedule`,
+  `chain_slabs`), and reduces all 24 weight and bias gradients
+  (`_DW_ORDER`) over point ranges in f32 by the jobs of `k3_plan`. dW is
+  never rounded to bf16.
 
 Gradient semantics, as in the JAX kernel: positions and directions get
 no gradient. In training the sample positions are stop-gradient rooted
@@ -35,7 +37,10 @@ tensors take them; CUDA tensors launch the kernels or raise.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import itertools
+import math
 
 import torch
 
@@ -179,6 +184,174 @@ def train_backward_plain(x, g, res, w16: dict, emb: dict) -> dict[str, torch.Ten
 
 
 # ---------------------------------------------------------------------------
+# K3's launch plan (pure Python; the CUDA entry point takes it as tables)
+# ---------------------------------------------------------------------------
+
+DW_TILE = 128    # output tile edge of a wide dW job
+DW_NARROW = 32   # columns of a narrow job (the output heads, 9+3K <= 32)
+DW_POINTS = 32   # points per pipeline stage of the dW GEMM
+SLAB_N, SLAB_K = 128, 32   # a chain weight slab: output columns x reduction rows
+
+# The planes the dW GEMM reads, by index: the residuals, then the deltas.
+_PLANES = _RES_ORDER + _DELTA_ORDER
+
+
+def dw_splits(n: int) -> int:
+    """Point ranges the weight-gradient reduction is split into: one per
+    4096 points, at most 32. Each range writes its own f32 partial and a
+    second pass sums them in a fixed order, so the result does not
+    depend on scheduling."""
+    return max(1, min(32, -(-n // 4096)))
+
+
+def plane_cols(shapes: dict) -> dict[str, int]:
+    """Columns of each plane of `_PLANES` for packed weights of these
+    shapes. g16 is written DW_NARROW wide (zero past 9+3K), so that every
+    row of every plane is a whole number of 16-byte chunks."""
+    width, vf_cols = shapes["w1"][0], shapes["wcf"][1]
+    cols = {k: width for k in _PLANES}
+    cols.update(x=shapes["w0"][0], g16=DW_NARROW, vf=vf_cols, dvf=vf_cols)
+    return cols
+
+
+@dataclasses.dataclass(frozen=True)
+class DwJob:
+    """One output tile of one weight gradient, reduced over one point
+    range: gradient[m0:m0 + DW_TILE, n0:n0 + tile columns] (clipped to
+    its shape (m, n)) = act^T @ delta. `out` is the gradient's offset in
+    the flat f32 gradient. With `sum_src` 1 the tile also takes the
+    column sums of its delta tile, with 2 those of the f32 cotangent g,
+    into the flat gradient from `sum_out` (the bias gradient of those
+    columns); with 0 it takes none."""
+    weight: str
+    act: str
+    delta: str
+    m0: int
+    n0: int
+    m: int
+    n: int
+    out: int
+    sum_out: int = 0
+    sum_src: int = 0
+
+    @property
+    def cols(self) -> int:
+        """The tile's columns (DW_TILE wide, DW_NARROW narrow)."""
+        return DW_TILE if self.n > DW_NARROW else DW_NARROW
+
+
+@dataclasses.dataclass(frozen=True)
+class K3Plan:
+    """The dW stage of K3 for n points: blocks (job, range) for every job
+    and every range; each range writes its own partial of `total` f32."""
+    n: int
+    chunk: int
+    ranges: tuple[tuple[int, int], ...]
+    jobs: tuple[DwJob, ...]
+    offsets: tuple[tuple[str, int], ...]   # of each gradient in the flat one
+    total: int
+    shapes: tuple   # (name, shape) of the packed weights, in _DW_ORDER
+
+    @functools.cached_property
+    def table(self) -> ctypes.Array:
+        """The jobs as the entry point takes them: DwJob's 11 ints each."""
+        cols = plane_cols(dict(self.shapes))
+        return (ctypes.c_int * (11 * len(self.jobs)))(*[
+            v for j in self.jobs for v in (
+                _PLANES.index(j.act), _PLANES.index(j.delta), cols[j.act], cols[j.delta],
+                j.m0, j.n0, j.m, j.n, j.out, j.sum_out, j.sum_src)])
+
+
+@functools.lru_cache(maxsize=64)
+def k3_plan(n: int, shapes: tuple) -> K3Plan:
+    """K3's dW stage for n points and packed weights of `shapes` ((name,
+    shape) pairs in `_DW_ORDER`): the point ranges (`dw_splits`, each a
+    whole number of DW_POINTS stages but the last), the tile jobs of every
+    `_DW_PRODUCTS` entry, and where each writes its dW and bias sums.
+    Each bias sum of `_DW_SUMS` rides on the m0 = 0 tiles of the first
+    product that reads its delta (the output bias, a sum of the f32 g, on
+    the first product of g16). A function of n and the shapes alone."""
+    shape = dict(shapes)
+    sizes = [math.prod(shape[k]) for k in _DW_ORDER]
+    offs = dict(zip(_DW_ORDER, itertools.accumulate([0] + sizes)))
+    splits = dw_splits(n)
+    chunk = -(-(-(-n // splits)) // DW_POINTS) * DW_POINTS
+    ranges = tuple((min(n, r * chunk), min(n, (r + 1) * chunk)) for r in range(splits))
+    width = shape["tb"][1]
+    bias_out = {("g16" if dl == "g" else dl): offs[k] + (row * width if row is not None else 0)
+                for k, row, dl in _DW_SUMS}
+    jobs = []
+    for k, a, dl in _DW_PRODUCTS:
+        m, cols = shape[k]
+        takes = dl in bias_out
+        src = 2 if dl == "g16" else 1
+        tile_n = DW_TILE if cols > DW_NARROW else DW_NARROW
+        for m0 in range(0, m, DW_TILE):
+            for n0 in range(0, cols, tile_n):
+                s = takes and m0 == 0
+                jobs.append(DwJob(k, a, dl, m0, n0, m, cols, offs[k],
+                                  bias_out[dl] + n0 if s else 0, src if s else 0))
+        bias_out.pop(dl, None)
+    if bias_out:
+        raise ValueError(f"no product reads the deltas of the bias sums {sorted(bias_out)}")
+    return K3Plan(n, chunk, ranges, tuple(jobs), tuple(offs.items()), sum(sizes), shapes)
+
+
+# K3's reverse chain, layer by layer in the kernel's order: the weight of
+# each summand, read as B = [n][k] (transposed for the recomputed vf).
+_CHAIN_LAYERS = [[("wcf", True)], [("D", False)], [("C", False), ("wcf", False)],
+                 [("wv_f", False)], [("B", False)],
+                 [("A", False), ("wfeat", False), ("wpf", False)],
+                 *[[(w, False)] for w in ("w7", "w6", "w5h", "w4", "w3", "w2", "w1")]]
+
+
+@functools.lru_cache(maxsize=8)
+def chain_schedule(shapes: tuple) -> tuple[tuple[tuple, ...], int]:
+    """Where each chain weight's slabs lie in the slab stream: per summand
+    (weight, transposed, n, k, first, stride) -- its B's shape, the slab
+    index of pass 0's first k-slab, and the slabs of one pass of its layer
+    (a layer's passes of SLAB_N columns in order, within a pass each
+    summand's k-slabs in order) -- and the number of slabs."""
+    shape = dict(shapes)
+    ops, first = [], 0
+    for layer in _CHAIN_LAYERS:
+        dims = [(shape[w][::-1] if t else shape[w]) for w, t in layer]
+        stride = sum(-(-k // SLAB_K) for _, k in dims)
+        at = first
+        for (w, t), (n, k) in zip(layer, dims):
+            ops.append((w, t, n, k, at, stride))
+            at += -(-k // SLAB_K)
+        first += -(-dims[0][0] // SLAB_N) * stride
+    return tuple(ops), first
+
+
+def chain_slabs(w16: dict) -> torch.Tensor:
+    """The slab stream of the chain's weights (plain version of
+    k3_pack_slabs): (slabs, SLAB_N, SLAB_K), zero past each B's edges."""
+    sched, total = chain_schedule(tuple((k, tuple(w16[k].shape)) for k in _DW_ORDER))
+    out = w16["w1"].new_zeros((total, SLAB_N, SLAB_K))
+    for w, t, n, k, first, stride in sched:
+        b = w16[w].t() if t else w16[w]
+        for p in range(-(-n // SLAB_N)):
+            for s in range(-(-k // SLAB_K)):
+                blk = b[p * SLAB_N:(p + 1) * SLAB_N, s * SLAB_K:(s + 1) * SLAB_K]
+                out[first + p * stride + s, :blk.shape[0], :blk.shape[1]] = blk
+    return out
+
+
+def chain_unslab(slabs: torch.Tensor, shapes: tuple) -> dict[tuple[str, bool], torch.Tensor]:
+    """The inverse of `chain_slabs`: each summand's B = [n][k]."""
+    sched, _ = chain_schedule(shapes)
+    out = {}
+    for w, t, n, k, first, stride in sched:
+        passes, ks = -(-n // SLAB_N), -(-k // SLAB_K)
+        idx = [first + p * stride + s for p in range(passes) for s in range(ks)]
+        blocks = slabs[idx].reshape(passes, ks, SLAB_N, SLAB_K)
+        out[(w, t)] = blocks.permute(0, 2, 1, 3).reshape(passes * SLAB_N, ks * SLAB_K)[:n, :k]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # CUDA launches
 # ---------------------------------------------------------------------------
 
@@ -192,8 +365,8 @@ def _entries():
     fwd.argtypes = [p, ll, p, p, p, p, i, i, i, i, p, p, p]
     bwd = lib.fused_field_train_bwd_launch
     bwd.restype = i
-    bwd.argtypes = [p, ll, p, p, p, p, p, p, i, p, i, i, i, p, i,
-                    i, p, p, p, p, i, p, p, p, i, p, ll, p, p]
+    bwd.argtypes = [p, ll, p, p, p, p, p, p, i, i, i, i, p, i, p, i,
+                    p, i, p, i, p, i, ll, i, p, ll, p, p]
     return fwd, bwd
 
 
@@ -245,14 +418,6 @@ def _launch_fwd(x, w16, emb):
     return raw, res
 
 
-def dw_splits(n: int) -> int:
-    """Point ranges the weight-gradient reduction is split into: one per
-    4096 points, at most 32. Each range writes its own f32 partial and a
-    second pass sums them in a fixed order, so the result does not
-    depend on scheduling."""
-    return max(1, min(32, -(-n // 4096)))
-
-
 def _launch_bwd(x, g, res, w16, emb):
     n_out = g.shape[1]
     _check(x, w16, emb, n_out)
@@ -263,50 +428,41 @@ def _launch_bwd(x, g, res, w16, emb):
             or not res.is_contiguous():
         raise ValueError("residuals must be contiguous bf16 (11, N, 256)")
     dev = x.device
-    cols = {"x": w16["w0"].shape[0], "g16": n_out, "vf": vf_cols, "dvf": vf_cols}
-    deltas = {k: torch.empty((n, cols.get(k, width)), dtype=torch.bfloat16, device=dev)
-              for k in _DELTA_ORDER}
-    acts = dict(zip(_RES_ORDER, res), **deltas, g=g)
+    shapes = tuple((k, tuple(w16[k].shape)) for k in _DW_ORDER)
+    plan = k3_plan(n, shapes)
+    sched, n_slabs = chain_schedule(shapes)
+    cols = plane_cols(dict(shapes))
 
-    # flat f32 gradient buffer, one view per packed weight
-    sizes = [w16[k].numel() for k in _DW_ORDER]
-    offs = dict(zip(_DW_ORDER, [sum(sizes[:i]) for i in range(len(sizes))]))
-    total = sum(sizes)
-    dw_flat = torch.empty(total, dtype=torch.float32, device=dev)
-    splits = dw_splits(n)
-    partial = torch.empty((splits, total), dtype=torch.float32, device=dev)
+    # every delta plane in one buffer (each a whole number of 16-byte rows)
+    sizes = [n * cols[k] for k in _DELTA_ORDER]
+    scratch = torch.empty(sum(sizes) + n_slabs * SLAB_N * SLAB_K, dtype=torch.bfloat16,
+                          device=dev)
+    starts = [scratch.data_ptr() + 2 * s for s in itertools.accumulate([0] + sizes)]
+    deltas, slabs = starts[:-1], starts[-1]
+    planes = [res.data_ptr() + 2 * i * n * width for i in range(len(_RES_ORDER))] + deltas
+    partial = torch.empty((len(plan.ranges), plan.total), dtype=torch.float32, device=dev)
+    dw_flat = torch.empty(plan.total, dtype=torch.float32, device=dev)
+    slab_ops = (ctypes.c_int * (6 * len(sched)))(*[
+        v for w, t, nn, k, first, stride in sched
+        for v in (_DW_ORDER.index(w), int(t), nn, k, first, stride)])
 
-    g_act = [acts[a] for _, a, _ in _DW_PRODUCTS]
-    g_del = [acts[dl] for _, _, dl in _DW_PRODUCTS]
-    g_dims = (ctypes.c_int * (4 * len(_DW_PRODUCTS)))(*[
-        v for (k, a, dl) in _DW_PRODUCTS
-        for v in (acts[a].shape[1], acts[dl].shape[1], *w16[k].shape)])
-    g_off = (ctypes.c_longlong * len(_DW_PRODUCTS))(*[offs[k] for k, _, _ in _DW_PRODUCTS])
-    s_del = [acts[dl] for _, _, dl in _DW_SUMS]
-    s_dims = (ctypes.c_int * (3 * len(_DW_SUMS)))(*[
-        v for (_, _, dl) in _DW_SUMS
-        for v in (acts[dl].shape[1], acts[dl].shape[1], int(dl == "g"))])
-    s_off = (ctypes.c_longlong * len(_DW_SUMS))(*[
-        offs[k] + (row * width if row is not None else 0) for k, row, _ in _DW_SUMS])
+    def ptrs(values):
+        return ctypes.cast((ctypes.c_void_p * len(values))(*values), ctypes.c_void_p)
 
-    wcf_t = w16["wcf"].t().contiguous()
     with torch.cuda.device(dev):
         err = _entries()[1](
             x.data_ptr(), n, g.data_ptr(), res.data_ptr(), emb["E"].data_ptr(),
             emb["phase"].data_ptr(), emb["id"].data_ptr(),
-            ctypes.cast(_ptr_array([w16[k] for k in _DW_ORDER]), ctypes.c_void_p),
-            len(_DW_ORDER), wcf_t.data_ptr(), width, n_out, vf_cols,
-            ctypes.cast(_ptr_array([deltas[k] for k in _DELTA_ORDER]), ctypes.c_void_p),
-            len(_DELTA_ORDER),
-            len(_DW_PRODUCTS), ctypes.cast(_ptr_array(g_act), ctypes.c_void_p),
-            ctypes.cast(_ptr_array(g_del), ctypes.c_void_p),
-            ctypes.cast(g_dims, ctypes.c_void_p), ctypes.cast(g_off, ctypes.c_void_p),
-            len(_DW_SUMS), ctypes.cast(_ptr_array(s_del), ctypes.c_void_p),
-            ctypes.cast(s_dims, ctypes.c_void_p), ctypes.cast(s_off, ctypes.c_void_p),
-            splits, partial.data_ptr(), total, dw_flat.data_ptr(), _stream(dev))
+            ptrs([w16[k].data_ptr() for k in _DW_ORDER]), len(_DW_ORDER), width, n_out,
+            vf_cols, ctypes.cast(slab_ops, ctypes.c_void_p), len(sched), slabs, n_slabs,
+            ptrs(deltas), len(deltas), ptrs(planes), len(planes),
+            ctypes.cast(plan.table, ctypes.c_void_p), len(plan.jobs), plan.chunk,
+            len(plan.ranges), partial.data_ptr(), plan.total, dw_flat.data_ptr(),
+            _stream(dev))
     if err != 0:
         raise RuntimeError(f"fused_field_train backward kernel launch failed: error {err}")
     LAUNCHES["fused_field_train_bwd"] += 1
+    offs = dict(plan.offsets)
     return {k: dw_flat[offs[k]:offs[k] + w16[k].numel()].view(w16[k].shape)
             for k in _DW_ORDER}
 
