@@ -414,17 +414,24 @@ __device__ __forceinline__ float hi_bf(uint32_t v) { return __uint_as_float(v & 
 // ---------------------------------------------------------------------------
 
 // The chain's weights, as B = [n][k] operands, are cut into slabs of
-// kSlabN output columns by kSlabK reduction rows and laid out, slab after
-// slab, in the order the chain consumes them (k3_pack_slabs; the plain
-// version is chain_slabs in kernels/fused_field_train.py). A ring of kRing
-// slabs in shared memory is filled by cp.async, kRing - 1 slabs ahead of
-// the products, across pass and layer boundaries; all 8 warps share it.
-constexpr int kSlabN = 128;
+// kSlabN output columns (one pass) by kSlabK reduction rows and laid out,
+// slab after slab, in the order the chain consumes them (k3_pack_slabs;
+// the plain version is chain_slabs in kernels/fused_field_train.py). A
+// ring of kRing slabs in shared memory is filled by cp.async, kRing - 1
+// slabs ahead of the products, across pass and layer boundaries; all 8
+// warps share it. What bounds the chain on this card is shared memory's
+// bandwidth for the operand fragments and the block barrier each slab
+// costs, not the latency of L2 (a deeper ring does not help): so a pass
+// covers 256 columns, and each warp a 32 x 64 tile of it, which reads
+// 1.7x fewer fragment bytes per product than 16 x 64 and halves the
+// barriers.
+constexpr int kSlabN = 256;
 constexpr int kSlabK = 32;
 constexpr int kLdSlab = kSlabK + kPad;         // 80-byte rows: ldmatrix without bank conflicts
 constexpr int kSlabElems = kSlabN * kSlabK;    // in device memory
 constexpr int kSlabSmem = kSlabN * kLdSlab;    // in shared memory
-constexpr int kRing = 6;
+constexpr int kRing = 4;
+constexpr int kChainCols = 64;                 // columns of a warp's tile
 
 struct SlabRing {
   bf16_t* buf;
@@ -475,77 +482,95 @@ struct ChainEpi {
   long long base, n;
 };
 
-// out = sum over the operands, for n_cols (a multiple of kSlabN) columns,
-// in passes of kSlabN; warp w owns rows 16*(w%4).. and 64 columns of a
-// pass. No operand's A may be dst. Ends with __syncthreads().
+// out = sum over the operands, for n_cols (a multiple of kChainCols)
+// columns, in passes of kSlabN; warp w owns rows 32*(w%2).. and columns
+// 64*(w/2).. of a pass (none where those lie past n_cols: it only keeps
+// step with the ring). No operand's A may be dst. Ends with
+// __syncthreads().
 template <int NOPS>
 __device__ __forceinline__ void chain_layer(const ChainOp (&ops)[NOPS], int n_cols,
                                             SlabRing& ring, const ChainEpi& epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = (warp & 3) * 16, nl = (warp >> 2) * 64;
+  const int row0 = (warp & 1) * 32, nl = (warp >> 1) * kChainCols;
   const int g = lane >> 2, t = lane & 3, q = lane >> 3, rr = lane & 7;
+  constexpr int NT = kChainCols / 8;
   for (int c0 = 0; c0 < n_cols; c0 += kSlabN) {
+    const bool live = c0 + nl < n_cols;
     // the epilogue's bias or residual mask, fetched before the products
     // so that its latency hides behind them
-    uint32_t pre[kWide][2];
+    uint32_t pre[2][NT][2];
 #pragma unroll
-    for (int j = 0; j < kWide; ++j) {
-      const int c = c0 + nl + 8 * j + 2 * t;
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const long long p = epi.base + row0 + g + 8 * h;
-        uint32_t v = 0u;
-        if (epi.bias)
-          v = __ldg(reinterpret_cast<const unsigned int*>(epi.bias + c));
-        else if (epi.mask_g && p < epi.n)
-          v = __ldg(reinterpret_cast<const unsigned int*>(epi.mask_g + p * kWidth + c));
-        pre[j][h] = v;
+      for (int j = 0; j < NT; ++j) {
+        const int c = c0 + nl + 8 * j + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long p = epi.base + row0 + 16 * mt + g + 8 * h;
+          uint32_t v = 0u;
+          if (live && epi.bias)
+            v = __ldg(reinterpret_cast<const unsigned int*>(epi.bias + c));
+          else if (live && epi.mask_g && p < epi.n)
+            v = __ldg(reinterpret_cast<const unsigned int*>(epi.mask_g + p * kWidth + c));
+          pre[mt][j][h] = v;
+        }
       }
-    }
-    float acc[kWide][4];
+    float acc[2][NT][4];
 #pragma unroll
-    for (int j = 0; j < kWide; ++j)
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
 #pragma unroll
     for (int o = 0; o < NOPS; ++o) {
       const ChainOp& op = ops[o];
       for (int k0 = 0; k0 < op.k_dim; k0 += kSlabK) {
         const bf16_t* slab = ring.next();
+        if (!live) continue;
 #pragma unroll
         for (int kk = 0; kk < kSlabK; kk += 16) {
-          uint32_t a[4];
-          ldsm_x4(a, op.a + (row0 + rr + 8 * (q & 1)) * op.lda + k0 + kk + 8 * (q >> 1));
+          uint32_t a[2][4];
 #pragma unroll
-          for (int j = 0; j < kWide; j += 2) {
+          for (int mt = 0; mt < 2; ++mt)
+            ldsm_x4(a[mt], op.a + (row0 + 16 * mt + rr + 8 * (q & 1)) * op.lda + k0 + kk +
+                               8 * (q >> 1));
+#pragma unroll
+          for (int j = 0; j < NT; j += 2) {
             uint32_t b[4];
             ldsm_x4(b, slab + (nl + 8 * j + rr + 8 * (q >> 1)) * kLdSlab + kk + 8 * (q & 1));
-            mma16816(acc[j], a[0], a[1], a[2], a[3], b[0], b[1]);
-            mma16816(acc[j + 1], a[0], a[1], a[2], a[3], b[2], b[3]);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              mma16816(acc[mt][j], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b[0], b[1]);
+              mma16816(acc[mt][j + 1], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b[2], b[3]);
+            }
           }
         }
       }
     }
+    if (!live) continue;
 #pragma unroll
-    for (int j = 0; j < kWide; ++j) {
-      const int c = c0 + nl + 8 * j + 2 * t;
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = row0 + g + 8 * h;
-        float v0 = acc[j][2 * h], v1 = acc[j][2 * h + 1];
-        if (epi.bias) {
-          v0 = fmaxf(v0 + lo_bf(pre[j][h]), 0.f);
-          v1 = fmaxf(v1 + hi_bf(pre[j][h]), 0.f);
-        } else if (epi.mask_g || epi.mask_s) {
-          const uint32_t m = epi.mask_g
-              ? pre[j][h]
-              : *reinterpret_cast<const uint32_t*>(epi.mask_s + r * epi.ldm + c);
-          v0 = lo_bf(m) > 0.f ? v0 : 0.f;
-          v1 = hi_bf(m) > 0.f ? v1 : 0.f;
+      for (int j = 0; j < NT; ++j) {
+        const int c = c0 + nl + 8 * j + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row0 + 16 * mt + g + 8 * h;
+          float v0 = acc[mt][j][2 * h], v1 = acc[mt][j][2 * h + 1];
+          if (epi.bias) {
+            v0 = fmaxf(v0 + lo_bf(pre[mt][j][h]), 0.f);
+            v1 = fmaxf(v1 + hi_bf(pre[mt][j][h]), 0.f);
+          } else if (epi.mask_g || epi.mask_s) {
+            const uint32_t m = epi.mask_g
+                ? pre[mt][j][h]
+                : *reinterpret_cast<const uint32_t*>(epi.mask_s + r * epi.ldm + c);
+            v0 = lo_bf(m) > 0.f ? v0 : 0.f;
+            v1 = hi_bf(m) > 0.f ? v1 : 0.f;
+          }
+          *reinterpret_cast<uint32_t*>(epi.dst + r * epi.ld + c) = pack_bf2(v0, v1);
         }
-        *reinterpret_cast<uint32_t*>(epi.dst + r * epi.ld + c) = pack_bf2(v0, v1);
       }
-    }
   }
   __syncthreads();
 }
@@ -952,7 +977,7 @@ extern "C" int fused_field_train_bwd_launch(
     const int* jobs, int n_jobs, long long chunk, int splits, float* partial,
     long long total, float* dw, void* stream) {
   const Dims d{n_out, vf_cols};
-  if (!dims_ok(n, n_weights, width, d) || d.vf_cols % kSlabN != 0 ||
+  if (!dims_ok(n, n_weights, width, d) || d.vf_cols % kChainCols != 0 ||
       n_slab_ops <= 0 || n_slab_ops > kMaxSlabOps || n_slabs != chain_slab_count(d) ||
       n_deltas != kNumDeltas || n_planes != kNumPlanes || n_jobs <= 0 ||
       n_jobs > kMaxJobs || splits <= 0 || total <= 0 || total > INT_MAX || chunk < 0 ||

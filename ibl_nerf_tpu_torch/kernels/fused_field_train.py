@@ -190,7 +190,7 @@ def train_backward_plain(x, g, res, w16: dict, emb: dict) -> dict[str, torch.Ten
 DW_TILE = 128    # output tile edge of a wide dW job
 DW_NARROW = 32   # columns of a narrow job (the output heads, 9+3K <= 32)
 DW_POINTS = 32   # points per pipeline stage of the dW GEMM
-SLAB_N, SLAB_K = 128, 32   # a chain weight slab: output columns x reduction rows
+SLAB_N, SLAB_K = 256, 32   # a chain weight slab: output columns (a pass) x reduction rows
 
 # The planes the dW GEMM reads, by index: the residuals, then the deltas.
 _PLANES = _RES_ORDER + _DELTA_ORDER

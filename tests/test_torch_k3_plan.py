@@ -135,7 +135,18 @@ def test_slab_layout_round_trips():
            for k, s in SHAPES}
     slabs = fft.chain_slabs(w16)
     sched, total = fft.chain_schedule(SHAPES)
-    assert slabs.shape == (total, fft.SLAB_N, fft.SLAB_K) and total == 217
+    assert slabs.shape == (total, fft.SLAB_N, fft.SLAB_K)
+
+    def passes(c):
+        return -(-c // fft.SLAB_N)
+
+    def ks(k):
+        return -(-k // fft.SLAB_K)
+
+    # the count the kernel checks (chain_slab_count): vf and dvf, then dhv,
+    # dft, dpf, d7 and d6..d0, g16's operands padded to one k-slab
+    assert total == passes(VF) * (ks(256) + ks(32)) + passes(256) * (
+        ks(32) + ks(VF) + ks(256) + ks(32) + ks(32) + 2 * ks(256) + 7 * ks(256))
     back = fft.chain_unslab(slabs, SHAPES)
     for w, t, *_ in sched:
         assert torch.equal(back[(w, t)], w16[w].t() if t else w16[w])
