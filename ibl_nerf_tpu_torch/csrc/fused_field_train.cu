@@ -49,9 +49,10 @@
 //                   its own f32 partial; operands staged by cp.async;
 //   k3_reduce       sums the partials in a fixed order. Deterministic: no
 //                   atomics, two runs give the same bits. dW stays f32.
-// Both stages are bound by their own traffic in device memory: the chain
-// writes 15 delta planes that the dW stage reads back (PERF.md, the design
-// floor). The ragged last tile is masked in every kernel; offsets are
+// The two-stage design cannot beat its own traffic in device memory: the
+// chain writes 15 delta planes that the dW stage reads back (PERF.md, the
+// design floor); what holds each stage above it on this card is noted at
+// the stage. The ragged last tile is masked in every kernel; offsets are
 // 64-bit; sinf without fast math.
 
 #include <cuda_bf16.h>

@@ -244,7 +244,6 @@ class DwJob:
 class K3Plan:
     """The dW stage of K3 for n points: blocks (job, range) for every job
     and every range; each range writes its own partial of `total` f32."""
-    n: int
     chunk: int
     ranges: tuple[tuple[int, int], ...]
     jobs: tuple[DwJob, ...]
@@ -294,7 +293,7 @@ def k3_plan(n: int, shapes: tuple) -> K3Plan:
         bias_out.pop(dl, None)
     if bias_out:
         raise ValueError(f"no product reads the deltas of the bias sums {sorted(bias_out)}")
-    return K3Plan(n, chunk, ranges, tuple(jobs), tuple(offs.items()), sum(sizes), shapes)
+    return K3Plan(chunk, ranges, tuple(jobs), tuple(offs.items()), sum(sizes), shapes)
 
 
 # K3's reverse chain, layer by layer in the kernel's order: the weight of
@@ -336,18 +335,6 @@ def chain_slabs(w16: dict) -> torch.Tensor:
             for s in range(-(-k // SLAB_K)):
                 blk = b[p * SLAB_N:(p + 1) * SLAB_N, s * SLAB_K:(s + 1) * SLAB_K]
                 out[first + p * stride + s, :blk.shape[0], :blk.shape[1]] = blk
-    return out
-
-
-def chain_unslab(slabs: torch.Tensor, shapes: tuple) -> dict[tuple[str, bool], torch.Tensor]:
-    """The inverse of `chain_slabs`: each summand's B = [n][k]."""
-    sched, _ = chain_schedule(shapes)
-    out = {}
-    for w, t, n, k, first, stride in sched:
-        passes, ks = -(-n // SLAB_N), -(-k // SLAB_K)
-        idx = [first + p * stride + s for p in range(passes) for s in range(ks)]
-        blocks = slabs[idx].reshape(passes, ks, SLAB_N, SLAB_K)
-        out[(w, t)] = blocks.permute(0, 2, 1, 3).reshape(passes * SLAB_N, ks * SLAB_K)[:n, :k]
     return out
 
 
