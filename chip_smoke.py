@@ -9,11 +9,12 @@ Phases, one JSON line each; any failure exits non-zero:
   kernel  each kernel against its plain PyTorch version on the card at the
           shapes the main paths give it, and at ragged point counts:
           K1 (both variants), K2 (raw and the 11 residuals) and K3 (the 24
-          weight gradients, and two runs bit-identical); errors against the
-          stated tolerance, kernel and plain times (CUDA events, after
-          warm-up), and the least time the card could take (FLOPs over the
-          f32 or bf16 tensor-core rate, bytes over the memory rate); K3's
-          time by stage (torch.profiler) beside its design's floor. Also
+          weight gradients), K2 and K3 each with two runs bit-identical;
+          errors against the stated tolerance, kernel and plain times (CUDA
+          events, after warm-up), and the least time the card could take
+          (FLOPs over the f32 or bf16 tensor-core rate, bytes over the
+          memory rate); K2's and K3's time by stage (torch.profiler) beside
+          their designs' floors. Also
           the field gradients of K2/K3 and of the eager bf16 query against
           the eager f32 one.
   slice   the serving path -- `render_path` at full width (8x256 field,
@@ -309,12 +310,27 @@ def k3_design_floor(w16: dict, n: int) -> dict:
     return {**ms, "both": ms["chain"] + ms["dw"], "bytes_per_point": chain + dw}
 
 
+def k2_design_floor(w16: dict, n: int) -> dict:
+    """The least time K2's design could take on n points: the bytes of its
+    own traffic in device memory over the memory rate. The pack reads each
+    weight once and writes the slab stream; the forward reads x and the
+    stream once (later tiles find it in L2) and writes raw and the 11
+    residual planes."""
+    _, n_slabs = fft.forward_schedule(fft._shapes(w16))
+    stream = n_slabs * fft.SLAB_N * fft.SLAB_K * 2
+    n_out, width = w16["bias"].shape[0], w16["w1"].shape[0]
+    pack = sum(v.numel() * 2 for v in w16.values()) + stream
+    fwd = n * (ff.IN_COLS * 4 + n_out * 4 + len(fft._RES_ORDER) * width * 2) + stream
+    ms = {k: b / PEAK_BYTES * 1e3 for k, b in (("pack", pack), ("forward", fwd))}
+    return {**ms, "both": ms["pack"] + ms["forward"], "bytes": pack + fwd}
+
+
 def train_kernel_phase(cfg, field_params, gen) -> list[dict]:
     """K2 and K3 against their plain versions at the fine-pass (512x192)
     and coarse-pass (512x64) point counts and at ragged ones (1 and 63
     points: fewer pipeline stages than the ring holds; 4,097: a point
-    range of one stage), and their gradients against the eager paths';
-    timed at the fine-pass shape, K3 also by stage."""
+    range of one stage), each rerun for bit-equality, and their gradients
+    against the eager paths'; timed at the fine-pass shape and by stage."""
     w16 = fft.to_bf16(ff.pack_field_weights(field_params, cfg))
     emb = fft.emb_constants(cfg, torch.device("cuda"))
     n_out = 9 + 3 * cfg.coarse_radiance_number
@@ -327,6 +343,7 @@ def train_kernel_phase(cfg, field_params, gen) -> list[dict]:
         x = ff._pack_inputs(pts, dirs)
         g = torch.randn((n, n_out), device="cuda", generator=gen) * 1e-3
         raw, res = fft._launch_fwd(x, w16, emb)
+        raw_again, res_again = fft._launch_fwd(x, w16, emb)
         raw_p, res_p = fft.train_forward_plain(x, w16, emb)
         dw = fft._launch_bwd(x, g, res_p, w16, emb)
         dw_again = fft._launch_bwd(x, g, res_p, w16, emb)
@@ -337,6 +354,8 @@ def train_kernel_phase(cfg, field_params, gen) -> list[dict]:
         bwd = {k: rel_err(dw[k], dw_p[k]) for k in fft._DW_ORDER}
         if not torch.isfinite(raw).all() or not all(torch.isfinite(v).all() for v in dw.values()):
             fail("kernel", f"K2/K3: non-finite output at {n} points")
+        if not (torch.equal(raw, raw_again) and torch.equal(res, res_again)):
+            fail("kernel", f"K2: two runs on the same inputs differ at {n} points")
         if not all(torch.equal(dw[k], dw_again[k]) for k in fft._DW_ORDER):
             fail("kernel", f"K3: two runs on the same inputs differ at {n} points")
         for name, e in (("K2", fwd), ("K3", bwd)):
@@ -378,8 +397,8 @@ def train_kernel_phase(cfg, field_params, gen) -> list[dict]:
                           time_ms(kern, iters), time_ms(plain, iters))
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         worst = {n: max(e.values()) for n, e in errs[which].items()}
-        stages = stage_ms(kern, "k3_") if which == "bwd" else None
-        floor = k3_design_floor(w16, fine) if which == "bwd" else None
+        stages = stage_ms(kern, "k2_" if which == "fwd" else "k3_")
+        floor = (k2_design_floor if which == "fwd" else k3_design_floor)(w16, fine)
         report.append({
             "name": name, "route": "cuda",
             "source": "ibl_nerf_tpu_torch/csrc/fused_field_train.cu",
@@ -520,7 +539,7 @@ def flat_grads(grads) -> torch.Tensor:
 
 
 # Kernel names of the port's own CUDA kernels, by the row they belong to.
-OWN_KERNELS = {"fused_field_kernel": "K1", "k2_forward": "K2", "k3_": "K3"}
+OWN_KERNELS = {"fused_field_kernel": "K1", "k2_": "K2", "k3_": "K3"}
 
 
 def profile_steps(step, state, arrays, gen, n=2) -> dict:
@@ -737,7 +756,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_build.build()
     report = {name: [ln for ln in log.splitlines()
-                     if "registers" in ln or "spill" in ln]
+                     if "entry function" in ln or "registers" in ln or "spill" in ln]
               for name, log in kernel_build.build_logs.items()}
     emit("build", seconds=time.perf_counter() - t0, sources=list(kernel_build.SOURCES),
          ptxas=report)

@@ -21,28 +21,30 @@
 // What bounds them: at 8x256 a point costs ~1.6 MFLOP forward and ~3.3
 // MFLOP backward but moves ~5.7 KB (mostly the residuals), ~280 and ~580
 // operations per byte: at the bf16 tensor-core rate (989 TFLOP/s) over
-// 3.35 TB/s (~295 per byte) K2 sits at the ridge and K3 just above it.
+// 3.35 TB/s (~295 per byte) K2 sits at the ridge and K3 just above it. At
+// the fine pass (98,304 points) K2's bound is 0.169 ms (0.566 GB: x, raw
+// and the residuals) and its design floor 0.170 ms (the same bytes, plus
+// its weight stream written once and read once).
 //
 // What the design does about it: every product runs on the tensor cores as
 // warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate). A block owns 64
 // points and keeps their activations on chip, bf16 in shared memory, rows
 // padded by 8 so that the fragment loads of a warp hit 32 distinct banks.
-// 8 warps: warp w owns rows 16*(w%4).. and half of the output columns of a
-// pass. Weights (1.7 MB bf16, far more than shared memory) are read as
-// B fragments through L1/L2, stored [n][k] so that a fragment register is
-// two neighbouring k: K2 gets every matrix transposed ([out][in]), K3's
-// reverse chain reads them as packed ([in][out]). The residuals leave
-// shared memory as 16-byte row stores.
+// Weights (1.7 MB bf16, far more than shared memory) are packed once a call
+// into slabs laid out in the order a kernel consumes them (k2_pack_slabs,
+// k3_pack_slabs) and stream through a ring of slabs in shared memory
+// (cp.async), shared by all 8 warps, from which ldmatrix hands the tensor
+// cores their B fragments. K2 is one such chain of layers, K3's stage 1
+// another. The residuals and deltas leave shared memory as 16-byte row
+// stores. What still holds the chains above their floors on this card is
+// issuing mma.sync at one block per SM and the cost of each slab (PERF.md).
 //
 // The TPU kernel accumulated all 24 gradients across a sequential grid in
 // VMEM. Blocks here run in parallel, so K3 is split in two stages:
-//   k3_pack_slabs   lays the chain's weights out as [128 n][32 k] slabs in
-//                   the order the chain reads them (~1.7 MB);
+//   k3_pack_slabs   lays the chain's weights out as slabs (~1.7 MB);
 //   k3_delta_chain  per 64-point tile: the reverse chain; writes emb, bf16
 //                   g, vf and the 12 deltas (bf16, as the TPU kernel rounds
-//                   them) to device memory. The weight slabs stream through
-//                   a ring in shared memory (cp.async), shared by all 8
-//                   warps, and reach the tensor cores by ldmatrix;
+//                   them) to device memory;
 //   k3_dw_gemm      dW = act^T @ delta for the 18 weight matrices and the
 //                   bias sums in the same pass, 128-wide output tiles, the
 //                   points split into `splits` ranges, each range writing
@@ -75,8 +77,6 @@ constexpr int kLdX = kLane + kPad;
 constexpr int kLdH = kWidth + kPad;
 constexpr int kGCols = 32;       // g (9+3K columns) padded to a k multiple of 16
 constexpr int kLdG = kGCols + kPad;
-constexpr int kWide = 8;         // n-tiles per warp for the wide layers
-constexpr int kNarrow = 2;       // n-tiles per warp for the output heads
 
 // Same names, same order as _DW_ORDER in kernels/fused_field_train.py.
 enum DwIndex {
@@ -94,9 +94,6 @@ enum DeltaIndex {
   kNumDeltas
 };
 
-struct Weights {
-  const bf16_t* p[kNumDw];
-};
 struct Emb {
   const float* E;      // (8, 128)
   const float* phase;  // (128,)
@@ -113,7 +110,6 @@ __device__ __forceinline__ float bf2f(bf16_t b) {
 __device__ __forceinline__ bf16_t f2bf(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
-__device__ __forceinline__ bf16_t ldg16(const bf16_t* p) { return __ldg(p); }
 
 __device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0, uint32_t a1,
                                          uint32_t a2, uint32_t a3, uint32_t b0,
@@ -122,110 +118,6 @@ __device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0, uint32_t a1
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// One summand of a layer: A (64 x k_dim, bf16 in shared memory, row stride
-// lda, zero beyond its live columns) times B, stored [n][k] in device memory
-// with row stride ldb; entries with k >= k_valid or n >= the layer's
-// columns read as 0.
-struct Operand {
-  const bf16_t* a;
-  int lda;
-  int k_dim;  // multiple of 16
-  const bf16_t* b;
-  int ldb;
-  int k_valid;
-};
-
-__device__ __forceinline__ uint32_t load_b(const Operand& op, int n, int k,
-                                           bool aligned) {
-  const bf16_t* q = op.b + static_cast<size_t>(n) * op.ldb + k;
-  if (aligned)  // k even, k_valid even: both or neither are live
-    return k < op.k_valid ? __ldg(reinterpret_cast<const unsigned int*>(q)) : 0u;
-  const uint32_t lo = k < op.k_valid ? ldg16(q) : 0u;
-  const uint32_t hi = k + 1 < op.k_valid ? ldg16(q + 1) : 0u;
-  return lo | (hi << 16);
-}
-
-// The B fragments of the warp's NT n-tiles at k-step k0.
-template <int NT>
-__device__ __forceinline__ void load_b_tiles(uint32_t (&b)[NT][2],
-                                             const Operand& op, int n0,
-                                             int n_cols, int k0, int g, int t,
-                                             bool aligned) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int n = n0 + 8 * j + g;
-    const bool live = n < n_cols;
-    b[j][0] = live ? load_b(op, n, k0 + 2 * t, aligned) : 0u;
-    b[j][1] = live ? load_b(op, n, k0 + 8 + 2 * t, aligned) : 0u;
-  }
-}
-
-// acc[j] += A[row0.., :] @ B[:, n0 + 8j ..] for the warp's NT n-tiles. The
-// B fragments of the next k-step are loaded before the products of this
-// one, so each warp keeps one L2 round trip in flight behind its mma.
-template <int NT>
-__device__ __forceinline__ void mma_accumulate(float (&acc)[NT][4],
-                                               const Operand& op, int n0,
-                                               int n_cols, int row0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const bool aligned = ((op.ldb | op.k_valid) & 1) == 0;
-  uint32_t b[NT][2], next[NT][2];
-  load_b_tiles(b, op, n0, n_cols, 0, g, t, aligned);
-  for (int k0 = 0; k0 < op.k_dim; k0 += 16) {
-    const bool more = k0 + 16 < op.k_dim;
-    if (more) load_b_tiles(next, op, n0, n_cols, k0 + 16, g, t, aligned);
-    const bf16_t* a = op.a + (row0 + g) * op.lda + k0 + 2 * t;
-    const uint32_t a0 = *reinterpret_cast<const uint32_t*>(a);
-    const uint32_t a1 = *reinterpret_cast<const uint32_t*>(a + 8 * op.lda);
-    const uint32_t a2 = *reinterpret_cast<const uint32_t*>(a + 8);
-    const uint32_t a3 = *reinterpret_cast<const uint32_t*>(a + 8 * op.lda + 8);
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      if (n0 + 8 * j < n_cols)  // else the whole n-tile is outside
-        mma16816(acc[j], a0, a1, a2, a3, b[j][0], b[j][1]);
-    if (more) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        b[j][0] = next[j][0];
-        b[j][1] = next[j][1];
-      }
-    }
-  }
-}
-
-// out[r][c] = sum over the operands, for every c < n_cols, handed to
-// epi(r, c, value) in passes of 2*NT*8 columns. No operand's A may be the
-// buffer the epilogue writes (a later pass still reads it); an epilogue may
-// read the element it overwrites. Ends with __syncthreads().
-template <int NT, int NOPS, class Epi>
-__device__ __forceinline__ void run_layer(const Operand (&ops)[NOPS],
-                                          int n_cols, Epi epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = (warp & 3) * 16, ng = warp >> 2;
-  const int g = lane >> 2, t = lane & 3;
-  for (int c0 = 0; c0 < n_cols; c0 += 2 * NT * 8) {
-    const int n0 = c0 + ng * NT * 8;
-    float acc[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-    for (int o = 0; o < NOPS; ++o)
-      mma_accumulate<NT>(acc, ops[o], n0, n_cols, row0, lane);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = n0 + 8 * j + 2 * t;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = c + (e & 1), row = row0 + g + 8 * (e >> 1);
-        if (col < n_cols) epi(row, col, acc[j][e]);
-      }
-    }
-  }
-  __syncthreads();
 }
 
 // Rows [base, base + 64) of a (n, cols) bf16 plane from a shared tile
@@ -272,109 +164,7 @@ __device__ __forceinline__ float embed(const float* __restrict__ x, long long p,
 }
 
 // ---------------------------------------------------------------------------
-// K2: forward
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads, 1)
-    k2_forward(const float* __restrict__ x, long long n, Emb emb, Weights wt,
-               Dims d, float* __restrict__ raw, bf16_t* __restrict__ res) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ld_vf = d.vf_cols + kPad;
-  const int ld_o = (d.n_out + 7) / 8 * 8;
-  bf16_t* X = reinterpret_cast<bf16_t*>(smem);  // emb      [64][kLdX]
-  bf16_t* HA = X + kTile * kLdX;                 // trunk    [64][kLdH]
-  bf16_t* HB = HA + kTile * kLdH;                // trunk    [64][kLdH]
-  bf16_t* VF = HB + kTile * kLdH;                // vf       [64][ld_vf]
-  float* O = reinterpret_cast<float*>(VF + kTile * ld_vf);  // raw [64][ld_o]
-
-  const long long base = static_cast<long long>(blockIdx.x) * kTile;
-  const long long plane = n * kWidth;
-  for (int idx = threadIdx.x; idx < kTile * kLane; idx += kThreads) {
-    const int r = idx / kLane, l = idx % kLane;
-    X[r * kLdX + l] = f2bf(embed(x, base + r, n, l, emb));
-  }
-  __syncthreads();
-
-  // act(sum + bias) rounded to bf16 into `out`
-  auto to_smem = [](bf16_t* out, int ld, const bf16_t* bias, bool relu) {
-    return [=](int r, int c, float v) {
-      v += bf2f(ldg16(bias + c));
-      out[r * ld + c] = f2bf(relu ? fmaxf(v, 0.f) : v);
-    };
-  };
-  auto wide = [&](const bf16_t* a, int lda, int k, int w) {
-    return Operand{a, lda, k, wt.p[w], k, k};
-  };
-  const bf16_t* tb = wt.p[kTb];
-  bf16_t* H[2] = {HA, HB};
-
-  {
-    const Operand ops[1] = {wide(X, kLdX, kLane, kW0)};
-    run_layer<kWide>(ops, kWidth, to_smem(HA, kLdH, tb, true));
-    store_tile(res, kWidth, HA, kLdH, base, n);
-  }
-  const int mid[4] = {kW1, kW2, kW3, kW4};
-  for (int i = 1; i <= 7; ++i) {  // h_i from h_{i-1}: ping-pong HA/HB
-    const bf16_t* in = H[(i - 1) & 1];
-    bf16_t* out = H[i & 1];
-    const bf16_t* bias = tb + i * kWidth;
-    if (i == 5) {
-      const Operand ops[2] = {wide(X, kLdX, kLane, kW5x),
-                              wide(in, kLdH, kWidth, kW5h)};
-      run_layer<kWide>(ops, kWidth, to_smem(out, kLdH, bias, true));
-    } else {
-      const Operand ops[1] = {
-          wide(in, kLdH, kWidth, i < 5 ? mid[i - 1] : (i == 6 ? kW6 : kW7))};
-      run_layer<kWide>(ops, kWidth, to_smem(out, kLdH, bias, true));
-    }
-    store_tile(res + i * plane, kWidth, out, kLdH, base, n);
-  }
-  // h7 is in HB
-  {
-    const Operand ops[1] = {wide(HB, kLdH, kWidth, kWpf)};
-    run_layer<kWide>(ops, kWidth, to_smem(HA, kLdH, wt.p[kBpf], true));  // pf
-    store_tile(res + kPf * plane, kWidth, HA, kLdH, base, n);
-  }
-  auto narrow = [&](const bf16_t* a, int lda, int k, int w) {
-    return Operand{a, lda, k, wt.p[w], k, k};
-  };
-  {
-    const Operand ops[2] = {narrow(HB, kLdH, kWidth, kA),
-                            narrow(HA, kLdH, kWidth, kB)};
-    run_layer<kNarrow>(ops, d.n_out,
-                       [=](int r, int c, float v) { O[r * ld_o + c] = v; });
-  }
-  {
-    const Operand ops[1] = {wide(HB, kLdH, kWidth, kWfeat)};
-    run_layer<kWide>(ops, kWidth, to_smem(HA, kLdH, wt.p[kBfeat], false));  // ft
-    store_tile(res + kFt * plane, kWidth, HA, kLdH, base, n);
-  }
-  {
-    const Operand ops[2] = {wide(HA, kLdH, kWidth, kWvF),
-                            wide(X, kLdX, kLane, kWvD)};
-    run_layer<kWide>(ops, kWidth, to_smem(HB, kLdH, wt.p[kBv], true));  // hv
-    store_tile(res + kHv * plane, kWidth, HB, kLdH, base, n);
-  }
-  {
-    const Operand ops[1] = {wide(HB, kLdH, kWidth, kWcf)};
-    run_layer<kWide>(ops, d.vf_cols, to_smem(VF, ld_vf, wt.p[kBcf], true));
-  }
-  {
-    const Operand ops[2] = {narrow(HB, kLdH, kWidth, kC),
-                            narrow(VF, ld_vf, d.vf_cols, kD)};
-    run_layer<kNarrow>(ops, d.n_out,
-                       [=](int r, int c, float v) { O[r * ld_o + c] += v; });
-  }
-  const bf16_t* bias = wt.p[kBias];
-  for (int idx = threadIdx.x; idx < kTile * d.n_out; idx += kThreads) {
-    const int r = idx / d.n_out, c = idx % d.n_out;
-    const long long p = base + r;
-    if (p < n) raw[p * d.n_out + c] = O[r * ld_o + c] + bf2f(ldg16(bias + c));
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K3: asynchronous copies and ldmatrix
+// Asynchronous copies and ldmatrix
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -411,16 +201,20 @@ __device__ __forceinline__ float lo_bf(uint32_t v) { return __uint_as_float(v <<
 __device__ __forceinline__ float hi_bf(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 
 // ---------------------------------------------------------------------------
-// K3, stage 1: the reverse chain, weights streamed through shared memory
+// Chains of layers, weights streamed through shared memory (K2, K3 stage 1)
 // ---------------------------------------------------------------------------
 
-// The chain's weights, as B = [n][k] operands, are cut into slabs of
+// A chain's weights, as B = [n][k] operands, are cut into slabs of
 // kSlabN output columns (one pass) by kSlabK reduction rows and laid out,
-// slab after slab, in the order the chain consumes them (k3_pack_slabs;
-// the plain version is chain_slabs in kernels/fused_field_train.py). A
+// slab after slab, in the order the chain consumes them (k2_pack_slabs,
+// k3_pack_slabs; the plain versions are forward_slabs and chain_slabs in
+// kernels/fused_field_train.py). A B of at most kNarrowN columns (K2's
+// output heads) takes narrow slabs instead: kNarrowN columns by kNarrowK
+// reduction rows, kept as kNarrowK / kSlabK blocks of [kNarrowN][kSlabK],
+// so that a slab of either kind is kSlabN rows of kSlabK in the ring. A
 // ring of kRing slabs in shared memory is filled by cp.async, kRing - 1
 // slabs ahead of the products, across pass and layer boundaries; all 8
-// warps share it. What bounds the chain on this card is shared memory's
+// warps share it. What bounds a chain on this card is shared memory's
 // bandwidth for the operand fragments and the block barrier each slab
 // costs, not the latency of L2 (a deeper ring does not help): so a pass
 // covers 256 columns, and each warp a 32 x 64 tile of it, which reads
@@ -433,6 +227,12 @@ constexpr int kSlabElems = kSlabN * kSlabK;    // in device memory
 constexpr int kSlabSmem = kSlabN * kLdSlab;    // in shared memory
 constexpr int kRing = 4;
 constexpr int kChainCols = 64;                 // columns of a warp's tile
+constexpr int kNarrowN = 32;
+constexpr int kNarrowK = kSlabElems / kNarrowN;
+
+// Output columns and reduction rows of one slab of a B with n columns.
+__host__ __device__ constexpr int slab_n(int n) { return n <= kNarrowN ? kNarrowN : kSlabN; }
+__host__ __device__ constexpr int slab_k(int n) { return kSlabElems / slab_n(n); }
 
 struct SlabRing {
   bf16_t* buf;
@@ -470,9 +270,9 @@ struct ChainOp {
 };
 
 // Where a chain layer's f32 sums go: into dst, rounded to bf16, after
-// relu(v + bias) (bias set), where(mask > 0, v, 0) with the mask from a
-// shared tile (mask_s) or from a residual plane (mask_g: (n, 256), rows
-// from base), or as they are.
+// v + bias, then relu unless told not to (bias set), where(mask > 0, v, 0)
+// with the mask from a shared tile (mask_s) or from a residual plane
+// (mask_g: (n, 256), rows from base), or as they are.
 struct ChainEpi {
   bf16_t* dst;
   int ld;
@@ -481,6 +281,7 @@ struct ChainEpi {
   int ldm;
   const bf16_t* mask_g;
   long long base, n;
+  bool relu = true;
 };
 
 // out = sum over the operands, for n_cols (a multiple of kChainCols)
@@ -560,8 +361,12 @@ __device__ __forceinline__ void chain_layer(const ChainOp (&ops)[NOPS], int n_co
           const int r = row0 + 16 * mt + g + 8 * h;
           float v0 = acc[mt][j][2 * h], v1 = acc[mt][j][2 * h + 1];
           if (epi.bias) {
-            v0 = fmaxf(v0 + lo_bf(pre[mt][j][h]), 0.f);
-            v1 = fmaxf(v1 + hi_bf(pre[mt][j][h]), 0.f);
+            v0 += lo_bf(pre[mt][j][h]);
+            v1 += hi_bf(pre[mt][j][h]);
+            if (epi.relu) {
+              v0 = fmaxf(v0, 0.f);
+              v1 = fmaxf(v1, 0.f);
+            }
           } else if (epi.mask_g || epi.mask_s) {
             const uint32_t m = epi.mask_g
                 ? pre[mt][j][h]
@@ -575,6 +380,146 @@ __device__ __forceinline__ void chain_layer(const ChainOp (&ops)[NOPS], int n_co
   }
   __syncthreads();
 }
+
+// K2's output heads: O (64 x n_out f32, row stride ldo, n_out <= kNarrowN)
+// = the sum over the operands, plus O as it was when add; B from the ring
+// as narrow slabs. Warp w owns rows 16*(w%4).. and columns 16*(w/4)..; each
+// sum takes its k-steps of 16 in order, operand after operand, as in
+// chain_layer. Ends with __syncthreads().
+template <int NOPS>
+__device__ __forceinline__ void head_layer(const ChainOp (&ops)[NOPS], SlabRing& ring,
+                                           float* O, int ldo, int n_out, bool add) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = (warp & 3) * 16, nl = (warp >> 2) * 16;
+  const int g = lane >> 2, t = lane & 3, q = lane >> 3, rr = lane & 7;
+  float acc[2][4] = {};
+#pragma unroll
+  for (int o = 0; o < NOPS; ++o) {
+    const ChainOp& op = ops[o];
+    const bf16_t* slab = nullptr;
+    for (int k0 = 0; k0 < op.k_dim; k0 += 16) {
+      const int ks = k0 % kNarrowK;
+      if (ks == 0) slab = ring.next();
+      uint32_t a[4], b[4];
+      ldsm_x4(a, op.a + (row0 + rr + 8 * (q & 1)) * op.lda + k0 + 8 * (q >> 1));
+      ldsm_x4(b, slab + (ks / kSlabK * kNarrowN + nl + rr + 8 * (q >> 1)) * kLdSlab +
+                     ks % kSlabK + 8 * (q & 1));
+      mma16816(acc[0], a[0], a[1], a[2], a[3], b[0], b[1]);
+      mma16816(acc[1], a[0], a[1], a[2], a[3], b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row0 + g + 8 * (e >> 1), c = nl + 8 * j + 2 * t + (e & 1);
+      if (c < n_out) O[r * ldo + c] = add ? O[r * ldo + c] + acc[j][e] : acc[j][e];
+    }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// K2: forward
+// ---------------------------------------------------------------------------
+
+// The forward's biases, bf16 as packed.
+struct Biases {
+  const bf16_t *tb, *bpf, *bfeat, *bv, *bcf, *bias;
+};
+
+// Layer after layer through chain_layer and head_layer, in the order of
+// forward_schedule in kernels/fused_field_train.py: every summand's
+// products, k order and rounding are those of the plain version. Shared
+// memory: the ring, then hv's buffer HB, the embedding X and HA; vf
+// overwrites X and HA, which nothing reads after hv.
+__global__ void __launch_bounds__(kThreads, 1)
+    k2_forward(const float* __restrict__ x, long long n, Emb emb, Biases bs,
+               const bf16_t* __restrict__ slabs, int n_slabs, Dims d,
+               float* __restrict__ raw, bf16_t* __restrict__ res) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld_vf = d.vf_cols + kPad;
+  const int ld_o = (d.n_out + 7) / 8 * 8;
+  bf16_t* R = reinterpret_cast<bf16_t*>(smem);  // the slab ring
+  bf16_t* HB = R + kRing * kSlabSmem;            // trunk    [64][kLdH]
+  bf16_t* X = HB + kTile * kLdH;                 // emb      [64][kLdX]
+  bf16_t* HA = X + kTile * kLdX;                 // trunk    [64][kLdH]
+  bf16_t* VF = X;                                // vf       [64][ld_vf]
+  float* O = reinterpret_cast<float*>(X + kTile * max(kLdX + kLdH, ld_vf));  // raw [64][ld_o]
+
+  SlabRing ring{R, slabs, n_slabs, 0, 0};
+  ring.start();  // the first weight slabs load while the embedding is made
+
+  const long long base = static_cast<long long>(blockIdx.x) * kTile;
+  const long long plane = n * kWidth;
+  for (int idx = threadIdx.x; idx < kTile * kLane; idx += kThreads) {
+    const int r = idx / kLane, l = idx % kLane;
+    X[r * kLdX + l] = f2bf(embed(x, base + r, n, l, emb));
+  }
+  __syncthreads();
+
+  auto relu_bias = [](bf16_t* dst, int ld, const bf16_t* bias) {
+    return ChainEpi{dst, ld, bias, nullptr, 0, nullptr, 0, 0};
+  };
+  bf16_t* H[2] = {HA, HB};
+  {
+    const ChainOp ops[1] = {{X, kLdX, kLane}};
+    chain_layer(ops, kWidth, ring, relu_bias(HA, kLdH, bs.tb));
+    store_tile(res, kWidth, HA, kLdH, base, n);
+  }
+  for (int i = 1; i <= 7; ++i) {  // h_i from h_{i-1}: ping-pong HA/HB
+    bf16_t* in = H[(i - 1) & 1];
+    bf16_t* out = H[i & 1];
+    const ChainEpi epi = relu_bias(out, kLdH, bs.tb + i * kWidth);
+    if (i == 5) {
+      const ChainOp ops[2] = {{X, kLdX, kLane}, {in, kLdH, kWidth}};
+      chain_layer(ops, kWidth, ring, epi);
+    } else {
+      const ChainOp ops[1] = {{in, kLdH, kWidth}};
+      chain_layer(ops, kWidth, ring, epi);
+    }
+    store_tile(res + i * plane, kWidth, out, kLdH, base, n);
+  }
+  // h7 is in HB
+  {
+    const ChainOp ops[1] = {{HB, kLdH, kWidth}};
+    chain_layer(ops, kWidth, ring, relu_bias(HA, kLdH, bs.bpf));  // pf
+    store_tile(res + kPf * plane, kWidth, HA, kLdH, base, n);
+  }
+  {
+    const ChainOp ops[2] = {{HB, kLdH, kWidth}, {HA, kLdH, kWidth}};
+    head_layer(ops, ring, O, ld_o, d.n_out, false);  // h7 @ A + pf @ B
+  }
+  {
+    const ChainOp ops[1] = {{HB, kLdH, kWidth}};
+    ChainEpi epi = relu_bias(HA, kLdH, bs.bfeat);
+    epi.relu = false;
+    chain_layer(ops, kWidth, ring, epi);  // ft
+    store_tile(res + kFt * plane, kWidth, HA, kLdH, base, n);
+  }
+  {
+    const ChainOp ops[2] = {{HA, kLdH, kWidth}, {X, kLdX, kLane}};
+    chain_layer(ops, kWidth, ring, relu_bias(HB, kLdH, bs.bv));  // hv
+    store_tile(res + kHv * plane, kWidth, HB, kLdH, base, n);
+  }
+  {
+    const ChainOp ops[1] = {{HB, kLdH, kWidth}};
+    chain_layer(ops, d.vf_cols, ring, relu_bias(VF, ld_vf, bs.bcf));  // vf
+  }
+  {
+    const ChainOp ops[2] = {{HB, kLdH, kWidth}, {VF, ld_vf, d.vf_cols}};
+    head_layer(ops, ring, O, ld_o, d.n_out, true);  // + hv @ C + vf @ D
+  }
+  for (int idx = threadIdx.x; idx < kTile * d.n_out; idx += kThreads) {
+    const int r = idx / d.n_out, c = idx % d.n_out;
+    const long long p = base + r;
+    if (p < n) raw[p * d.n_out + c] = O[r * ld_o + c] + bf2f(__ldg(bs.bias + c));
+  }
+  cp_async_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
+// K3, stage 1: the reverse chain
+// ---------------------------------------------------------------------------
 
 struct Deltas {
   bf16_t* p[kNumDeltas];
@@ -671,19 +616,38 @@ __global__ void __launch_bounds__(kThreads, 1)
   cp_async_wait<0>();
 }
 
+// ---------------------------------------------------------------------------
+// The slab streams
+// ---------------------------------------------------------------------------
+
+int passes(int cols) { return (cols + kSlabN - 1) / kSlabN; }
+int k_slabs(int k) { return (k + kSlabK - 1) / kSlabK; }
+int narrow_slabs(int k) { return (k + kNarrowK - 1) / kNarrowK; }
+
+// Slabs the forward consumes: h0 (256, k 128), h1..h4 (k 256 each), h5 (k
+// 128 + 256), h6, h7, pf (k 256 each), the heads A, B (narrow, k 256
+// each), ft (k 256), hv (k 256 + 128), vf (vf_cols, k 256), the heads C, D
+// (narrow, k 256 and vf_cols).
+int forward_slab_count(const Dims& d) {
+  const int w = passes(kWidth);
+  return w * (k_slabs(kLane) + 4 * k_slabs(kWidth) + k_slabs(kLane) + k_slabs(kWidth) +
+              3 * k_slabs(kWidth)) +
+         2 * narrow_slabs(kWidth) + w * k_slabs(kWidth) + w * (k_slabs(kWidth) + k_slabs(kLane)) +
+         passes(d.vf_cols) * k_slabs(kWidth) + narrow_slabs(kWidth) + narrow_slabs(d.vf_cols);
+}
+
 // Slabs the chain consumes: vf (vf_cols, k 256), dvf (vf_cols, k 32),
 // dhv (256, k 32 + vf_cols), dft (256, k 256), dpf (256, k 32), d7 (256,
 // k 32 + 256 + 256), d6..d0 (256, k 256 each).
 int chain_slab_count(const Dims& d) {
-  auto passes = [](int cols) { return (cols + kSlabN - 1) / kSlabN; };
-  auto ks = [](int k) { return (k + kSlabK - 1) / kSlabK; };
   const int w = passes(kWidth);
-  return passes(d.vf_cols) * (ks(kWidth) + ks(kGCols)) + w * (ks(kGCols) + ks(d.vf_cols)) +
-         w * ks(kWidth) + w * ks(kGCols) + w * (ks(kGCols) + 2 * ks(kWidth)) +
-         7 * w * ks(kWidth);
+  return passes(d.vf_cols) * (k_slabs(kWidth) + k_slabs(kGCols)) +
+         w * (k_slabs(kGCols) + k_slabs(d.vf_cols)) + w * k_slabs(kWidth) +
+         w * k_slabs(kGCols) + w * (k_slabs(kGCols) + 2 * k_slabs(kWidth)) +
+         7 * w * k_slabs(kWidth);
 }
 
-// One weight of the chain, read as B = [n][k] (w itself, or w^T when
+// One weight of a chain, read as B = [n][k] (w itself, or w^T when
 // trans), with the slab index of its first pass's first k-slab and the
 // slabs of one pass of its layer.
 struct SlabOp {
@@ -695,22 +659,34 @@ struct SlabOps {
   SlabOp o[kMaxSlabOps];
 };
 
-// Lays the chain's weights out slab after slab; block (x, y) writes slab
-// x of op y, zero past its n and k. About 1.7 MB a call.
-__global__ void __launch_bounds__(kThreads)
-    k3_pack_slabs(SlabOps ops, bf16_t* __restrict__ slabs) {
-  const SlabOp o = ops.o[blockIdx.y];
-  const int ks = (o.k + kSlabK - 1) / kSlabK, passes = (o.n + kSlabN - 1) / kSlabN;
-  if (static_cast<int>(blockIdx.x) >= ks * passes) return;
+// Block (x, y) writes slab x of op y, zero past its n and k; a slab's
+// rows are (k-block, column) pairs, kSlabK reduction rows each.
+__device__ __forceinline__ void pack_slab(const SlabOp o, bf16_t* __restrict__ slabs) {
+  const int sn = slab_n(o.n), sk = slab_k(o.n);
+  const int ks = (o.k + sk - 1) / sk, np = (o.n + sn - 1) / sn;
+  if (static_cast<int>(blockIdx.x) >= ks * np) return;
   const int p = blockIdx.x / ks, s = blockIdx.x % ks;
   bf16_t* dst = slabs + static_cast<long long>(o.first + p * o.stride + s) * kSlabElems;
   const int cols = o.trans ? o.n : o.k;  // of w
   for (int e = threadIdx.x; e < kSlabElems; e += kThreads) {
-    const int nn = p * kSlabN + e / kSlabK, kk = s * kSlabK + e % kSlabK;
+    const int row = e / kSlabK;
+    const int nn = p * sn + row % sn, kk = s * sk + row / sn * kSlabK + e % kSlabK;
     bf16_t v = 0;
     if (nn < o.n && kk < o.k) v = o.trans ? o.w[kk * cols + nn] : o.w[nn * cols + kk];
     dst[e] = v;
   }
+}
+
+// The forward's weights, slab after slab (~1.8 MB a call).
+__global__ void __launch_bounds__(kThreads)
+    k2_pack_slabs(SlabOps ops, bf16_t* __restrict__ slabs) {
+  pack_slab(ops.o[blockIdx.y], slabs);
+}
+
+// The reverse chain's weights, slab after slab (~1.7 MB a call).
+__global__ void __launch_bounds__(kThreads)
+    k3_pack_slabs(SlabOps ops, bf16_t* __restrict__ slabs) {
+  pack_slab(ops.o[blockIdx.y], slabs);
 }
 
 // ---------------------------------------------------------------------------
@@ -914,7 +890,8 @@ __global__ void k3_reduce(const float* __restrict__ partial, int splits,
 
 size_t forward_smem(const Dims& d) {
   const int ld_o = (d.n_out + 7) / 8 * 8;
-  return sizeof(bf16_t) * kTile * (kLdX + 2 * kLdH + d.vf_cols + kPad) +
+  return sizeof(bf16_t) * (kRing * kSlabSmem +
+                           kTile * (kLdH + max(kLdX + kLdH, d.vf_cols + kPad))) +
          sizeof(float) * kTile * ld_o;
 }
 
@@ -926,33 +903,64 @@ size_t chain_smem(const Dims& d) {
 bool dims_ok(long long n, int n_weights, int width, const Dims& d) {
   return n_weights == kNumDw && width == kWidth && n >= 0 &&
          (n + kTile - 1) / kTile <= INT_MAX && d.n_out > 0 &&
-         d.n_out <= kGCols && d.vf_cols > 0 && d.vf_cols % 16 == 0;
+         d.n_out <= kGCols && d.vf_cols > 0 && d.vf_cols % kChainCols == 0;
+}
+
+// The slab op table (6 ints per op: weight index in DwIndex order, trans,
+// n, k, first, stride) into `so`; false for an op the stream of n_slabs
+// slabs cannot hold. max_slabs: the most slabs of one op (the pack grid).
+bool read_slab_ops(const int* slab_ops, int n_ops, const void* const* wn, int n_slabs,
+                   SlabOps& so, int& max_slabs) {
+  if (n_ops <= 0 || n_ops > kMaxSlabOps) return false;
+  max_slabs = 0;
+  for (int i = 0; i < n_ops; ++i) {
+    const int* v = slab_ops + 6 * i;
+    if (v[0] < 0 || v[0] >= kNumDw || v[2] <= 0 || v[3] <= 0 || v[4] < 0 || v[5] <= 0)
+      return false;
+    const int sn = slab_n(v[2]), sk = slab_k(v[2]);
+    const int ks = (v[3] + sk - 1) / sk, np = (v[2] + sn - 1) / sn;
+    if (v[4] + (np - 1) * v[5] + ks > n_slabs) return false;
+    so.o[i] = SlabOp{static_cast<const bf16_t*>(wn[v[0]]), v[1], v[2], v[3], v[4], v[5]};
+    max_slabs = max(max_slabs, ks * np);
+  }
+  return true;
 }
 
 }  // namespace
 
-// Launches K2 on `stream`: raw (n, n_out) f32 and res (11, n, 256) bf16.
-// wt: kNumDw device pointers in DwIndex order, each matrix transposed to
-// [out][in], the biases as packed. Returns 0, a cudaError_t, or -1 for
-// arguments the kernel does not take.
+// Launches K2 on `stream`, two kernels in order:
+//   k2_pack_slabs  the forward's weights into `slabs` (n_slabs slabs), per
+//                  slab op as for K3's pack (see below);
+//   k2_forward     raw (n, n_out) f32 and res (11, n, 256) bf16.
+// wn: kNumDw device pointers in DwIndex order, as packed ([in][out]).
+// Returns 0, a cudaError_t, or -1 for arguments the kernels do not take.
 extern "C" int fused_field_train_fwd_launch(
     const float* x, long long n, const float* emb_E, const float* emb_phase,
-    const float* emb_id, const void* const* wt, int n_weights, int width,
-    int n_out, int vf_cols, float* raw, void* res, void* stream) {
+    const float* emb_id, const void* const* wn, int n_weights, int width,
+    int n_out, int vf_cols, const int* slab_ops, int n_slab_ops, void* slabs, int n_slabs,
+    float* raw, void* res, void* stream) {
   const Dims d{n_out, vf_cols};
-  if (!dims_ok(n, n_weights, width, d)) return -1;
+  SlabOps so;
+  int max_slabs;
+  if (!dims_ok(n, n_weights, width, d) || n_slabs != forward_slab_count(d) ||
+      !read_slab_ops(slab_ops, n_slab_ops, wn, n_slabs, so, max_slabs))
+    return -1;
   if (n == 0) return 0;
-  Weights w;
-  for (int i = 0; i < kNumDw; ++i) w.p[i] = static_cast<const bf16_t*>(wt[i]);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  k2_pack_slabs<<<dim3(max_slabs, n_slab_ops), kThreads, 0, s>>>(
+      so, static_cast<bf16_t*>(slabs));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto w = [&](int i) { return static_cast<const bf16_t*>(wn[i]); };
+  const Biases bs{w(kTb), w(kBpf), w(kBfeat), w(kBv), w(kBcf), w(kBias)};
   const Emb emb{emb_E, emb_phase, emb_id};
   const size_t smem = forward_smem(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      k2_forward, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  err = cudaFuncSetAttribute(k2_forward, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = static_cast<unsigned>((n + kTile - 1) / kTile);
-  k2_forward<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, n, emb, w, d, raw, static_cast<bf16_t*>(res));
+  k2_forward<<<blocks, kThreads, smem, s>>>(x, n, emb, bs, static_cast<const bf16_t*>(slabs),
+                                            n_slabs, d, raw, static_cast<bf16_t*>(res));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -978,25 +986,16 @@ extern "C" int fused_field_train_bwd_launch(
     const int* jobs, int n_jobs, long long chunk, int splits, float* partial,
     long long total, float* dw, void* stream) {
   const Dims d{n_out, vf_cols};
-  if (!dims_ok(n, n_weights, width, d) || d.vf_cols % kChainCols != 0 ||
-      n_slab_ops <= 0 || n_slab_ops > kMaxSlabOps || n_slabs != chain_slab_count(d) ||
+  SlabOps so;
+  int max_slabs;
+  if (!dims_ok(n, n_weights, width, d) || n_slabs != chain_slab_count(d) ||
+      !read_slab_ops(slab_ops, n_slab_ops, wn, n_slabs, so, max_slabs) ||
       n_deltas != kNumDeltas || n_planes != kNumPlanes || n_jobs <= 0 ||
       n_jobs > kMaxJobs || splits <= 0 || total <= 0 || total > INT_MAX || chunk < 0 ||
       chunk * splits < n)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
-  SlabOps so;
-  int max_slabs = 0;
-  for (int i = 0; i < n_slab_ops; ++i) {
-    const int* v = slab_ops + 6 * i;
-    if (v[0] < 0 || v[0] >= kNumDw || v[2] <= 0 || v[3] <= 0 || v[4] < 0 || v[5] <= 0)
-      return -1;
-    const int ks = (v[3] + kSlabK - 1) / kSlabK, passes = (v[2] + kSlabN - 1) / kSlabN;
-    if (v[4] + (passes - 1) * v[5] + ks > n_slabs) return -1;
-    so.o[i] = SlabOp{static_cast<const bf16_t*>(wn[v[0]]), v[1], v[2], v[3], v[4], v[5]};
-    max_slabs = max(max_slabs, ks * passes);
-  }
   DwJobs dj;
   for (int i = 0; i < n_jobs; ++i) {
     const int* v = jobs + 11 * i;

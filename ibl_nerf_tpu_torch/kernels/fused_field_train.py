@@ -7,10 +7,12 @@ and `_bwd_kernel`, the Pallas TPU kernels behind the custom_vjp
 query of the coarse and fine passes through `fused_field_apply_train`
 under `use_pallas_train` with bf16 gradients.
 
-- K2 (`csrc/fused_field_train.cu`, `k2_forward`): per point the
-  embedding, the 8-layer trunk and every head with bf16 operands and f32
-  accumulation. It writes the raw output (N, 9+3K) in f32 and the 11
-  bf16 residuals `h0..h7, pf, ft, hv` (`_RES_ORDER`) for the backward.
+- K2 (`csrc/fused_field_train.cu`: `k2_pack_slabs`, `k2_forward`,
+  launched together by one entry point): per point the embedding, the
+  8-layer trunk and every head with bf16 operands and f32 accumulation,
+  its weights streamed as slabs (`forward_schedule`, `forward_slabs`). It
+  writes the raw output (N, 9+3K) in f32 and the 11 bf16 residuals
+  `h0..h7, pf, ft, hv` (`_RES_ORDER`) for the backward.
 - K3 (`k3_pack_slabs`, `k3_delta_chain`, `k3_dw_gemm`, `k3_reduce`,
   launched together by one entry point): recomputes the embedding and the
   coarse features `vf`, replays the reverse chain with relu masks read
@@ -61,7 +63,6 @@ _RES_ORDER = ["h0", "h1", "h2", "h3", "h4", "h5", "h6", "h7", "pf", "ft", "hv"]
 _DW_ORDER = ["w0", "w1", "w2", "w3", "w4", "w5x", "w5h", "w6", "w7",
              "tb", "wpf", "bpf", "wfeat", "bfeat", "wv_f", "wv_d", "bv",
              "wcf", "bcf", "A", "B", "C", "D", "bias"]
-_MATRICES = [k for k in _DW_ORDER if k not in ("tb", "bpf", "bfeat", "bv", "bcf", "bias")]
 
 # What K3's reverse chain writes for the weight-gradient reduction, in the
 # order of the pointer list of `fused_field_train_bwd_launch`.
@@ -191,6 +192,8 @@ DW_TILE = 128    # output tile edge of a wide dW job
 DW_NARROW = 32   # columns of a narrow job (the output heads, 9+3K <= 32)
 DW_POINTS = 32   # points per pipeline stage of the dW GEMM
 SLAB_N, SLAB_K = 256, 32   # a chain weight slab: output columns (a pass) x reduction rows
+NARROW_N = 32              # a narrow slab's output columns (K2's heads, 9+3K <= 32)
+NARROW_K = SLAB_N * SLAB_K // NARROW_N
 
 # The planes the dW GEMM reads, by index: the residuals, then the deltas.
 _PLANES = _RES_ORDER + _DELTA_ORDER
@@ -303,6 +306,37 @@ _CHAIN_LAYERS = [[("wcf", True)], [("D", False)], [("C", False), ("wcf", False)]
                  [("A", False), ("wfeat", False), ("wpf", False)],
                  *[[(w, False)] for w in ("w7", "w6", "w5h", "w4", "w3", "w2", "w1")]]
 
+# K2's forward, layer by layer in the kernel's order, every weight read as
+# B = w^T: the trunk (layer 5: the embedding before h4), pf, the heads A
+# and B, ft, hv (ft before the embedding), vf, the heads C and D.
+_FORWARD_LAYERS = [[(w, True)] for w in ("w0", "w1", "w2", "w3", "w4")] + [
+    [("w5x", True), ("w5h", True)], [("w6", True)], [("w7", True)], [("wpf", True)],
+    [("A", True), ("B", True)], [("wfeat", True)], [("wv_f", True), ("wv_d", True)],
+    [("wcf", True)], [("C", True), ("D", True)]]
+
+
+def slab_dims(n: int) -> tuple[int, int]:
+    """(output columns, reduction rows) of one slab of a B with n columns:
+    SLAB_N x SLAB_K, or for at most NARROW_N columns (K2's output heads) a
+    narrow slab of NARROW_N x NARROW_K, kept as NARROW_K / SLAB_K blocks of
+    [NARROW_N][SLAB_K]. Either is SLAB_N * SLAB_K elements."""
+    return (NARROW_N, NARROW_K) if n <= NARROW_N else (SLAB_N, SLAB_K)
+
+
+def _schedule(layers, shapes: tuple) -> tuple[tuple[tuple, ...], int]:
+    shape = dict(shapes)
+    ops, first = [], 0
+    for layer in layers:
+        dims = [(shape[w][::-1] if t else shape[w]) for w, t in layer]
+        sn, sk = slab_dims(dims[0][0])
+        stride = sum(-(-k // sk) for _, k in dims)
+        at = first
+        for (w, t), (n, k) in zip(layer, dims):
+            ops.append((w, t, n, k, at, stride))
+            at += -(-k // sk)
+        first += -(-dims[0][0] // sn) * stride
+    return tuple(ops), first
+
 
 @functools.lru_cache(maxsize=8)
 def chain_schedule(shapes: tuple) -> tuple[tuple[tuple, ...], int]:
@@ -311,31 +345,44 @@ def chain_schedule(shapes: tuple) -> tuple[tuple[tuple, ...], int]:
     index of pass 0's first k-slab, and the slabs of one pass of its layer
     (a layer's passes of SLAB_N columns in order, within a pass each
     summand's k-slabs in order) -- and the number of slabs."""
-    shape = dict(shapes)
-    ops, first = [], 0
-    for layer in _CHAIN_LAYERS:
-        dims = [(shape[w][::-1] if t else shape[w]) for w, t in layer]
-        stride = sum(-(-k // SLAB_K) for _, k in dims)
-        at = first
-        for (w, t), (n, k) in zip(layer, dims):
-            ops.append((w, t, n, k, at, stride))
-            at += -(-k // SLAB_K)
-        first += -(-dims[0][0] // SLAB_N) * stride
-    return tuple(ops), first
+    return _schedule(_CHAIN_LAYERS, shapes)
+
+
+@functools.lru_cache(maxsize=8)
+def forward_schedule(shapes: tuple) -> tuple[tuple[tuple, ...], int]:
+    """K2's slab stream, as `chain_schedule` lays out K3's: every weight
+    of `_FORWARD_LAYERS` as B = w^T, the heads in narrow slabs
+    (`slab_dims`)."""
+    return _schedule(_FORWARD_LAYERS, shapes)
+
+
+def _slabs(schedule, w16: dict) -> torch.Tensor:
+    sched, total = schedule(_shapes(w16))
+    out = w16["w1"].new_zeros((total, SLAB_N * SLAB_K))
+    for w, t, n, k, first, stride in sched:
+        b = w16[w].t() if t else w16[w]
+        sn, sk = slab_dims(n)
+        for p in range(-(-n // sn)):
+            for s in range(-(-k // sk)):
+                blk = b.new_zeros((sn, sk))
+                part = b[p * sn:(p + 1) * sn, s * sk:(s + 1) * sk]
+                blk[:part.shape[0], :part.shape[1]] = part
+                # rows (k-block, column), SLAB_K reduction rows each
+                out[first + p * stride + s] = blk.reshape(sn, sk // SLAB_K, SLAB_K) \
+                    .transpose(0, 1).reshape(-1)
+    return out.view(total, SLAB_N, SLAB_K)
 
 
 def chain_slabs(w16: dict) -> torch.Tensor:
     """The slab stream of the chain's weights (plain version of
     k3_pack_slabs): (slabs, SLAB_N, SLAB_K), zero past each B's edges."""
-    sched, total = chain_schedule(tuple((k, tuple(w16[k].shape)) for k in _DW_ORDER))
-    out = w16["w1"].new_zeros((total, SLAB_N, SLAB_K))
-    for w, t, n, k, first, stride in sched:
-        b = w16[w].t() if t else w16[w]
-        for p in range(-(-n // SLAB_N)):
-            for s in range(-(-k // SLAB_K)):
-                blk = b[p * SLAB_N:(p + 1) * SLAB_N, s * SLAB_K:(s + 1) * SLAB_K]
-                out[first + p * stride + s, :blk.shape[0], :blk.shape[1]] = blk
-    return out
+    return _slabs(chain_schedule, w16)
+
+
+def forward_slabs(w16: dict) -> torch.Tensor:
+    """The slab stream of the forward's weights (plain version of
+    k2_pack_slabs), as `chain_slabs`."""
+    return _slabs(forward_schedule, w16)
 
 
 # ---------------------------------------------------------------------------
@@ -349,7 +396,7 @@ def _entries():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fwd = lib.fused_field_train_fwd_launch
     fwd.restype = i
-    fwd.argtypes = [p, ll, p, p, p, p, i, i, i, i, p, p, p]
+    fwd.argtypes = [p, ll, p, p, p, p, i, i, i, i, p, i, p, i, p, p, p]
     bwd = lib.fused_field_train_bwd_launch
     bwd.restype = i
     bwd.argtypes = [p, ll, p, p, p, p, p, p, i, i, i, i, p, i, p, i,
@@ -357,8 +404,21 @@ def _entries():
     return fwd, bwd
 
 
-def _ptr_array(tensors) -> ctypes.Array:
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+def _shapes(w16: dict) -> tuple:
+    return tuple((k, tuple(w16[k].shape)) for k in _DW_ORDER)
+
+
+def _ptrs(values) -> ctypes.c_void_p:
+    return ctypes.cast((ctypes.c_void_p * len(values))(*values), ctypes.c_void_p)
+
+
+@functools.lru_cache(maxsize=16)
+def _slab_table(sched: tuple) -> ctypes.Array:
+    """A schedule as the pack kernels take it: 6 ints per summand (weight
+    index in `_DW_ORDER`, trans, n, k, first, stride)."""
+    return (ctypes.c_int * (6 * len(sched)))(*[
+        v for w, t, n, k, first, stride in sched
+        for v in (_DW_ORDER.index(w), int(t), n, k, first, stride)])
 
 
 def _check(x, w16, emb, n_out) -> None:
@@ -388,17 +448,18 @@ def _launch_fwd(x, w16, emb):
     n_out = w16["bias"].shape[0]
     _check(x, w16, emb, n_out)
     n, width, vf_cols = x.shape[0], KERNEL_WIDTH, w16["wcf"].shape[1]
-    # K2 reads every matrix as [out][in]
-    wt = [w16[k].t().contiguous() if k in _MATRICES else w16[k] for k in _DW_ORDER]
+    sched, n_slabs = forward_schedule(_shapes(w16))
     raw = torch.empty((n, n_out), dtype=torch.float32, device=x.device)
     res = torch.empty((len(_RES_ORDER), n, width), dtype=torch.bfloat16,
                       device=x.device)
+    slabs = torch.empty(n_slabs * SLAB_N * SLAB_K, dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         err = _entries()[0](
             x.data_ptr(), n, emb["E"].data_ptr(), emb["phase"].data_ptr(),
-            emb["id"].data_ptr(), ctypes.cast(_ptr_array(wt), ctypes.c_void_p),
-            len(wt), width, n_out, vf_cols, raw.data_ptr(), res.data_ptr(),
-            _stream(x.device))
+            emb["id"].data_ptr(), _ptrs([w16[k].data_ptr() for k in _DW_ORDER]),
+            len(_DW_ORDER), width, n_out, vf_cols,
+            ctypes.cast(_slab_table(sched), ctypes.c_void_p), len(sched),
+            slabs.data_ptr(), n_slabs, raw.data_ptr(), res.data_ptr(), _stream(x.device))
     if err != 0:
         raise RuntimeError(f"fused_field_train forward kernel launch failed: error {err}")
     LAUNCHES["fused_field_train_fwd"] += 1
@@ -415,7 +476,7 @@ def _launch_bwd(x, g, res, w16, emb):
             or not res.is_contiguous():
         raise ValueError("residuals must be contiguous bf16 (11, N, 256)")
     dev = x.device
-    shapes = tuple((k, tuple(w16[k].shape)) for k in _DW_ORDER)
+    shapes = _shapes(w16)
     plan = k3_plan(n, shapes)
     sched, n_slabs = chain_schedule(shapes)
     cols = plane_cols(dict(shapes))
@@ -429,20 +490,14 @@ def _launch_bwd(x, g, res, w16, emb):
     planes = [res.data_ptr() + 2 * i * n * width for i in range(len(_RES_ORDER))] + deltas
     partial = torch.empty((len(plan.ranges), plan.total), dtype=torch.float32, device=dev)
     dw_flat = torch.empty(plan.total, dtype=torch.float32, device=dev)
-    slab_ops = (ctypes.c_int * (6 * len(sched)))(*[
-        v for w, t, nn, k, first, stride in sched
-        for v in (_DW_ORDER.index(w), int(t), nn, k, first, stride)])
-
-    def ptrs(values):
-        return ctypes.cast((ctypes.c_void_p * len(values))(*values), ctypes.c_void_p)
 
     with torch.cuda.device(dev):
         err = _entries()[1](
             x.data_ptr(), n, g.data_ptr(), res.data_ptr(), emb["E"].data_ptr(),
             emb["phase"].data_ptr(), emb["id"].data_ptr(),
-            ptrs([w16[k].data_ptr() for k in _DW_ORDER]), len(_DW_ORDER), width, n_out,
-            vf_cols, ctypes.cast(slab_ops, ctypes.c_void_p), len(sched), slabs, n_slabs,
-            ptrs(deltas), len(deltas), ptrs(planes), len(planes),
+            _ptrs([w16[k].data_ptr() for k in _DW_ORDER]), len(_DW_ORDER), width, n_out,
+            vf_cols, ctypes.cast(_slab_table(sched), ctypes.c_void_p), len(sched), slabs,
+            n_slabs, _ptrs(deltas), len(deltas), _ptrs(planes), len(planes),
             ctypes.cast(plan.table, ctypes.c_void_p), len(plan.jobs), plan.chunk,
             len(plan.ranges), partial.data_ptr(), plan.total, dw_flat.data_ptr(),
             _stream(dev))
