@@ -8,8 +8,10 @@ Phases, one JSON line each; any failure exits non-zero:
   build   nvcc builds every kernel source, one process per source, at once.
   kernel  each kernel against its plain PyTorch version on the card at the
           shapes the main paths give it, and at ragged point counts:
-          K1 (both variants), K2 (raw and the 11 residuals) and K3 (the 24
-          weight gradients), K2 and K3 each with two runs bit-identical;
+          K1 (both variants, at f32 weights and at bf16 weights, the
+          latter also equal to K2's raw bit for bit), K2 (raw and the 11
+          residuals) and K3 (the 24 weight gradients), the bf16 ones each
+          with two runs bit-identical;
           errors against the stated tolerance, kernel and plain times (CUDA
           events, after warm-up), and the least time the card could take
           (FLOPs over the f32 or bf16 tensor-core rate, bytes over the
@@ -33,6 +35,16 @@ Phases, one JSON line each; any failure exits non-zero:
           zeroed before them (2 K2, 2 K3 and 2 K1 full per step) and the
           host's time per launched operation beside each; finite loss
           and params; a profiler breakdown.
+  slice_bf16  the serving path under compute_dtype bfloat16 (every query
+          bf16, K1's bf16-weight variant on the no-grad sweeps) over the
+          same poses: 1 K1-bf16 density and 1 K1-bf16 full launch per
+          chunk and no f32 K1 launch; one chunk against the f32 render
+          within JAX's bf16 bound (atol 0.1 on four maps).
+  train_mixed scripts/perf_sweep.py's mixed:pallas step (512 rays,
+          ε-normals, eager f32 gradient path, K1-bf16 on the no-grad
+          sweeps): 3 warm-up and 10 timed steps, 2 launches of each
+          K1-bf16 mode per step, finite loss and f32 params; a profiler
+          breakdown.
 Weights are random from a seed. Then the per-kernel JSON line, the card
 line, and the ok line last. Every number printed is measured in this
 run, on this card.
@@ -83,6 +95,11 @@ KERNEL_ATOL, KERNEL_RTOL = 2e-6, 1e-4
 # One 2048-ray chunk on K1 against the eager path (use_pallas=False):
 # shaded maps, the repo's shaded-map bound.
 SLICE_ATOL, SLICE_RTOL = 2e-3, 5e-3
+# A chunk rendered under compute_dtype bfloat16 against the f32 render:
+# JAX's own bound for the bf16 modes (tests/test_dtypes.py: bf16 matmuls
+# keep ~3 decimal digits; depth scales with the far plane).
+BF16_ATOL = 0.1
+BF16_MAPS = ("color_map", "radiance_map", "albedo_map", "depth_map")
 
 # K2/K3 against their plain versions, per output block: ||kernel - plain||
 # / ||plain||. Both round every activation and delta to bf16 after an f32
@@ -120,6 +137,8 @@ SEED = 0
 N_RAND = 512
 TRAIN_H, TRAIN_W, TRAIN_IMAGES = 480, 640, 8
 WARMUP_STEPS, WINDOWS, WINDOW_STEPS = 3, 3, 30
+# The train_mixed phase: scripts/perf_sweep.py's mixed:pallas step.
+MIXED_STEPS = 10
 
 
 def emit(phase: str, **fields) -> None:
@@ -183,16 +202,36 @@ def stage_ms(fn, prefix: str, iters: int = 5) -> dict:
     return out
 
 
+# K1's wrappers: (name, points of one launch on the serving path, with dirs?)
+# -- the 4 ε-offset sweeps of a 2048-ray chunk over 64 + 128 samples, and
+# the reflected march over its 64 coarse samples.
+K1_VARIANTS = [
+    ("fused_field_density", (4 * CHUNK, 64 + 128), False),
+    ("fused_field_apply", (CHUNK, 64), True),
+]
+K1_SOURCE = "ibl_nerf_tpu/kernels/fused_field.py:206"
+
+
+def k1_inputs(lead, gen):
+    pts = torch.rand((*lead, 3), device="cuda", generator=gen) * 4 - 2
+    dirs = torch.nn.functional.normalize(
+        torch.randn((lead[0], 3), device="cuda", generator=gen), dim=-1)
+    return pts, dirs
+
+
+def k1_calls(packed, cfg, pts, dirs, with_dirs):
+    """(kernel, plain version) of one K1 wrapper on these inputs."""
+    if with_dirs:
+        return (lambda: ff.fused_field_apply(packed, pts, dirs, cfg),
+                lambda: ff.fused_field_apply_plain(packed, pts, dirs, cfg))
+    return (lambda: ff.fused_field_density(packed, pts, cfg),
+            lambda: ff.fused_field_density_plain(packed, pts, cfg))
+
+
 def kernel_phase(cfg, packed, gen) -> list[dict]:
     """Both variants of K1 against the plain version."""
-    rays, n_samples = CHUNK, 64 + 128
-    variants = [
-        # (wrapper, points of one launch on the main path, with dirs?)
-        ("fused_field_density", (4 * rays, n_samples), False),
-        ("fused_field_apply", (rays, 64), True),
-    ]
     report = []
-    for name, shape, with_dirs in variants:
+    for name, shape, with_dirs in K1_VARIANTS:
         n_pts = shape[0] * shape[1]
         n_cols = 9 + 3 * cfg.coarse_radiance_number if with_dirs else 1
         read = (ff._WEIGHT_ORDER if with_dirs else
@@ -200,23 +239,10 @@ def kernel_phase(cfg, packed, gen) -> list[dict]:
                  "w5x", "w5h", "w6", "w7", "tb", "A", "bias"])
         weight_bytes = sum(packed[k].numel() * 4 for k in read)
 
-        def inputs(lead):
-            pts = torch.rand((*lead, 3), device="cuda", generator=gen) * 4 - 2
-            dirs = torch.nn.functional.normalize(
-                torch.randn((lead[0], 3), device="cuda", generator=gen), dim=-1)
-            return pts, dirs
-
-        def calls(pts, dirs):
-            if with_dirs:
-                return (lambda: ff.fused_field_apply(packed, pts, dirs, cfg),
-                        lambda: ff.fused_field_apply_plain(packed, pts, dirs, cfg))
-            return (lambda: ff.fused_field_density(packed, pts, cfg),
-                    lambda: ff.fused_field_density_plain(packed, pts, cfg))
-
         max_abs = max_rel = 0.0
         # ragged (+37 points, not a multiple of the tile), then main-path shape
         for lead in ((n_pts + 37, 1), shape):
-            kern, plain = calls(*inputs(lead))
+            kern, plain = k1_calls(packed, cfg, *k1_inputs(lead, gen), with_dirs)
             out, ref = kern(), plain()
             torch.cuda.synchronize()
             if not torch.isfinite(out).all():
@@ -241,7 +267,7 @@ def kernel_phase(cfg, packed, gen) -> list[dict]:
         report.append({
             "name": name, "route": "cuda",
             "source": "ibl_nerf_tpu_torch/csrc/fused_field.cu",
-            "replaces": "ibl_nerf_tpu/kernels/fused_field.py:206",
+            "replaces": K1_SOURCE,
             "launches": None, "max_abs_err": max_abs,
             "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
             "bound_ms": max(t_ops, t_bytes),
@@ -253,6 +279,76 @@ def kernel_phase(cfg, packed, gen) -> list[dict]:
              rtol=KERNEL_RTOL,
              ms=[k1, k2], plain_ms=[p1, p2], bound_ms=max(t_ops, t_bytes),
              tflops=flops / ((k1 + k2) / 2) / 1e9)
+    return report
+
+
+def k1_bf16_kernel_phase(cfg, params, gen) -> list[dict]:
+    """K1's bf16-weight variant, both modes, at the shapes of the serving
+    path under compute_dtype bfloat16 and at ragged counts (+37): against
+    its plain version per output in relative norm (it rounds where K2
+    does, so TRAIN_KERNEL_REL), against K2 on the same input bit for bit
+    (full: K2's raw; density: K2's raw[:, 0]), and twice bit-identical."""
+    packed = ff.pack_field_weights(params, cfg, dtype=torch.bfloat16)
+    emb = fft.emb_constants(cfg, torch.device("cuda"))
+    n_out = 9 + 3 * cfg.coarse_radiance_number
+    report = []
+    for name, shape, with_dirs in K1_VARIANTS:
+        name = name + "_bf16"
+        n_pts = shape[0] * shape[1]
+        n_cols = n_out if with_dirs else 1
+        sched, n_slabs = (fft.forward_schedule if with_dirs else fft.density_schedule)(
+            fft._shapes(packed))
+        read = {w for w, *_ in sched} | {"tb", "bias", "emb_E", "emb_phase", "emb_id"}
+        if with_dirs:
+            read |= {"bpf", "bfeat", "bv", "bcf"}
+        weight_bytes = sum(packed[k].numel() * packed[k].element_size() for k in read)
+
+        errs, max_abs = {}, 0.0
+        for lead in ((n_pts + 37, 1), shape):
+            pts, dirs = k1_inputs(lead, gen)
+            kern, plain = k1_calls(packed, cfg, pts, dirs, with_dirs)
+            out, again, ref = kern(), kern(), plain()
+            raw_k2, res = fft._launch_fwd(ff._pack_inputs(pts, dirs if with_dirs else None),
+                                          packed, emb)
+            torch.cuda.synchronize()
+            out2 = out.reshape(-1, n_cols)
+            same_as_k2 = torch.equal(out2, raw_k2[:, :n_cols])
+            del raw_k2, res
+            if not torch.isfinite(out).all():
+                fail("kernel", f"{name}: non-finite output at {lead}")
+            if not torch.equal(out, again):
+                fail("kernel", f"{name}: two runs on the same inputs differ at {lead}")
+            if not same_as_k2:
+                fail("kernel", f"{name} at {lead}: differs from K2's raw on the same input")
+            errs[lead[0] * lead[1]] = rel_err(out, ref)
+            if not errs[lead[0] * lead[1]] <= TRAIN_KERNEL_REL:
+                fail("kernel", f"{name} at {lead}: off by {errs[lead[0] * lead[1]]:.3e} "
+                     f"relative (bound {TRAIN_KERNEL_REL})")
+            max_abs = max(max_abs, (out - ref).abs().max().item())
+        torch.cuda.empty_cache()
+
+        iters = 5
+        kern(), plain()
+        p1, k1, k2, p2 = (time_ms(plain, iters), time_ms(kern, iters),
+                          time_ms(kern, iters), time_ms(plain, iters))
+        flops = 2 * field_macs(cfg, density_only=not with_dirs) * n_pts
+        nbytes = n_pts * (ff.IN_COLS + n_cols) * 4 + weight_bytes
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        report.append({
+            "name": name, "route": "cuda",
+            "source": "ibl_nerf_tpu_torch/csrc/fused_field_train.cu",
+            "replaces": K1_SOURCE,
+            "launches": None, "max_abs_err": max_abs,
+            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,
+        })
+        emit("kernel", name=name, points=n_pts, flops=flops, bytes=nbytes, slabs=n_slabs,
+             rel_err_by_points=errs, rel_bound=TRAIN_KERNEL_REL, max_abs_err=max_abs,
+             equals_k2=True, rerun_identical=True,
+             ms=[k1, k2], plain_ms=[p1, p2], bound_ops_ms=t_ops, bound_bytes_ms=t_bytes,
+             tflops=flops / ((k1 + k2) / 2) / 1e9, stage_ms=stage_ms(kern, "k1_bf16_"))
     return report
 
 
@@ -438,21 +534,80 @@ class Scene:
         return {}
 
 
-def slice_phase(cfg, variables, consts, kernels, card: str) -> None:
-    rcfg = RenderConfig(
+def serving_config(cfg: FieldConfig, **kw) -> RenderConfig:
+    """scripts/infer_bench.py's serving configuration at chunk 2048."""
+    return RenderConfig(
         field=cfg, n_samples=64, n_importance=128, perturb=False,
         approximate_radiance=True,
         normal_type="normal_map_from_depth_gradient_epsilon",
         correct_depth_for_prefiltered_radiance_infer=True,
-        compute_dtype="bf16_grad", use_pallas=True, coarse_shading=False)
-    scene = Scene()
+        compute_dtype="bf16_grad", use_pallas=True, coarse_shading=False).replace(**kw)
 
-    # one chunk of pose 0: K1 against the eager path (also the warm-up)
+
+def first_chunk(scene) -> dict:
+    """The first 2048 rays of pose 0."""
     K = torch.tensor([[scene.focal, 0, 0.5 * W], [0, scene.focal, 0.5 * H],
                       [0, 0, 1]], dtype=torch.float32, device="cuda")
     ro, rd = get_rays_full_image(H, W, K, torch.from_numpy(scene.poses[0]).cuda())
-    batch = make_ray_batch(ro.reshape(-1, 3)[:CHUNK], rd.reshape(-1, 3)[:CHUNK],
-                           scene.near, scene.far)
+    return make_ray_batch(ro.reshape(-1, 3)[:CHUNK], rd.reshape(-1, 3)[:CHUNK],
+                          scene.near, scene.far)
+
+
+def chunk_ms_events(variables, consts, batch, rcfg) -> float:
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    render_rays(variables, consts, batch, rcfg)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def serve(phase: str, variables, consts, scene, rcfg, kernels, expect: dict) -> dict:
+    """The main serving path: `render_path` over the scene with every
+    launch count zeroed just before it. Fails unless each count in
+    `expect` (per chunk; the rest 0) was reached and every buffer is
+    finite; the kernel rows named in `expect` take their counts."""
+    counters = (ff.LAUNCHES, fft.LAUNCHES)
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = render_path(variables, consts, scene, rcfg, chunk=CHUNK)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for c in counters for k, v in c.items()}
+
+    n_chunks = N_POSES * -(-(H * W) // CHUNK)
+    for name, count in launches.items():
+        if count != expect.get(name, 0) * n_chunks:
+            fail(phase, f"{name} launched {count} times, expected "
+                 f"{expect.get(name, 0) * n_chunks} ({expect.get(name, 0)} per chunk, "
+                 f"{n_chunks} chunks)")
+    for row in kernels:
+        if row["name"] in expect:
+            row["launches"] = launches[row["name"]]
+    for k, v in results.items():
+        if v.shape[:3] != (N_POSES, H, W) or not np.isfinite(v).all():
+            fail(phase, f"buffer {k}: shape {v.shape} or non-finite values")
+    for k in ("rgb", "target_normal_map", "reflected_radiance", "depth", "acc"):
+        if k not in results:
+            fail(phase, f"buffer {k} missing")
+    k1_ms = sum(r["ms"] for r in kernels if r["name"] in expect)
+    return dict(poses=N_POSES, height=H, width=W, chunk=CHUNK, chunks=n_chunks,
+                seconds=seconds, rays_per_s=N_POSES * H * W / seconds,
+                ms_per_chunk=seconds / n_chunks * 1e3,
+                k1_ms_per_chunk_from_kernel_phase=k1_ms, launches=launches,
+                buffers=sorted(results))
+
+
+def slice_phase(cfg, variables, consts, kernels, card: str) -> None:
+    """Serving under bf16_grad: K1 at f32 weights on the no-grad sweeps."""
+    rcfg = serving_config(cfg)
+    scene = Scene()
+
+    # one chunk of pose 0: K1 against the eager path (also the warm-up)
+    batch = first_chunk(scene)
     out_k1 = render_rays(variables, consts, batch, rcfg)
     out_eager = render_rays(variables, consts, batch, rcfg.replace(use_pallas=False))
     chunk_err = {}
@@ -463,47 +618,39 @@ def slice_phase(cfg, variables, consts, kernels, card: str) -> None:
         if not torch.isfinite(a).all() or (err > SLICE_ATOL + SLICE_RTOL * b.abs()).any():
             fail("slice", f"{k}: K1 render differs from the eager render, "
                  f"max abs err {chunk_err[k]:.3e}")
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    render_rays(variables, consts, batch, rcfg)
-    end.record()
-    torch.cuda.synchronize()
-    chunk_ms_events = start.elapsed_time(end)
+    events_ms = chunk_ms_events(variables, consts, batch, rcfg)
 
-    # the main path, with the launch counts zeroed just before it
-    for k in ff.LAUNCHES:
-        ff.LAUNCHES[k] = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    results = render_path(variables, consts, scene, rcfg, chunk=CHUNK)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = dict(ff.LAUNCHES)
-
-    n_chunks = N_POSES * -(-(H * W) // CHUNK)
-    for name, count in launches.items():
-        if count != n_chunks:
-            fail("slice", f"{name} launched {count} times, expected one per "
-                 f"chunk ({n_chunks})")
-    for row in kernels:
-        if row["name"] in launches:
-            row["launches"] = launches[row["name"]]
-    for k, v in results.items():
-        if v.shape[:3] != (N_POSES, H, W) or not np.isfinite(v).all():
-            fail("slice", f"buffer {k}: shape {v.shape} or non-finite values")
-    for k in ("rgb", "target_normal_map", "reflected_radiance", "depth", "acc"):
-        if k not in results:
-            fail("slice", f"buffer {k} missing")
-    k1_ms = sum(r["ms"] for r in kernels if r["name"] in ff.LAUNCHES)
-    emit("slice", card=card, poses=N_POSES, height=H, width=W, chunk=CHUNK,
-         chunks=n_chunks, seconds=seconds,
-         rays_per_s=N_POSES * H * W / seconds,
-         ms_per_chunk=seconds / n_chunks * 1e3,
-         chunk_ms_cuda_events=chunk_ms_events,
-         k1_ms_per_chunk_from_kernel_phase=k1_ms,
-         launches=launches, buffers=sorted(results),
-         chunk_vs_eager_max_abs_err=chunk_err,
+    served = serve("slice", variables, consts, scene, rcfg, kernels,
+                   {"fused_field_density": 1, "fused_field_apply": 1})
+    emit("slice", card=card, compute_dtype=rcfg.compute_dtype, **served,
+         chunk_ms_cuda_events=events_ms, chunk_vs_eager_max_abs_err=chunk_err,
          atol=SLICE_ATOL, rtol=SLICE_RTOL)
+
+
+def slice_bf16_phase(cfg, variables, consts, kernels, card: str) -> None:
+    """Serving under compute_dtype bfloat16 (scripts/infer_bench.py's
+    frame:2048:bf16): every query bf16, K1's bf16-weight variant on the
+    no-grad sweeps. One chunk is held against the f32 render of the same
+    chunk, as tests/test_dtypes.py holds the bf16 modes."""
+    rcfg = serving_config(cfg, compute_dtype="bfloat16")
+    scene = Scene()
+    batch = first_chunk(scene)
+    out = render_rays(variables, consts, batch, rcfg)
+    ref = render_rays(variables, consts, batch,
+                      rcfg.replace(compute_dtype="float32", use_pallas=False))
+    chunk_err = {}
+    for k in BF16_MAPS:
+        chunk_err[k] = (out[k] - ref[k]).abs().max().item()
+        if not torch.isfinite(out[k]).all() or not chunk_err[k] <= BF16_ATOL:
+            fail("slice_bf16", f"{k}: the bf16 render is {chunk_err[k]:.3e} from the "
+                 f"f32 render (bound {BF16_ATOL})")
+    events_ms = chunk_ms_events(variables, consts, batch, rcfg)
+
+    served = serve("slice_bf16", variables, consts, scene, rcfg, kernels,
+                   {"fused_field_density_bf16": 1, "fused_field_apply_bf16": 1})
+    emit("slice_bf16", card=card, compute_dtype=rcfg.compute_dtype, **served,
+         chunk_ms_cuda_events=events_ms, chunk_vs_f32_max_abs_err=chunk_err,
+         atol=BF16_ATOL)
 
 
 def train_config(cfg: FieldConfig, **kw):
@@ -539,7 +686,7 @@ def flat_grads(grads) -> torch.Tensor:
 
 
 # Kernel names of the port's own CUDA kernels, by the row they belong to.
-OWN_KERNELS = {"fused_field_kernel": "K1", "k2_": "K2", "k3_": "K3"}
+OWN_KERNELS = {"fused_field_kernel": "K1", "k1_bf16_": "K1-bf16", "k2_": "K2", "k3_": "K3"}
 
 
 def profile_steps(step, state, arrays, gen, n=2) -> dict:
@@ -715,11 +862,11 @@ def train_phase(cfg, variables, consts, kernels, card: str) -> dict:
     seconds = sum(w["ms_per_step"] for w in windows) * WINDOW_STEPS / 1e3
 
     want = {"fused_field_train_fwd": 2 * steps, "fused_field_train_bwd": 2 * steps,
-            "fused_field_apply": 2 * steps, "fused_field_density": 0}
-    for k, n in want.items():
-        if launches[k] != n:
-            fail("train", f"{k} launched {launches[k]} times in {steps} steps, "
-                 f"expected {n}")
+            "fused_field_apply": 2 * steps}
+    for k, n in launches.items():
+        if n != want.get(k, 0):
+            fail("train", f"{k} launched {n} times in {steps} steps, "
+                 f"expected {want.get(k, 0)}")
     for row in kernels:
         if row["name"] in fft.LAUNCHES:
             row["launches"] = launches[row["name"]]
@@ -740,6 +887,64 @@ def train_phase(cfg, variables, consts, kernels, card: str) -> dict:
                   peak_memory_bytes=peak,
                   profile=profile_steps(step, state, arrays, gen))
     emit("train", **report)
+    return report
+
+
+def train_mixed_phase(cfg, consts, card: str) -> dict:
+    """scripts/perf_sweep.py's mixed:pallas training step, small: 512
+    rays, ε-normals, compute_dtype mixed (the gradient path eager f32, the
+    no-grad sweeps bf16), K1's bf16-weight variant on the ε sweep and the
+    reflected march of both passes, no K2/K3. Warm-up steps, then timed
+    steps with every launch count zeroed before them, and a profiler
+    breakdown."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    arrays = train_scene("cuda", gen)
+    rcfg, lcfg, phase = train_config(
+        cfg, compute_dtype="mixed", use_pallas_train=False,
+        normal_type="normal_map_from_depth_gradient_epsilon")
+    rng = np.random.default_rng(SEED + 1)
+    variables = {"coarse": init_field_params(rng, cfg, "cuda"),
+                 "fine": init_field_params(rng, cfg, "cuda")}
+    for v in _leaves(variables):
+        v.requires_grad_(True)
+    optimizer = build_optimizer(variables, lrate=5e-4, lrate_decay=500, lcfg=lcfg)
+    state = init_train_state(variables, optimizer)
+    step = make_train_step(rcfg, lcfg, phase, optimizer, consts, TRAIN_H, TRAIN_W,
+                           N_RAND, prior_irradiance_mean=0.7, near=2.0, far=8.0)
+    for _ in range(WARMUP_STEPS):
+        state, scalars = step(state, arrays, generator=gen)
+    torch.cuda.synchronize()
+
+    counters = (ff.LAUNCHES, fft.LAUNCHES)
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    t0 = time.perf_counter()
+    for _ in range(MIXED_STEPS):
+        state, scalars = step(state, arrays, generator=gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for c in counters for k, v in c.items()}
+
+    want = {"fused_field_density_bf16": 2 * MIXED_STEPS,
+            "fused_field_apply_bf16": 2 * MIXED_STEPS}
+    for k, n in launches.items():
+        if n != want.get(k, 0):
+            fail("train_mixed", f"{k} launched {n} times in {MIXED_STEPS} steps, "
+                 f"expected {want.get(k, 0)}")
+    loss = float(scalars["loss_total"])
+    leaves = _leaves(state.variables)
+    if not np.isfinite(loss) or not all(torch.isfinite(p).all() for p in leaves):
+        fail("train_mixed", f"loss {loss} or a param is not finite after "
+             f"{WARMUP_STEPS + MIXED_STEPS} steps")
+    if any(p.dtype != torch.float32 for p in leaves):
+        fail("train_mixed", "a master param left f32")
+    report = dict(card=card, compute_dtype=rcfg.compute_dtype, rays=N_RAND,
+                  steps=MIXED_STEPS, seconds=seconds,
+                  ms_per_step=seconds / MIXED_STEPS * 1e3,
+                  rays_per_s=N_RAND * MIXED_STEPS / seconds, launches=launches, loss=loss,
+                  profile=profile_steps(step, state, arrays, gen))
+    emit("train_mixed", **report)
     return report
 
 
@@ -771,13 +976,18 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     kernels = kernel_phase(cfg, ff.pack_field_weights(variables["fine"], cfg), gen)
+    kernels += k1_bf16_kernel_phase(cfg, variables["fine"], gen)
     train_vars = {"coarse": init_field_params(rng, cfg, device),
                   "fine": init_field_params(rng, cfg, device)}
     for v in _leaves(train_vars):
         v.requires_grad_(True)
     kernels += train_kernel_phase(cfg, train_vars["fine"], gen)
     slice_phase(cfg, variables, consts, kernels, card)
+    slice_bf16_phase(cfg, variables, consts, kernels, card)
     train_phase(cfg, train_vars, consts, kernels, card)
+    del train_vars
+    torch.cuda.empty_cache()
+    train_mixed_phase(cfg, consts, card)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,14 +6,16 @@ its layout (`ops/`, `models/`, `kernels/`, `render/`, `data/`, `eval/`,
 counterpart there.
 It imports torch and numpy only — never jax, never `ibl_nerf_tpu`.
 
-Covered so far, in the `float32` and `bf16_grad` compute modes:
-split-sum inference rendering (`eval.render_path` → `render.render_rays`,
+Covered so far, in every compute mode of the JAX renderer (`float32`,
+`bfloat16`, `mixed`, `bf16_grad`, `amp`, `float64`): split-sum
+inference rendering (`eval.render_path` → `render.render_rays`,
 ε-normals, the BRDF-LUT fetch, the reflected march and mip
 interpolation), and the train step (`train.make_train_step`: pixel
 sampling, the gradient path with random draws, sgs or ε normals, the
 staged losses, named-group Adam). The no-grad sweeps run on the
-hand-written CUDA kernel K1 (`kernels/fused_field.py`,
-`csrc/fused_field.cu`), the gradient-path field query on K2/K3
+hand-written CUDA kernel K1 (`kernels/fused_field.py`; f32 weights in
+`csrc/fused_field.cu`, bf16 weights on K2's chain in
+`csrc/fused_field_train.cu`), the gradient-path field query on K2/K3
 (`kernels/fused_field_train.py`, `csrc/fused_field_train.cu`). Modes
 outside that raise NotImplementedError with the mode's name.
 """

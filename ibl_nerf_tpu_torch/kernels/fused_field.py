@@ -1,19 +1,30 @@
-"""K1: the fused no-grad field query, as a CUDA kernel for Hopper.
+"""K1: the fused no-grad field query, as CUDA kernels for Hopper.
 
 Counterpart of ibl_nerf_tpu/kernels/fused_field.py (`_field_kernel`,
-the Pallas TPU kernel). One launch of `csrc/fused_field.cu` runs the
-positional encoding, the 8-layer trunk and either every head or the
-density only, for a flat list of points, reading the (N, 8) packed
-input [pts | dirs | 0-pad] and writing only the (N, 9+3K) or (N, 1)
-f32 raw output. The renderer uses it for the no-gradient sweeps: the
-4 ε-offset density sweeps and the reflected march.
+the Pallas TPU kernel). One launch runs the positional encoding, the
+8-layer trunk and either every head or the density only, for a flat
+list of points, reading the (N, 8) packed input [pts | dirs | 0-pad]
+and writing only the (N, 9+3K) or (N, 1) f32 raw output. The renderer
+uses it for the no-gradient sweeps: the 4 ε-offset density sweeps and
+the reflected march.
 
-Beside the kernel lives its plain PyTorch version
-(`fused_field_apply_plain` / `fused_field_density_plain`): the same math
-from the same packed weights and the same sin(t + phase) embedding. The
-wrappers `fused_field_apply` / `fused_field_density` take the plain
-version for CPU tensors only; for CUDA tensors they launch the kernel
-or raise.
+Like the JAX kernel, it computes in the dtype of the packed weights
+(`pack_field_weights(..., dtype=)`):
+- f32: `csrc/fused_field.cu`, f32 FMA on the CUDA cores;
+- bf16 (the renderer's no-grad dtype under compute_dtype "bfloat16" and
+  "mixed"): the embedding rounded to bf16, bf16 products summed in f32,
+  every layer rounded to bf16 after its bias and relu, raw in f32. That
+  is where K2 rounds, so this variant runs on K2's forward chain
+  (`k1_bf16_forward` in `csrc/fused_field_train.cu`, launched by
+  `fused_field_train.field_bf16_launch`).
+
+Beside the kernels live their plain PyTorch versions
+(`fused_field_apply_plain` / `fused_field_density_plain`, for bf16 packs
+`fused_field_train.field_bf16_plain`): the same math from the same
+packed weights and the same sin(t + phase) embedding. The wrappers
+`fused_field_apply` / `fused_field_density` take the plain version for
+CPU tensors only; for CUDA tensors they launch the kernel of the packed
+dtype or raise.
 """
 
 from __future__ import annotations
@@ -40,8 +51,11 @@ _WEIGHT_ORDER = ["emb_E", "emb_phase", "emb_id",
                  "tb", "wpf", "bpf", "wfeat", "bfeat", "wv_f", "wv_d", "bv",
                  "wcf", "bcf", "A", "B", "C", "D", "bias"]
 
-# Launches of the kernel per wrapper; the plain version never counts.
-LAUNCHES = {"fused_field_apply": 0, "fused_field_density": 0}
+# Launches of the kernel per wrapper and packed dtype; the plain versions
+# never count.
+LAUNCHES = {"fused_field_apply": 0, "fused_field_density": 0,
+            "fused_field_apply_bf16": 0, "fused_field_density_bf16": 0}
+_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def _embedding_constants(cfg: FieldConfig):
@@ -88,14 +102,18 @@ def _pad_rows(w: torch.Tensor, rows: int, row0: int = 0) -> torch.Tensor:
     return out
 
 
-def pack_field_weights(params: dict, cfg: FieldConfig) -> dict[str, torch.Tensor]:
-    """Field params as the kernel's f32 matrices, on the params' device.
+def pack_field_weights(params: dict, cfg: FieldConfig,
+                       dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
+    """Field params as the kernel's matrices, on the params' device.
 
     Takes the default architecture: depth 8, skip at 4, a view branch,
     and an embedding of at most LANE channels (63 + 27 = 90 at multires
     10/4). The skip input rows of layer 5 ([:in_ch], `pts_emb`) and the
     view layer's direction rows (input lanes [in_ch, in_ch+27)) sit at
     their embedding lanes; heads are column-packed to the raw layout.
+    As in JAX, the matrices and biases are packed in f32 and then cast to
+    `dtype`; the embedding constants stay f32 (sin(2^9 x) needs more
+    mantissa than bf16 carries).
     """
     if cfg.depth != 8 or cfg.skips != (4,):
         raise ValueError("the fused field takes depth 8 with the skip at 4")
@@ -140,9 +158,10 @@ def pack_field_weights(params: dict, cfg: FieldConfig) -> dict[str, torch.Tensor
     packed.update(A=A, B=B, C=C, bias=bias,
                   D=D if D is not None else vw.new_zeros((half, n_out)))
 
+    packed = {k: v.to(device=device, dtype=torch.float32).to(dtype).contiguous()
+              for k, v in packed.items()}
     packed.update(embedding_tensors(cfg, device))
-    return {k: v.to(device=device, dtype=torch.float32).contiguous()
-            for k, v in packed.items()}
+    return packed
 
 
 def _pack_inputs(pts: torch.Tensor, dirs: torch.Tensor | None) -> torch.Tensor:
@@ -179,15 +198,45 @@ def _field_plain(packed: dict, x: torch.Tensor, density_only: bool) -> torch.Ten
             + view_feat @ w["D"] + w["bias"])
 
 
+def _packed_dtype(packed: dict) -> torch.dtype:
+    """The dtype the fused field computes in: that of the packed w0."""
+    dt = packed["w0"].dtype
+    if dt not in _DTYPE_NAMES:
+        raise ValueError(f"the fused field takes f32 or bf16 packed weights, not {dt}")
+    return dt
+
+
+def _field_plain_any(packed: dict, x: torch.Tensor, density_only: bool) -> torch.Tensor:
+    """The plain version for the packed dtype."""
+    if _packed_dtype(packed) == torch.bfloat16:
+        return _k2().field_bf16_plain(x, packed, _emb(packed), density_only)
+    return _field_plain(packed, x, density_only)
+
+
+def _k2():
+    """kernels/fused_field_train, whose forward chain and plain forward
+    K1's bf16 variant shares (imported here: it imports this module)."""
+    from ibl_nerf_tpu_torch.kernels import fused_field_train
+    return fused_field_train
+
+
+def _emb(packed: dict) -> dict[str, torch.Tensor]:
+    """The embedding constants under the names K2's code takes."""
+    return {"E": packed["emb_E"], "phase": packed["emb_phase"], "id": packed["emb_id"]}
+
+
 def _check(packed: dict, x: torch.Tensor, cfg: FieldConfig) -> None:
     if cfg.width != KERNEL_WIDTH:
         raise ValueError(f"the CUDA kernel takes width {KERNEL_WIDTH}, "
                          f"not {cfg.width}")
+    dt = _packed_dtype(packed)
     for k in _WEIGHT_ORDER:
         v = packed[k]
-        if v.device != x.device or v.dtype != torch.float32 or not v.is_contiguous():
-            raise ValueError(f"packed weight {k} must be contiguous f32 on "
-                             f"{x.device}, got {v.dtype} on {v.device}")
+        want = torch.float32 if k.startswith("emb_") else dt
+        if v.device != x.device or v.dtype != want or not v.is_contiguous():
+            raise ValueError(f"packed weight {k} must be contiguous "
+                             f"{_DTYPE_NAMES[want]} on {x.device}, got {v.dtype} "
+                             f"on {v.device}")
     n_out = 9 + 3 * cfg.coarse_radiance_number
     if packed["A"].shape != (KERNEL_WIDTH, n_out) or packed["w0"].shape[0] != LANE:
         raise ValueError("packed weights do not match the field config")
@@ -227,10 +276,20 @@ def _launch(packed: dict, x: torch.Tensor, cfg: FieldConfig,
     return out
 
 
+def _launch_bf16(packed: dict, x: torch.Tensor, cfg: FieldConfig,
+                 density_only: bool) -> torch.Tensor:
+    _check(packed, x, cfg)
+    out = _k2().field_bf16_launch(x, packed, _emb(packed), density_only)
+    LAUNCHES["fused_field_density_bf16" if density_only else "fused_field_apply_bf16"] += 1
+    return out
+
+
 def _run(packed, x, cfg, density_only):
     if x.device.type == "cpu":
-        return _field_plain(packed, x, density_only)
+        return _field_plain_any(packed, x, density_only)
     if x.device.type == "cuda":
+        if _packed_dtype(packed) == torch.bfloat16:
+            return _launch_bf16(packed, x, cfg, density_only)
         return _launch(packed, x, cfg, density_only)
     raise ValueError(f"no fused field for device {x.device}")
 
@@ -254,12 +313,12 @@ def fused_field_density(packed: dict, pts: torch.Tensor,
 def fused_field_apply_plain(packed: dict, pts: torch.Tensor,
                             dirs: torch.Tensor, cfg: FieldConfig) -> torch.Tensor:
     """The plain PyTorch version of `fused_field_apply`, on any device."""
-    out = _field_plain(packed, _pack_inputs(pts, dirs), density_only=False)
+    out = _field_plain_any(packed, _pack_inputs(pts, dirs), density_only=False)
     return out.reshape(*pts.shape[:-1], out.shape[-1])
 
 
 def fused_field_density_plain(packed: dict, pts: torch.Tensor,
                               cfg: FieldConfig) -> torch.Tensor:
     """The plain PyTorch version of `fused_field_density`, on any device."""
-    out = _field_plain(packed, _pack_inputs(pts, None), density_only=True)
+    out = _field_plain_any(packed, _pack_inputs(pts, None), density_only=True)
     return out.reshape(*pts.shape[:-1], 1)

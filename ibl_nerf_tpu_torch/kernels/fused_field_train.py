@@ -111,31 +111,48 @@ def _embed(x, emb):
     return torch.where(emb["id"] > 0.0, t, torch.sin(t + emb["phase"]))
 
 
+def _layer(w16: dict, *pairs, bias, act=True):
+    """sum of a @ w16[k] over the pairs, in f32, + bias; relu; bf16."""
+    v = sum(_mmf(a, w16[k]) for a, k in pairs) + bias
+    return (torch.relu(v) if act else v).to(torch.bfloat16)
+
+
+def _trunk_plain(xe: torch.Tensor, w16: dict) -> list[torch.Tensor]:
+    """h0..h7 from the bf16 embedding (layer 5 reads it again)."""
+    tb = w16["tb"].float()
+    hs = [_layer(w16, (xe, "w0"), bias=tb[0])]
+    for i in (1, 2, 3, 4):
+        hs.append(_layer(w16, (hs[-1], f"w{i}"), bias=tb[i]))
+    hs.append(_layer(w16, (xe, "w5x"), (hs[-1], "w5h"), bias=tb[5]))
+    for i in (6, 7):
+        hs.append(_layer(w16, (hs[-1], f"w{i}"), bias=tb[i]))
+    return hs
+
+
 def train_forward_plain(x: torch.Tensor, w16: dict, emb: dict):
     """K2's math: (N, 8) -> (raw (N, 9+3K) f32, residuals (11, N, W) bf16)."""
-    bf = torch.bfloat16
-    relu = torch.relu
-    tb = w16["tb"].float()
-
-    def layer(*pairs, bias, act=True):
-        v = sum(_mmf(a, w16[k]) for a, k in pairs) + bias
-        return (relu(v) if act else v).to(bf)
-
-    xe = _embed(x, emb).to(bf)
-    hs = [layer((xe, "w0"), bias=tb[0])]
-    for i in (1, 2, 3, 4):
-        hs.append(layer((hs[-1], f"w{i}"), bias=tb[i]))
-    hs.append(layer((xe, "w5x"), (hs[-1], "w5h"), bias=tb[5]))
-    for i in (6, 7):
-        hs.append(layer((hs[-1], f"w{i}"), bias=tb[i]))
+    xe = _embed(x, emb).to(torch.bfloat16)
+    hs = _trunk_plain(xe, w16)
     h = hs[-1]
-    pf = layer((h, "wpf"), bias=w16["bpf"].float())
-    ft = layer((h, "wfeat"), bias=w16["bfeat"].float(), act=False)
-    hv = layer((ft, "wv_f"), (xe, "wv_d"), bias=w16["bv"].float())
-    vf = layer((hv, "wcf"), bias=w16["bcf"].float())
+    pf = _layer(w16, (h, "wpf"), bias=w16["bpf"].float())
+    ft = _layer(w16, (h, "wfeat"), bias=w16["bfeat"].float(), act=False)
+    hv = _layer(w16, (ft, "wv_f"), (xe, "wv_d"), bias=w16["bv"].float())
+    vf = _layer(w16, (hv, "wcf"), bias=w16["bcf"].float())
     raw = (_mmf(h, w16["A"]) + _mmf(pf, w16["B"]) + _mmf(hv, w16["C"])
            + _mmf(vf, w16["D"]) + w16["bias"].float())
     return raw, torch.stack(hs + [pf, ft, hv])
+
+
+def field_bf16_plain(x: torch.Tensor, w16: dict, emb: dict,
+                     density_only: bool) -> torch.Tensor:
+    """K1's bf16-weight variant (plain version of `k1_bf16_forward`): the
+    JAX `_field_kernel` with bf16 packed weights rounds where K2 does, so
+    the full variant is K2's raw (N, 9+3K) and the density variant the
+    same trunk, then sigma = h7 @ A[:, :1] + bias[:1] in f32, (N, 1)."""
+    if not density_only:
+        return train_forward_plain(x, w16, emb)[0]
+    h = _trunk_plain(_embed(x, emb).to(torch.bfloat16), w16)[-1]
+    return _mmf(h, w16["A"][:, :1]) + w16["bias"][:1].float()
 
 
 def delta_chain_plain(x, g, res, w16: dict, emb: dict) -> dict[str, torch.Tensor]:
@@ -313,6 +330,8 @@ _FORWARD_LAYERS = [[(w, True)] for w in ("w0", "w1", "w2", "w3", "w4")] + [
     [("w5x", True), ("w5h", True)], [("w6", True)], [("w7", True)], [("wpf", True)],
     [("A", True), ("B", True)], [("wfeat", True)], [("wv_f", True), ("wv_d", True)],
     [("wcf", True)], [("C", True), ("D", True)]]
+# K1's bf16 density variant: the trunk (h0..h7), then sigma's head A.
+_DENSITY_LAYERS = _FORWARD_LAYERS[:8] + [[("A", True)]]
 
 
 def slab_dims(n: int) -> tuple[int, int]:
@@ -356,6 +375,13 @@ def forward_schedule(shapes: tuple) -> tuple[tuple[tuple, ...], int]:
     return _schedule(_FORWARD_LAYERS, shapes)
 
 
+@functools.lru_cache(maxsize=8)
+def density_schedule(shapes: tuple) -> tuple[tuple[tuple, ...], int]:
+    """The slab stream of K1's bf16 density variant: the trunk's layers of
+    `_FORWARD_LAYERS`, then the head A alone in a narrow slab."""
+    return _schedule(_DENSITY_LAYERS, shapes)
+
+
 def _slabs(schedule, w16: dict) -> torch.Tensor:
     sched, total = schedule(_shapes(w16))
     out = w16["w1"].new_zeros((total, SLAB_N * SLAB_K))
@@ -385,13 +411,20 @@ def forward_slabs(w16: dict) -> torch.Tensor:
     return _slabs(forward_schedule, w16)
 
 
+def density_slabs(w16: dict) -> torch.Tensor:
+    """The slab stream of K1's bf16 density variant (plain version of
+    k1_bf16_pack_slabs with `density_schedule`), as `chain_slabs`."""
+    return _slabs(density_schedule, w16)
+
+
 # ---------------------------------------------------------------------------
 # CUDA launches
 # ---------------------------------------------------------------------------
 
 @functools.cache
 def _entries():
-    """The two entry points of csrc/fused_field_train.cu, built on first use."""
+    """The entry points of csrc/fused_field_train.cu, built on first use:
+    K2, K3 and K1's bf16-weight variant."""
     lib = _build.load("fused_field_train")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fwd = lib.fused_field_train_fwd_launch
@@ -401,7 +434,10 @@ def _entries():
     bwd.restype = i
     bwd.argtypes = [p, ll, p, p, p, p, p, p, i, i, i, i, p, i, p, i,
                     p, i, p, i, p, i, ll, i, p, ll, p, p]
-    return fwd, bwd
+    k1 = lib.fused_field_bf16_launch
+    k1.restype = i
+    k1.argtypes = [p, ll, p, p, p, p, i, i, i, i, i, p, i, p, i, p, p]
+    return fwd, bwd, k1
 
 
 def _shapes(w16: dict) -> tuple:
@@ -464,6 +500,31 @@ def _launch_fwd(x, w16, emb):
         raise RuntimeError(f"fused_field_train forward kernel launch failed: error {err}")
     LAUNCHES["fused_field_train_fwd"] += 1
     return raw, res
+
+
+def field_bf16_launch(x, w16, emb, density_only: bool) -> torch.Tensor:
+    """K1's bf16-weight variant on CUDA tensors (`fused_field_bf16_launch`):
+    the slab stream of `density_schedule` or `forward_schedule`, then
+    K2's forward without residuals. Returns raw (N, 1) or (N, 9+3K) f32.
+    Its launches are counted by the wrappers of kernels/fused_field.py."""
+    n_out = w16["bias"].shape[0]
+    _check(x, w16, emb, n_out)
+    n = x.shape[0]
+    schedule = density_schedule if density_only else forward_schedule
+    sched, n_slabs = schedule(_shapes(w16))
+    out = torch.empty((n, 1 if density_only else n_out), dtype=torch.float32,
+                      device=x.device)
+    slabs = torch.empty(n_slabs * SLAB_N * SLAB_K, dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _entries()[2](
+            x.data_ptr(), n, emb["E"].data_ptr(), emb["phase"].data_ptr(),
+            emb["id"].data_ptr(), _ptrs([w16[k].data_ptr() for k in _DW_ORDER]),
+            len(_DW_ORDER), KERNEL_WIDTH, n_out, w16["wcf"].shape[1], int(density_only),
+            ctypes.cast(_slab_table(sched), ctypes.c_void_p), len(sched), slabs.data_ptr(),
+            n_slabs, out.data_ptr(), _stream(x.device))
+    if err != 0:
+        raise RuntimeError(f"fused_field bf16 kernel launch failed: error {err}")
+    return out
 
 
 def _launch_bwd(x, g, res, w16, emb):

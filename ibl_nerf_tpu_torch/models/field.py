@@ -98,43 +98,59 @@ def init_field_params(rng: np.random.Generator, cfg: FieldConfig,
     }
 
 
-def _mm_f32out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Matmul whose output keeps f32: bf16 operands are multiplied
-    exactly and summed in f32 (the raw heads, sigma above all, leave the
-    network at f32 precision); f32 operands take the plain product."""
-    if x.dtype == torch.bfloat16:
-        return x.float() @ w.float()
+def _mm_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Both operands rounded to bf16, multiplied exactly and summed in f32,
+    with an f32 result."""
+    return x.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float()
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor, amp: bool = False) -> torch.Tensor:
+    """Matmul; under `amp` ("automatic mixed precision") only the two
+    operands are rounded to bf16, the sum and result are f32: params,
+    activations and gradients all stay f32."""
+    return _mm_bf16(x, w) if amp else x @ w
+
+
+def _mm_f32out(x: torch.Tensor, w: torch.Tensor, amp: bool = False) -> torch.Tensor:
+    """Matmul whose output keeps f32: bf16 operands (or f32 ones under
+    `amp`, rounded to bf16) are multiplied exactly and summed in f32, so
+    the raw heads, sigma above all, leave the network at f32 precision;
+    f32 and f64 operands take the plain product."""
+    if amp or x.dtype == torch.bfloat16:
+        return _mm_bf16(x, w)
     return x @ w
 
 
-def _dense(p, x):
-    return x @ p["w"] + p["b"]
+def _dense(p, x, amp: bool = False):
+    return _mm(x, p["w"], amp) + p["b"]
 
 
-def _trunk(params: Params, pts_emb: torch.Tensor, cfg: FieldConfig) -> torch.Tensor:
+def _trunk(params: Params, pts_emb: torch.Tensor, cfg: FieldConfig,
+           amp: bool = False) -> torch.Tensor:
     h = pts_emb
     for i, layer in enumerate(params["trunk"]):
-        h = torch.relu(_dense(layer, h))
+        h = torch.relu(_dense(layer, h, amp))
         if i in cfg.skips:
             h = torch.cat([pts_emb, h], dim=-1)
     return h
 
 
-def _pos_features(params: Params, h: torch.Tensor) -> torch.Tensor:
+def _pos_features(params: Params, h: torch.Tensor, amp: bool = False) -> torch.Tensor:
     """Fused position-branch feature heads: (N, 2·half) =
     relu(h @ [albedo_feat | irradiance_feat])."""
     wf = torch.cat([params["albedo_feat"]["w"], params["irradiance_feat"]["w"]], dim=1)
     bf = torch.cat([params["albedo_feat"]["b"], params["irradiance_feat"]["b"]], dim=0)
-    return torch.relu(h @ wf + bf)
+    return torch.relu(_mm(h, wf, amp) + bf)
 
 
-def _coarse_features(params: Params, h2: torch.Tensor) -> torch.Tensor | None:
+def _coarse_features(params: Params, h2: torch.Tensor,
+                     amp: bool = False) -> torch.Tensor | None:
     """Fused K coarse-radiance feature heads: (N, K·half)."""
     if not params["coarse_feat"]:
         return None
     wf = torch.cat([p["w"] for p in params["coarse_feat"]], dim=1)
     bf = torch.cat([p["b"] for p in params["coarse_feat"]], dim=0)
-    return torch.relu(h2 @ wf + bf)
+    return torch.relu(_mm(h2, wf, amp) + bf)
 
 
 def _zero_cols(w: torch.Tensor, n: int) -> torch.Tensor:
@@ -188,46 +204,48 @@ def _assembly_matrices(params: Params, cfg: FieldConfig,
 
 def apply_field_density(params: Params, pts_emb: torch.Tensor,
                         cfg: FieldConfig,
-                        freeze_radiance: bool = False) -> torch.Tensor:
+                        freeze_radiance: bool = False,
+                        amp: bool = False) -> torch.Tensor:
     """Density-only query: raw sigma (..., 1). Under freeze_radiance the
     trunk and sigma carry no gradient."""
-    h = _trunk(params, pts_emb, cfg)
-    sigma = _mm_f32out(h, params["sigma"]["w"]) + params["sigma"]["b"]
+    h = _trunk(params, pts_emb, cfg, amp)
+    sigma = _mm_f32out(h, params["sigma"]["w"], amp) + params["sigma"]["b"]
     return sigma.detach() if freeze_radiance else sigma
 
 
 def apply_field(params: Params, pts_emb: torch.Tensor, dirs_emb: torch.Tensor,
                 cfg: FieldConfig, freeze_radiance: bool = False,
-                freeze_roughness: bool = False) -> torch.Tensor:
+                freeze_roughness: bool = False, amp: bool = False) -> torch.Tensor:
     """Full field query -> raw (..., 9 + 3K).
 
     Under freeze_radiance the trunk, sigma, radiance, the view branch and
     the coarse heads carry no gradient; albedo and irradiance train their
-    own heads only; roughness is frozen too under freeze_roughness.
+    own heads only; roughness is frozen too under freeze_roughness. Under
+    `amp` every matmul rounds its operands to bf16 and sums in f32.
     """
     W = params["feature"]["w"].shape[0]
-    h = _trunk(params, pts_emb, cfg)
+    h = _trunk(params, pts_emb, cfg, amp)
     h_heads = h.detach() if freeze_radiance else h
-    pos_feat = _pos_features(params, h_heads)
+    pos_feat = _pos_features(params, h_heads, amp)
 
     if cfg.color_independent_to_direction:
         h2 = h_heads
     else:
-        feat = _dense(params["feature"], h_heads)
+        feat = _dense(params["feature"], h_heads, amp)
         vw, vb = params["views"][0]["w"], params["views"][0]["b"]
-        h2 = torch.relu(feat @ vw[:W] + dirs_emb @ vw[W:] + vb)
+        h2 = torch.relu(_mm(feat, vw[:W], amp) + _mm(dirs_emb, vw[W:], amp) + vb)
         for layer in params["views"][1:]:
-            h2 = torch.relu(_dense(layer, h2))
+            h2 = torch.relu(_dense(layer, h2, amp))
 
-    view_feat = _coarse_features(params, h2)
+    view_feat = _coarse_features(params, h2, amp)
     A, B, C, D, bias = _assembly_matrices(params, cfg, freeze_radiance,
                                           freeze_roughness)
     # under freeze the radiance and coarse columns are dead ends for the
     # view branch too: its inputs to them are detached
     h2_in = h2.detach() if freeze_radiance else h2
-    raw = (_mm_f32out(h_heads, A) + _mm_f32out(pos_feat, B)
-           + _mm_f32out(h2_in, C) + bias)
+    raw = (_mm_f32out(h_heads, A, amp) + _mm_f32out(pos_feat, B, amp)
+           + _mm_f32out(h2_in, C, amp) + bias)
     if view_feat is not None:
         vf_in = view_feat.detach() if freeze_radiance else view_feat
-        raw = raw + _mm_f32out(vf_in, D)
+        raw = raw + _mm_f32out(vf_in, D, amp)
     return raw

@@ -99,12 +99,11 @@ class RenderConfig:
     edit: EditConfig | None = None
 
     # numerics / kernels
-    # "float32" | "bf16_grad" in the port so far ("bfloat16", "mixed",
-    # "amp", "float64" exist in the reference) — see
-    # renderer._make_queries for the split
+    # "float32" | "bfloat16" | "mixed" | "bf16_grad" | "amp" | "float64"
+    # -- see renderer._make_queries for the split
     compute_dtype: str = "float32"
     use_pallas: bool = False        # fused-field kernel K1 on no-grad sweeps
-    use_pallas_train: bool = False  # fused train kernels (not ported yet)
+    use_pallas_train: bool = False  # fused train kernels K2/K3 (bf16 gradient path)
 
     # inference fast path: coarse pass density-only (weights for the
     # importance resample + depth); every fine buffer is unchanged.

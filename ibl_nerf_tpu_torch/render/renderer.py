@@ -59,14 +59,21 @@ _SIGMA_NORMALS = ("normal_map_from_sigma_gradient",
                   "normal_map_from_sigma_gradient_surface")
 
 
+_COMPUTE_DTYPES = ("float32", "bfloat16", "mixed", "bf16_grad", "amp", "float64")
+
+
 def _check_supported(rcfg: RenderConfig) -> None:
     """Raise NotImplementedError, naming the mode, for what the port
     does not cover yet."""
     def missing(mode):
         raise NotImplementedError(f"{mode} is not ported to ibl_nerf_tpu_torch yet")
 
-    if rcfg.compute_dtype not in ("float32", "bf16_grad"):
-        missing(f"compute_dtype={rcfg.compute_dtype}")
+    if rcfg.compute_dtype not in _COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute_dtype {rcfg.compute_dtype!r}")
+    if rcfg.compute_dtype == "float64" and rcfg.use_pallas:
+        # the JAX package runs this only in Pallas's interpret mode
+        raise NotImplementedError("compute_dtype=float64 with use_pallas: K1 has no "
+                                  "float64 kernel on any platform")
     if rcfg.raw_noise_std > 0.0:
         missing("raw_noise_std")
     if rcfg.edit is not None:
@@ -90,26 +97,36 @@ def _check_supported(rcfg: RenderConfig) -> None:
 # Field query helpers
 # ---------------------------------------------------------------------------
 
-def _grad_dtype(rcfg: RenderConfig) -> torch.dtype:
-    """Dtype of the primary-march queries: bf16 under "bf16_grad"."""
-    return torch.bfloat16 if rcfg.compute_dtype == "bf16_grad" else torch.float32
+def _query_dtypes(rcfg: RenderConfig) -> tuple[torch.dtype, torch.dtype]:
+    """(gradient-path dtype, no-grad sweep dtype) of the compute dtype."""
+    cd = rcfg.compute_dtype
+    if cd == "float64":
+        return torch.float64, torch.float64
+    dt_grad = torch.bfloat16 if cd in ("bfloat16", "bf16_grad") else torch.float32
+    dt_ng = torch.bfloat16 if cd in ("bfloat16", "mixed") else torch.float32
+    return dt_grad, dt_ng
 
 
 def _make_queries(field_params, rcfg: RenderConfig):
     """(query_full, query_sigma, query_full_ng, query_sigma_ng).
 
-    compute_dtype "float32": everything f32; "bf16_grad": the primary
-    march in bf16 (f32 raw heads), the no-grad sweeps (ε-normals,
-    reflected march) in f32. With use_pallas the `_ng` pair is K1, fed
-    detached weights; call it under torch.no_grad(). With
-    use_pallas_train, bf16 gradients, no freeze and the default
-    architecture, query_full is K2/K3, whose gradients flow through the
-    f32 packing to the params (positions get none); query_sigma stays
-    eager, since the sgs normal needs its position gradient.
+    compute_dtype, as in the JAX renderer: "float32" everything f32;
+    "bfloat16" every query in bf16 (f32 raw heads); "mixed" the gradient
+    path f32, the no-grad sweeps (ε-normals, reflected march) bf16;
+    "bf16_grad" the inverse split; "amp" f32 everywhere but the matmul
+    operands, rounded to bf16 and summed in f32, with the no-grad sweeps
+    in plain f32; "float64" everything f64. With use_pallas the `_ng`
+    pair is K1 at the no-grad dtype, fed detached weights; call it under
+    torch.no_grad(). With use_pallas_train, bf16 gradients, no freeze and
+    the default architecture, query_full is K2/K3, whose gradients flow
+    through the f32 packing to the params (positions get none);
+    query_sigma stays eager, since the sgs normal needs its position
+    gradient.
     """
     fcfg = rcfg.field
-    dt_grad, dt_ng = _grad_dtype(rcfg), torch.float32
-    query_full, query_sigma = _make_query_pair(field_params, rcfg, dt_grad)
+    amp = rcfg.compute_dtype == "amp"
+    dt_grad, dt_ng = _query_dtypes(rcfg)
+    query_full, query_sigma = _make_query_pair(field_params, rcfg, dt_grad, amp=amp)
 
     if (rcfg.use_pallas_train and dt_grad == torch.bfloat16
             and not rcfg.freeze_radiance
@@ -122,14 +139,15 @@ def _make_queries(field_params, rcfg: RenderConfig):
 
     if rcfg.use_pallas:
         with torch.no_grad():
-            packed = pack_field_weights(field_params, fcfg)
+            packed = pack_field_weights(field_params, fcfg, dtype=dt_ng)
 
         def query_full_ng(pts, viewdirs):
             return fused_field_apply(packed, pts, viewdirs, fcfg)
 
         def query_sigma_ng(pts):
             return fused_field_density(packed, pts, fcfg)
-    elif dt_ng != dt_grad:
+    elif dt_ng != dt_grad or amp:
+        # amp keeps the no-grad sweeps at plain f32, as bf16_grad does
         query_full_ng, query_sigma_ng = _make_query_pair(field_params, rcfg, dt_ng)
     else:
         query_full_ng, query_sigma_ng = query_full, query_sigma
@@ -144,11 +162,15 @@ def _cast_params(tree, dt):
     return tree.to(dt)
 
 
-def _make_query_pair(field_params, rcfg: RenderConfig, dt: torch.dtype):
-    """(query_full, query_sigma) closures at compute dtype `dt`; raw
-    outputs are f32."""
+def _make_query_pair(field_params, rcfg: RenderConfig, dt: torch.dtype,
+                     amp: bool = False):
+    """(query_full, query_sigma) closures at compute dtype `dt` (under
+    `amp`, f32 with bf16 matmul operands). The positional encoding runs
+    in the points' dtype, then is cast to `dt`; raw outputs are f32 for
+    bf16 compute and `dt` otherwise."""
     fcfg = rcfg.field
     params_c = _cast_params(field_params, dt) if dt != torch.float32 else field_params
+    out_dt = torch.float32 if dt == torch.bfloat16 else dt
 
     def query_full(pts, viewdirs):
         # pts (B, S, 3); viewdirs (B, 3) broadcast over samples.
@@ -157,12 +179,13 @@ def _make_query_pair(field_params, rcfg: RenderConfig, dt: torch.dtype):
         de = de[..., None, :].expand(*pts.shape[:-1], de.shape[-1])
         return apply_field(params_c, pe, de, fcfg,
                            freeze_radiance=rcfg.freeze_radiance,
-                           freeze_roughness=rcfg.freeze_roughness).float()
+                           freeze_roughness=rcfg.freeze_roughness, amp=amp).to(out_dt)
 
     def query_sigma(pts):
         pe = positional_encoding(pts, fcfg.multires).to(dt)
         return apply_field_density(params_c, pe, fcfg,
-                                   freeze_radiance=rcfg.freeze_radiance).float()
+                                   freeze_radiance=rcfg.freeze_radiance,
+                                   amp=amp).to(out_dt)
 
     return query_full, query_sigma
 
@@ -332,8 +355,9 @@ def _assemble_outputs(rcfg, approximated_radiance_map, radiance_map,
     results["n_dot_v_map"] = n_dot_v
 
     results["target_normal_map"] = target_normal_map
-    # the estimator's own key, for losses that name it
-    if target_normal_map is not None:
+    # the estimator's own key, for losses that name it (the normal_map_*
+    # estimators only, as in the JAX renderer)
+    if target_normal_map is not None and rcfg.normal_type.startswith("normal_map"):
         results[rcfg.normal_type] = target_normal_map
 
     results["disp_map"] = disp_map
@@ -383,12 +407,14 @@ def make_ray_batch(rays_o, rays_d, near, far):
 
 
 def draw_render_uniforms(n_rays: int, rcfg: RenderConfig, device,
-                         generator: torch.Generator | None = None) -> dict:
+                         generator: torch.Generator | None = None,
+                         dtype: torch.dtype = torch.float32) -> dict:
     """The uniform draws of one render_rays call under perturb: "strat"
     (B, n_samples) jitters the stratified z, "pdf" (B, n_importance)
-    drives sample_pdf. JAX draws them from k_strat and k_pdf."""
+    drives sample_pdf. JAX draws them from k_strat and k_pdf, in the
+    dtype of the rays."""
     def u(n):
-        return torch.rand((n_rays, n), device=device, generator=generator)
+        return torch.rand((n_rays, n), device=device, generator=generator, dtype=dtype)
     return {"strat": u(rcfg.n_samples), "pdf": u(rcfg.n_importance)}
 
 
@@ -411,7 +437,8 @@ def render_rays(variables, consts, batch, rcfg: RenderConfig,
     rays_o, rays_d = batch["rays_o"], batch["rays_d"]
     near, far = batch["near"], batch["far"]
     if rcfg.perturb and draws is None:
-        draws = draw_render_uniforms(rays_o.shape[0], rcfg, rays_o.device, generator)
+        draws = draw_render_uniforms(rays_o.shape[0], rcfg, rays_o.device, generator,
+                                     dtype=rays_o.dtype)
 
     z_vals = stratified_z_vals(near, far, rcfg.n_samples, lindisp=rcfg.lindisp,
                                perturb=rcfg.perturb,
@@ -419,7 +446,9 @@ def render_rays(variables, consts, batch, rcfg: RenderConfig,
     z_vals_constant = z_vals
 
     def depth_only(field_params, rc, z):
-        query_sigma = _make_query_pair(field_params, rc, _grad_dtype(rc))[1]
+        # the gradient-path density query, as the full coarse pass's
+        query_sigma = _make_query_pair(field_params, rc, _query_dtypes(rc)[0],
+                                       amp=rc.compute_dtype == "amp")[1]
         return _render_depth_only(query_sigma, rays_o, rays_d, z)
 
     if is_depth_only or (not rcfg.coarse_shading and rcfg.n_importance > 0):

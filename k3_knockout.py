@@ -80,7 +80,7 @@ VARIANTS = {
         "no_slab_loads": [SLABS],
         "no_products_no_slab_loads": [MMA, HEAD_MMA, SLABS],
         "no_slab_barriers": [BARRIERS],
-        "no_residual_stores": [("    store_tile(res", "    if (n < 0) store_tile(res")],
+        "no_residual_stores": [("if (kRes) store_tile(res", "if (kRes && n < 0) store_tile(res")],
         "no_sines": [SINES],
     },
 }
@@ -179,7 +179,7 @@ def main() -> int:
     extra = {"parent": args.parent.read_text()} if args.parent else {}
     libs = build_variants(VARIANTS[args.kernel], extra)
     entry = fft._entries
-    fwd0, bwd0 = entry()
+    fwd0, bwd0, k1_bf16 = entry()
     stage = {"k3": 1, "k2": 0}[args.kernel]
     entries = {}
     for name in VARIANTS[args.kernel]:
@@ -207,10 +207,10 @@ def main() -> int:
         for rnd in range(2):
             for name, fn in entries.items():
                 if stage:
-                    fft._entries = lambda fn=fn: (fwd0, fn)
+                    fft._entries = lambda fn=fn: (fwd0, fn, k1_bf16)
                     run = lambda: fft._launch_bwd(x, g, res, w16, emb)   # noqa: E731
                 else:
-                    fft._entries = lambda fn=fn: (fn, bwd0)
+                    fft._entries = lambda fn=fn: (fn, bwd0, k1_bf16)
                     run = lambda: fft._launch_fwd(x, w16, emb)           # noqa: E731
                 out = run()
                 torch.cuda.synchronize()

@@ -31,6 +31,7 @@ from ibl_nerf_tpu_torch.models.field import FieldConfig
 from ibl_nerf_tpu_torch.render import (RenderConfig, make_frame_render_fn,
                                        make_ray_batch, render_frame,
                                        render_image, render_rays)
+from ibl_nerf_tpu_torch.render import renderer
 from ibl_nerf_tpu_torch.render.config import EditConfig
 from ibl_nerf_tpu_torch.utils.port import field_params_from_numpy
 
@@ -227,10 +228,7 @@ def test_render_path(setup):
     (dict(calculate_albedo_from_gt=True), "calculate_albedo_from_gt"),
     (dict(depth_map_from_ground_truth=True), "depth_map_from_ground_truth"),
     (dict(raw_noise_std=0.5), "raw_noise_std"),
-    (dict(compute_dtype="amp"), "amp"),
-    (dict(compute_dtype="mixed"), "mixed"),
-    (dict(compute_dtype="bfloat16"), "bfloat16"),
-    (dict(compute_dtype="float64"), "float64"),
+    (dict(compute_dtype="float64", use_pallas=True), "float64 with use_pallas"),
     (dict(infer_irradiance_separate=True), "infer_irradiance_separate"),
 ])
 def test_uncovered_modes_raise(setup, kw, mode):
@@ -239,6 +237,25 @@ def test_uncovered_modes_raise(setup, kw, mode):
     batch = make_ray_batch(torch.from_numpy(rays_o), torch.from_numpy(rays_d), 2.0, 6.0)
     with pytest.raises(NotImplementedError, match=mode):
         render_rays(tvars, tconsts, batch, tr)
+
+
+@pytest.mark.parametrize("normal_type,aliased", [
+    ("normal_map_from_depth_gradient_epsilon", True),
+    ("normal_map_from_sigma_gradient", True),
+    ("ground_truth", False),
+])
+def test_normal_estimator_key_only_for_normal_map_types(normal_type, aliased):
+    """The estimator's own key joins the maps only for the normal_map_*
+    estimators, as in the JAX renderer; target_normal_map always does."""
+    _, tr = _cfgs(normal_type=normal_type)
+    m, s = torch.zeros(2, 3), torch.zeros(2)
+    out = renderer._assemble_outputs(tr, m, m, [], [], m[:, :1], m, m, m, s, m, m, s, m,
+                                     s, s, s, torch.zeros(2, 4))
+    assert "target_normal_map" in out
+    assert (normal_type in out) == aliased
+    assert set(out) - {normal_type} == set(renderer._assemble_outputs(
+        _cfgs(normal_type="ground_truth")[1], m, m, [], [], m[:, :1], m, m, m, s, m, m, s,
+        m, s, s, s, torch.zeros(2, 4)))
 
 
 def test_render_path_uncovered_options_raise(setup):
