@@ -9,7 +9,11 @@ Phases, one JSON line each; any failure exits non-zero:
   kernel  each kernel against its plain PyTorch version on the card at the
           shapes the main paths give it, and at ragged point counts:
           K1 (both variants, at f32 weights and at bf16 weights, the
-          latter also equal to K2's raw bit for bit), K2 (raw and the 11
+          latter also equal to K2's raw bit for bit; the f32 ones with
+          their shared memory per block, resident blocks per SM (at least
+          2) and ptxas registers and spills, and K1 full also at the train
+          step's 512 x 64 points and with 0, 1 and 2 coarse heads), K2
+          (raw and the 11
           residuals) and K3 (the 24 weight gradients), the bf16 ones each
           with two runs bit-identical;
           errors against the stated tolerance, kernel and plain times (CUDA
@@ -210,6 +214,30 @@ K1_VARIANTS = [
     ("fused_field_apply", (CHUNK, 64), True),
 ]
 K1_SOURCE = "ibl_nerf_tpu/kernels/fused_field.py:206"
+# K1 full's launch on the training step's reflected march: 512 rays x 64
+# coarse samples.
+K1_TRAIN_SHAPE = (N_RAND, 64)
+# Resident blocks per SM that the f32 K1's design promises for both variants
+# (csrc/fused_field.cu: shared memory and registers sized for two).
+K1_BLOCKS_PER_SM = 2
+
+
+def k1_ptxas(log: str) -> dict:
+    """{"density" | "full": {registers, spill_stores, spill_loads}} of the
+    f32 K1's two kernels, from nvcc's -Xptxas -v output of its source."""
+    out, entry = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"entry function '(\w+)'", ln)
+        if m:
+            entry = "density" if "ILb1E" in m.group(1) else "full"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and entry:
+            out.setdefault(entry, {}).update(spill_stores=int(m.group(1)),
+                                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
+    return out
 
 
 def k1_inputs(lead, gen):
@@ -228,8 +256,41 @@ def k1_calls(packed, cfg, pts, dirs, with_dirs):
             lambda: ff.fused_field_density_plain(packed, pts, cfg))
 
 
+def k1_check(name, kern, plain, lead):
+    """K1 against its plain version on one launch: (max abs, max rel)
+    error; fails the phase outside the gate."""
+    out, ref = kern(), plain()
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        fail("kernel", f"{name}: non-finite output at {lead}")
+    err = (out - ref).abs()
+    bad = err > KERNEL_ATOL + KERNEL_RTOL * ref.abs()
+    if bad.any():
+        fail("kernel", f"{name} at {lead}: {int(bad.sum())} values off, "
+             f"max abs err {err.max().item():.3e}")
+    # relative to |plain|, floored at 1e-3 so values near 0 do not blow it up
+    return err.max().item(), (err / ref.abs().clamp_min(1e-3)).max().item()
+
+
+def k1_head_counts(cfg, gen) -> dict:
+    """K1 full at f32 weights with 0, 1 and 2 coarse heads (no view_feat
+    tile, a lone 128-column tile, one 256-column tile; the main path has
+    3) against the plain version on a ragged count: max abs error each."""
+    errs = {}
+    for k in (0, 1, 2):
+        kcfg = FieldConfig(depth=cfg.depth, width=cfg.width, coarse_radiance_number=k)
+        params = init_field_params(np.random.default_rng(SEED + k), kcfg, "cuda")
+        kern, plain = k1_calls(ff.pack_field_weights(params, kcfg), kcfg,
+                               *k1_inputs((4097, 1), gen), True)
+        errs[k] = k1_check(f"fused_field_apply at K={k}", kern, plain, (4097, 1))[0]
+    return errs
+
+
 def kernel_phase(cfg, packed, gen) -> list[dict]:
-    """Both variants of K1 against the plain version."""
+    """Both variants of K1 against the plain version, with their shared
+    memory, resident blocks per SM and registers; K1 full also at the
+    train step's shape."""
+    ptxas = k1_ptxas(kernel_build.build_logs.get("fused_field", ""))
     report = []
     for name, shape, with_dirs in K1_VARIANTS:
         n_pts = shape[0] * shape[1]
@@ -239,31 +300,40 @@ def kernel_phase(cfg, packed, gen) -> list[dict]:
                  "w5x", "w5h", "w6", "w7", "tb", "A", "bias"])
         weight_bytes = sum(packed[k].numel() * 4 for k in read)
 
+        occupancy = ff.occupancy(cfg, density_only=not with_dirs)
+        if occupancy["blocks_per_sm"] < K1_BLOCKS_PER_SM:
+            fail("kernel", f"{name}: {occupancy['blocks_per_sm']} resident blocks per SM, "
+                 f"the design needs {K1_BLOCKS_PER_SM}")
+
+        def bound(points):
+            flops = 2 * field_macs(cfg, density_only=not with_dirs) * points
+            nbytes = points * (ff.IN_COLS + n_cols) * 4 + weight_bytes
+            return flops, nbytes, flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
         max_abs = max_rel = 0.0
-        # ragged (+37 points, not a multiple of the tile), then main-path shape
+        # the train step's shape (full only), ragged (+37 points, not a
+        # multiple of the tile), then the main path's shape
+        train = None
+        if with_dirs:
+            kern, plain = k1_calls(packed, cfg, *k1_inputs(K1_TRAIN_SHAPE, gen), with_dirs)
+            max_abs, max_rel = k1_check(name, kern, plain, K1_TRAIN_SHAPE)
+            kern(), plain()
+            p1, k1, k2, p2 = (time_ms(plain, 10), time_ms(kern, 10),
+                              time_ms(kern, 10), time_ms(plain, 10))
+            n_train = K1_TRAIN_SHAPE[0] * K1_TRAIN_SHAPE[1]
+            train = dict(points=n_train, ms=[k1, k2], plain_ms=[p1, p2],
+                         bound_ms=max(bound(n_train)[2:]))
         for lead in ((n_pts + 37, 1), shape):
             kern, plain = k1_calls(packed, cfg, *k1_inputs(lead, gen), with_dirs)
-            out, ref = kern(), plain()
-            torch.cuda.synchronize()
-            if not torch.isfinite(out).all():
-                fail("kernel", f"{name}: non-finite output at {lead}")
-            err = (out - ref).abs()
-            bad = err > KERNEL_ATOL + KERNEL_RTOL * ref.abs()
-            if bad.any():
-                fail("kernel", f"{name} at {lead}: {int(bad.sum())} values off, "
-                     f"max abs err {err.max().item():.3e}")
-            max_abs = max(max_abs, err.max().item())
-            # relative to |plain|, floored at 1e-3 so values near 0 do not blow it up
-            max_rel = max(max_rel, (err / ref.abs().clamp_min(1e-3)).max().item())
+            e_abs, e_rel = k1_check(name, kern, plain, lead)
+            max_abs, max_rel = max(max_abs, e_abs), max(max_rel, e_rel)
 
         # timing at the main path's shape, in turns: plain, kernel, kernel, plain
         iters = 5
         kern(), plain()
         p1, k1, k2, p2 = (time_ms(plain, iters), time_ms(kern, iters),
                           time_ms(kern, iters), time_ms(plain, iters))
-        flops = 2 * field_macs(cfg, density_only=not with_dirs) * n_pts
-        nbytes = n_pts * (ff.IN_COLS + n_cols) * 4 + weight_bytes
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        flops, nbytes, t_ops, t_bytes = bound(n_pts)
         report.append({
             "name": name, "route": "cuda",
             "source": "ibl_nerf_tpu_torch/csrc/fused_field.cu",
@@ -278,7 +348,10 @@ def kernel_phase(cfg, packed, gen) -> list[dict]:
              max_abs_err=max_abs, max_rel_err=max_rel, atol=KERNEL_ATOL,
              rtol=KERNEL_RTOL,
              ms=[k1, k2], plain_ms=[p1, p2], bound_ms=max(t_ops, t_bytes),
-             tflops=flops / ((k1 + k2) / 2) / 1e9)
+             tflops=flops / ((k1 + k2) / 2) / 1e9, **occupancy,
+             ptxas=ptxas.get("density" if not with_dirs else "full", "not built in this run"),
+             train_shape=train,
+             other_head_counts_max_abs_err=k1_head_counts(cfg, gen) if with_dirs else None)
     return report
 
 

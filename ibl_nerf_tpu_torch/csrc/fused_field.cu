@@ -15,23 +15,49 @@
 // 4(9+3K) B away, but costs ~0.98 MFLOP (density) or ~1.59 MFLOP (full) at
 // 8x256: ~10^4 operations per byte, far above the card's 67 TFLOP/s f32 over
 // 3.35 TB/s (~20 per byte). The weights (~2.6 MB f32) do not fit an SM's
-// 227 KB of shared memory, so every block streams them from L2.
+// 227 KB of shared memory, so every block streams them from L2 through L1,
+// and the loads that feed the FMAs (weights and activations) compete with
+// them for issue slots and L1 bandwidth.
 //
 // What the design does about it: a block owns a tile of 64 points and keeps
-// all of their activations on chip, in shared memory, transposed
-// ([feature][point], stride 68 floats) so the 8 points of a thread are two
-// 16-byte loads that the whole warp shares (a broadcast). 256 threads = 8 warps;
-// warp w owns points 8w..8w+7 and lane l owns output columns l + 32j, so one
-// weight row is one coalesced 128-byte load per j for the warp, served by L1/L2.
-// Each thread keeps an 8x8 (or 8x4) accumulator tile in registers: 64 FMAs per
-// 10 loads. Only the embedding lanes that carry data are read (the packed
-// rows of w0/w5x beyond in_ch and of wv_d outside the direction lanes are
-// zero). The density variant needs 87 KB of shared memory, so two blocks
-// share an SM; the full variant needs 165 KB, one block. Arithmetic is f32 FMA
-// with f32 accumulation, sinf (not __sinf; no fast math) on the full range.
-// The ragged last tile is masked in the kernel; offsets are 64-bit.
-// Faster designs (wgmma on split-TF32 or bf16 operands, TMA-fed weight
-// tiles) are later work.
+// their activations on chip, in shared memory, transposed ([feature][point],
+// stride 68 floats). Its 8 warps form 2 quads of 4; a quad owns 32 points,
+// and each of its warps a quarter of a layer's columns. A lane keeps an 8x8
+// accumulator tile in registers (8 points x 8 columns; 8x4 for a lone coarse
+// head): per k it loads its 8 activations as two 16-byte shared loads that 8
+// lanes share, and its 8 weights as two 16-byte loads of 4 adjacent columns
+// that 4 lanes share, so a warp reads 128 distinct bytes of activations and
+// 256 of weights per 64 FMAs a lane. Only the quad's warps read each other's
+// activations, so a layer's in-place store sits between two 128-thread named
+// barriers and the block never waits as a whole.
+//
+// The narrow output heads never reach shared memory. A layer whose output
+// feeds a head projects it in its epilogue: per raw column, each lane sums
+// its 8 columns' share for its 8 points, a butterfly reduce-scatter over the
+// 8 lanes of its point group (7 shuffles) leaves one point's sum in each
+// lane, and the lane adds it to its warp's rows of the raw accumulator O
+// (one per warp of the quad, summed in a fixed order at the end). So A goes
+// into layer 7's epilogue, B into pos_feat's (which is never stored), C into
+// h2's, and each D_k into its view_feat tile's (never stored; the K heads
+// run as 256-column tiles of two heads and a 128-column tile for an odd last
+// one). `feature` and then `h2` overwrite h in place; there is no plane for
+// the head features. A projection reads only the raw columns the wrapper
+// names for it (`Projs`, from the raw layout): 18 columns at K=3. Only the
+// embedding lanes that carry data are read (the packed rows of w0/w5x beyond
+// in_ch and of wv_d outside the direction lanes are zero).
+//
+// Shared memory per block: the full variant X (in_ch + in_views rows) + H
+// (256) + O (4 x (9+3K)): 418 rows x 68 floats x 4 B = 113,696 B at K=3; the
+// density variant X (in_ch) + H: 319 rows, 86,768 B (σ's 4 partial sums go
+// to X, read no more by then). Both fit two blocks (16 warps) per SM under
+// 128 registers a thread. Arithmetic is f32 FMA with f32 accumulation, sinf
+// (not __sinf; no fast math) on the full range. The ragged last tile is
+// masked in the kernel; offsets are 64-bit.
+//
+// On an NVIDIA H100 80GB HBM3 at a 700 W power limit (k3_knockout.py k1):
+// the full variant takes 4.83 ms at 131,072 points against its 3.11 ms
+// bound (67 TFLOP/s f32), the density variant 33.7 ms at 1,572,864 points
+// against 23.07 ms.
 
 #include <cuda_runtime.h>
 
@@ -46,6 +72,8 @@ constexpr int kWidth = 256;         // trunk width the tiling is written for
 constexpr int kHalf = kWidth / 2;
 constexpr int kInCols = 8;
 constexpr int kLane = 128;
+constexpr int kMaxCoarse = 39;      // n_out = 9 + 3K <= 128, as the JAX kernel's lanes
+constexpr unsigned kFull = 0xffffffffu;
 
 // Same names, same order as _WEIGHT_ORDER in kernels/fused_field.py.
 enum WeightIndex {
@@ -67,205 +95,378 @@ struct Dims {
   int n_out;     // 9 + 3K
 };
 
-// acc[i][j] += sum_k in[k][row0 + i] * w[k * ldw + lane + 32 j]
+// The raw columns [lo[r], hi[r]) (r < 2) a projection may be nonzero in:
+// A, B, C, then D_k for head k (kernels/fused_field.projection_columns).
+struct Proj {
+  int lo[2], hi[2];
+};
+struct Projs {
+  Proj p[3 + kMaxCoarse];
+};
+
+// A block's 8 warps form 2 quads; a quad owns 32 points of the tile and
+// splits a layer's columns in 4: warp `wq` of the quad takes a quarter. In
+// a warp, lane l takes 8 points (point group pg = l & 3) and 4 adjacent
+// columns per 32 (column group cg = l >> 2), so per k a warp loads 4
+// distinct 32-byte runs of activations, each shared by 8 lanes, and 2 runs
+// of 128 bytes of weights, each 16 bytes shared by 4 lanes, for 64 FMAs a
+// lane.
+struct Place {
+  int lane, wq, quad, cg;
+  int prow;  // the first of the lane's 8 points in the tile
+};
+
+// The column of a layer's NCOL * 32 that a lane holds in slot j of its tile.
+template <int NCOL>
+__device__ __forceinline__ int col_of(const Place& t, int j) {
+  return t.wq * 8 * NCOL + 4 * t.cg + (j & 3) + 32 * (j >> 2);
+}
+
+// Waits for the 4 warps of the quad (named barrier 1 + quad, 128 threads).
+__device__ __forceinline__ void quad_sync(int quad) {
+  asm volatile("bar.sync %0, 128;" ::"r"(quad + 1) : "memory");
+}
+
+// acc[i][j] += sum_k in[k][prow + i] * w[k * ldw + col_of(j)]
 template <int NCOL>
 __device__ __forceinline__ void mac(float (&acc)[8][NCOL],
                                     const float* __restrict__ in, int k_dim,
                                     const float* __restrict__ w, int ldw,
-                                    int row0, int lane) {
+                                    const Place& t) {
+  const float* wl = w + t.wq * 8 * NCOL + 4 * t.cg;
 #pragma unroll 4
   for (int k = 0; k < k_dim; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(in + k * kStride + row0);
+    const float4 a0 = *reinterpret_cast<const float4*>(in + k * kStride + t.prow);
     const float4 a1 =
-        *reinterpret_cast<const float4*>(in + k * kStride + row0 + 4);
+        *reinterpret_cast<const float4*>(in + k * kStride + t.prow + 4);
     const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float* wk = w + static_cast<size_t>(k) * ldw + lane;
+    const float* wk = wl + static_cast<size_t>(k) * ldw;
 #pragma unroll
-    for (int j = 0; j < NCOL; ++j) {
-      const float b = __ldg(wk + 32 * j);
+    for (int q = 0; q < NCOL / 4; ++q) {
+      const float4 b4 = __ldg(reinterpret_cast<const float4*>(wk + 32 * q));
+      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * q + jj;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(a[i], b[jj], acc[i][j]);
+      }
     }
   }
 }
 
-// out[:, 0:32*NCOL] = act(in1 @ w1 + in2 @ w2 + bias), every matrix with
-// leading dimension ldw. `out` may be one of the inputs: all reads finish
-// before the first write.
+// v = act(in1 @ w1 + in2 @ w2 + bias) for the lane's 8 points and columns,
+// every matrix with leading dimension ldw (a multiple of 4, every matrix
+// 16-byte aligned).
 template <int NCOL>
-__device__ __forceinline__ void layer(float* out, const float* in1, int k1,
-                                      const float* __restrict__ w1,
+__device__ __forceinline__ void dense(float (&v)[8][NCOL], const float* in1,
+                                      int k1, const float* __restrict__ w1,
                                       const float* in2, int k2,
                                       const float* __restrict__ w2, int ldw,
                                       const float* __restrict__ bias, bool relu,
-                                      int row0, int lane) {
-  float acc[8][NCOL];
+                                      const Place& t) {
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < NCOL; ++j) acc[i][j] = 0.f;
-  mac<NCOL>(acc, in1, k1, w1, ldw, row0, lane);
-  if (in2 != nullptr) mac<NCOL>(acc, in2, k2, w2, ldw, row0, lane);
-  __syncthreads();
+    for (int j = 0; j < NCOL; ++j) v[i][j] = 0.f;
+  mac<NCOL>(v, in1, k1, w1, ldw, t);
+  if (in2 != nullptr) mac<NCOL>(v, in2, k2, w2, ldw, t);
 #pragma unroll
   for (int j = 0; j < NCOL; ++j) {
-    const int col = lane + 32 * j;
-    const float b = __ldg(bias + col);
-    float v[8];
+    const float b = __ldg(bias + col_of<NCOL>(t, j));
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      v[i] = acc[i][j] + b;
-      if (relu) v[i] = fmaxf(v[i], 0.f);
+      v[i][j] += b;
+      if (relu) v[i][j] = fmaxf(v[i][j], 0.f);
     }
-    float* dst = out + col * kStride + row0;
-    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
   }
-  __syncthreads();
 }
 
-// o[c][r] += sum_k in[k][r] * w[k * n_out + c] for every c < n_out: the
-// narrow output projections. A thread owns the same (c, r) on every call.
-__device__ __forceinline__ void project(float* o, const float* in, int k_dim,
-                                        const float* __restrict__ w,
-                                        int n_out) {
-  for (int idx = threadIdx.x; idx < n_out * kTile; idx += kThreads) {
-    const int c = idx / kTile, r = idx % kTile;
-    float s = 0.f;
-    for (int k = 0; k < k_dim; ++k)
-      s = fmaf(in[k * kStride + r], __ldg(w + k * n_out + c), s);
-    o[c * kStride + r] += s;
+// out[col_of(j)][prow + i] = v[i][j]. `out` may be the layer's input: the
+// quad's warps finish reading before the first write.
+template <int NCOL>
+__device__ __forceinline__ void store(float* out, const float (&v)[8][NCOL],
+                                      const Place& t) {
+  quad_sync(t.quad);
+#pragma unroll
+  for (int j = 0; j < NCOL; ++j) {
+    float* dst = out + col_of<NCOL>(t, j) * kStride + t.prow;
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
+    *reinterpret_cast<float4*>(dst + 4) =
+        make_float4(v[4][j], v[5][j], v[6][j], v[7][j]);
   }
+  quad_sync(t.quad);
+}
+
+// The sum of s[i] over the 8 lanes of this lane's point group, for its
+// point i = lane >> 2: a butterfly reduce-scatter that halves the points at
+// offsets 16, 8 and 4 (7 shuffles).
+__device__ __forceinline__ float group_sum_scatter(const float (&s)[8],
+                                                   int lane) {
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+  float a[4], b[2];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+    a[m] = (b4 ? s[m + 4] : s[m]) +
+           __shfl_xor_sync(kFull, b4 ? s[m] : s[m + 4], 16);
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+    b[m] = (b3 ? a[m + 2] : a[m]) +
+           __shfl_xor_sync(kFull, b3 ? a[m] : a[m + 2], 8);
+  return (b2 ? b[1] : b[0]) + __shfl_xor_sync(kFull, b2 ? b[0] : b[1], 4);
+}
+
+// This warp's share of raw column c of v @ P for the lane's point
+// prow + (lane >> 2), where P holds the layer's NCOL * 32 rows
+// (leading dimension n_out).
+template <int NCOL>
+__device__ __forceinline__ float project_col(const float (&v)[8][NCOL],
+                                             const float* __restrict__ P,
+                                             int n_out, int c, const Place& t) {
+  float s[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NCOL; ++j) {
+    const float w = __ldg(P + col_of<NCOL>(t, j) * n_out + c);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] = fmaf(v[i][j], w, s[i]);
+  }
+  return group_sum_scatter(s, t.lane);
+}
+
+// O[wq][c][point] += this warp's share of (v @ P)[point][c] for every raw
+// column c of the projection. Each (wq, c, point) is written by the same
+// lane on every call, so O needs no synchronisation until it is read.
+template <int NCOL>
+__device__ __forceinline__ void project(float* O, const float (&v)[8][NCOL],
+                                        const float* __restrict__ P,
+                                        int n_out, const Proj& pr,
+                                        const Place& t) {
+  float* o = O + t.wq * n_out * kStride + t.prow + (t.lane >> 2);
+#pragma unroll 1
+  for (int r = 0; r < 2; ++r)
+#pragma unroll 1
+    for (int c = pr.lo[r]; c < pr.hi[r]; ++c) {
+      const float s = project_col<NCOL>(v, P, n_out, c, t);
+      o[c * kStride] += s;
+    }
 }
 
 template <bool kDensityOnly>
 __global__ void __launch_bounds__(kThreads, 2)
     fused_field_kernel(const float* __restrict__ x, long long n, Weights w,
-                       Dims d, float* __restrict__ out) {
+                       Dims d, const __grid_constant__ Projs ps,
+                       float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
   const int n_emb = kDensityOnly ? d.in_ch : d.in_ch + d.in_views;
   float* X = smem;                  // embedding, n_emb features
-  float* H = X + n_emb * kStride;   // trunk activations, then h2
-  float* T = H + kWidth * kStride;  // head features (full variant)
-  float* O = T + kWidth * kStride;  // raw output accumulator (full variant)
+  float* H = X + n_emb * kStride;   // trunk activations, then feature, h2
+  float* O = H + kWidth * kStride;  // raw output sums of each wq (full)
 
-  const long long base = static_cast<long long>(blockIdx.x) * kTile;
-  const int lane = threadIdx.x & 31;
-  const int row0 = (threadIdx.x >> 5) * 8;
+  Place t;
+  t.lane = threadIdx.x & 31;
+  t.wq = (threadIdx.x >> 5) & 3;
+  t.quad = threadIdx.x >> 7;
+  t.cg = t.lane >> 2;
+  const int q0 = t.quad * 32;  // the quad's first point in the tile
+  t.prow = q0 + 8 * (t.lane & 3);
+  const int qt = threadIdx.x & 127;
+  const long long base = static_cast<long long>(blockIdx.x) * kTile + q0;
 
-  // Positional encoding: t = x @ E (one nonzero per column), then the
-  // identity lanes pass t and the others take sin(t + phase).
-  const float* E = w.p[kEmbE];
-  for (int idx = threadIdx.x; idx < n_emb * kTile; idx += kThreads) {
-    const int l = idx / kTile, r = idx % kTile;
-    const long long p = base + r;
-    float t = 0.f;
-    if (p < n) {
-      const float* xp = x + p * kInCols;
-#pragma unroll
-      for (int c = 0; c < kInCols; ++c)
-        t = fmaf(__ldg(xp + c), __ldg(E + c * kLane + l), t);
-    }
-    X[l * kStride + r] =
-        __ldg(w.p[kEmbId] + l) > 0.f ? t : sinf(t + __ldg(w.p[kEmbPhase] + l));
+  // Positional encoding of the quad's 32 points. x is staged in H's first
+  // 8 rows (free until layer 0 stores); then t = x @ E (one nonzero per
+  // column), and the identity lanes pass t while the others take
+  // sin(t + phase). A warp's 32 threads share one embedding lane.
+  for (int idx = qt; idx < 32 * kInCols; idx += 128) {
+    const int pt = idx >> 3, c = idx & 7;
+    const long long p = base + pt;
+    H[c * kStride + q0 + pt] = p < n ? __ldg(x + p * kInCols + c) : 0.f;
   }
   if (!kDensityOnly)
-    for (int idx = threadIdx.x; idx < d.n_out * kStride; idx += kThreads)
-      O[idx] = 0.f;
-  __syncthreads();
+    for (int idx = t.lane; idx < d.n_out * 32; idx += 32)
+      O[(t.wq * d.n_out + (idx >> 5)) * kStride + q0 + (idx & 31)] = 0.f;
+  quad_sync(t.quad);
+  for (int idx = qt; idx < n_emb * 32; idx += 128) {
+    const int l = idx >> 5, pt = idx & 31;
+    float u = 0.f;
+#pragma unroll
+    for (int c = 0; c < kInCols; ++c)
+      u = fmaf(H[c * kStride + q0 + pt], __ldg(w.p[kEmbE] + c * kLane + l), u);
+    X[l * kStride + q0 + pt] =
+        __ldg(w.p[kEmbId] + l) > 0.f ? u : sinf(u + __ldg(w.p[kEmbPhase] + l));
+  }
+  quad_sync(t.quad);
 
+  float v[8][8];
   const float* tb = w.p[kTb];
-  layer<8>(H, X, d.in_ch, w.p[kW0], nullptr, 0, nullptr, kWidth, tb, true,
-           row0, lane);
+  dense<8>(v, X, d.in_ch, w.p[kW0], nullptr, 0, nullptr, kWidth, tb, true, t);
+  store<8>(H, v, t);
   const int mid[4] = {kW1, kW2, kW3, kW4};
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    layer<8>(H, H, kWidth, w.p[mid[i]], nullptr, 0, nullptr, kWidth,
-             tb + (i + 1) * kWidth, true, row0, lane);
-  layer<8>(H, X, d.in_ch, w.p[kW5x], H, kWidth, w.p[kW5h], kWidth,
-           tb + 5 * kWidth, true, row0, lane);
-  layer<8>(H, H, kWidth, w.p[kW6], nullptr, 0, nullptr, kWidth,
-           tb + 6 * kWidth, true, row0, lane);
-  layer<8>(H, H, kWidth, w.p[kW7], nullptr, 0, nullptr, kWidth,
-           tb + 7 * kWidth, true, row0, lane);
+  for (int i = 0; i < 4; ++i) {
+    dense<8>(v, H, kWidth, w.p[mid[i]], nullptr, 0, nullptr, kWidth,
+             tb + (i + 1) * kWidth, true, t);
+    store<8>(H, v, t);
+  }
+  dense<8>(v, X, d.in_ch, w.p[kW5x], H, kWidth, w.p[kW5h], kWidth,
+           tb + 5 * kWidth, true, t);
+  store<8>(H, v, t);
+  dense<8>(v, H, kWidth, w.p[kW6], nullptr, 0, nullptr, kWidth,
+           tb + 6 * kWidth, true, t);
+  store<8>(H, v, t);
+  dense<8>(v, H, kWidth, w.p[kW7], nullptr, 0, nullptr, kWidth,
+           tb + 7 * kWidth, true, t);
 
   if (kDensityOnly) {
-    const float* A = w.p[kA];
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
-      const long long p = base + r;
-      if (p >= n) continue;
-      float s = 0.f;
-      for (int k = 0; k < kWidth; ++k)
-        s = fmaf(H[k * kStride + r], __ldg(A + k * d.n_out), s);
-      out[p] = s + __ldg(w.p[kBias]);
-    }
+    // σ = h @ A[:, 0] + bias[0], h never stored: each warp's share goes to
+    // X row wq (X is read no more), then warp 0 of the quad adds them.
+    X[t.wq * kStride + t.prow + (t.lane >> 2)] =
+        project_col<8>(v, w.p[kA], d.n_out, 0, t);
+    quad_sync(t.quad);
+    const long long p = base + t.lane;
+    const float* xs = X + q0 + t.lane;
+    if (t.wq == 0 && p < n)
+      out[p] = xs[0] + xs[kStride] + xs[2 * kStride] + xs[3 * kStride] +
+               __ldg(w.p[kBias]);
     return;
   }
 
-  project(O, H, kWidth, w.p[kA], d.n_out);
-  layer<8>(T, H, kWidth, w.p[kWpf], nullptr, 0, nullptr, kWidth, w.p[kBpf],
-           true, row0, lane);  // pos_feat
-  project(O, T, kWidth, w.p[kB], d.n_out);
-  layer<8>(T, H, kWidth, w.p[kWfeat], nullptr, 0, nullptr, kWidth,
-           w.p[kBfeat], false, row0, lane);  // feature
-  // h2 overwrites h; the direction rows of wv_d sit at lanes [in_ch, ...).
-  layer<8>(H, T, kWidth, w.p[kWvF], X + d.in_ch * kStride, d.in_views,
+  store<8>(H, v, t);
+  project<8>(O, v, w.p[kA], d.n_out, ps.p[0], t);
+  dense<8>(v, H, kWidth, w.p[kWpf], nullptr, 0, nullptr, kWidth, w.p[kBpf],
+           true, t);  // pos_feat, projected and dropped
+  project<8>(O, v, w.p[kB], d.n_out, ps.p[1], t);
+  dense<8>(v, H, kWidth, w.p[kWfeat], nullptr, 0, nullptr, kWidth,
+           w.p[kBfeat], false, t);
+  store<8>(H, v, t);  // feature overwrites h
+  // h2 overwrites feature; the direction rows of wv_d sit at lanes
+  // [in_ch, in_ch + in_views).
+  dense<8>(v, H, kWidth, w.p[kWvF], X + d.in_ch * kStride, d.in_views,
            w.p[kWvD] + static_cast<size_t>(d.in_ch) * kWidth, kWidth,
-           w.p[kBv], true, row0, lane);
-  project(O, H, kWidth, w.p[kC], d.n_out);
-  const int ldcf = d.n_coarse * kHalf;
-  for (int k = 0; k < d.n_coarse; ++k) {
-    layer<4>(T, H, kWidth, w.p[kWcf] + k * kHalf, nullptr, 0, nullptr, ldcf,
-             w.p[kBcf] + k * kHalf, true, row0, lane);  // view_feat, head k
-    project(O, T, kHalf,
-            w.p[kD] + static_cast<size_t>(k) * kHalf * d.n_out, d.n_out);
-    __syncthreads();
-  }
-  __syncthreads();
+           w.p[kBv], true, t);
+  store<8>(H, v, t);
+  project<8>(O, v, w.p[kC], d.n_out, ps.p[2], t);
 
-  for (int idx = threadIdx.x; idx < kTile * d.n_out; idx += kThreads) {
-    const int r = idx / d.n_out, c = idx % d.n_out;
-    const long long p = base + r;
-    if (p < n) out[p * d.n_out + c] = O[c * kStride + r] + __ldg(w.p[kBias] + c);
+  // view_feat, two heads (256 columns) at a time, each tile projected onto
+  // its heads' columns of D with the tile's rows of D and dropped.
+  const int ldcf = d.n_coarse * kHalf;
+  int k = 0;
+#pragma unroll 1
+  for (; k + 2 <= d.n_coarse; k += 2) {
+    dense<8>(v, H, kWidth, w.p[kWcf] + k * kHalf, nullptr, 0, nullptr, ldcf,
+             w.p[kBcf] + k * kHalf, true, t);
+    const float* Dk = w.p[kD] + static_cast<size_t>(k) * kHalf * d.n_out;
+    project<8>(O, v, Dk, d.n_out, ps.p[3 + k], t);
+    project<8>(O, v, Dk, d.n_out, ps.p[4 + k], t);
+  }
+  if (k < d.n_coarse) {
+    float v4[8][4];
+    dense<4>(v4, H, kWidth, w.p[kWcf] + k * kHalf, nullptr, 0, nullptr, ldcf,
+             w.p[kBcf] + k * kHalf, true, t);
+    project<4>(O, v4, w.p[kD] + static_cast<size_t>(k) * kHalf * d.n_out,
+               d.n_out, ps.p[3 + k], t);
+  }
+
+  // raw = the 4 warps' sums + bias; warp wq writes the quad's points
+  // 8 wq .. 8 wq + 7.
+  quad_sync(t.quad);
+  const int ldo = d.n_out * kStride;
+  for (int idx = t.lane; idx < 8 * d.n_out; idx += 32) {
+    const int i = idx / d.n_out, c = idx % d.n_out;
+    const float* o = O + c * kStride + q0 + 8 * t.wq + i;
+    const long long p = base + 8 * t.wq + i;
+    if (p < n)
+      out[p * d.n_out + c] =
+          o[0] + o[ldo] + o[2 * ldo] + o[3 * ldo] + __ldg(w.p[kBias] + c);
   }
 }
 
 template <bool kDensityOnly>
-int launch(const float* x, long long n, const Weights& w, const Dims& d,
-           float* out, cudaStream_t stream) {
+size_t smem_bytes(const Dims& d) {
   const int n_emb = kDensityOnly ? d.in_ch : d.in_ch + d.in_views;
-  const int rows = n_emb + kWidth + (kDensityOnly ? 0 : kWidth + d.n_out);
-  const size_t smem = static_cast<size_t>(rows) * kStride * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_field_kernel<kDensityOnly>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const int rows = n_emb + kWidth + (kDensityOnly ? 0 : 4 * d.n_out);
+  return static_cast<size_t>(rows) * kStride * sizeof(float);
+}
+
+template <bool kDensityOnly>
+cudaError_t set_smem(size_t smem) {
+  return cudaFuncSetAttribute(fused_field_kernel<kDensityOnly>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <bool kDensityOnly>
+int launch(const float* x, long long n, const Weights& w, const Dims& d,
+           const Projs& ps, float* out, cudaStream_t stream) {
+  const size_t smem = smem_bytes<kDensityOnly>(d);
+  cudaError_t err = set_smem<kDensityOnly>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = (n + kTile - 1) / kTile;
   fused_field_kernel<kDensityOnly>
       <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(x, n, w, d,
-                                                                   out);
+                                                                   ps, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kDensityOnly>
+int occupancy(const Dims& d, int* blocks_per_sm, long long* smem) {
+  const size_t bytes = smem_bytes<kDensityOnly>(d);
+  cudaError_t err = set_smem<kDensityOnly>(bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, fused_field_kernel<kDensityOnly>, kThreads, bytes);
+  *smem = static_cast<long long>(bytes);
+  return static_cast<int>(err);
+}
+
+bool dims_ok(int in_ch, int in_views, int n_coarse) {
+  return in_ch > 0 && in_views >= 0 && in_ch + in_views <= kLane &&
+         n_coarse >= 0 && n_coarse <= kMaxCoarse;
 }
 
 }  // namespace
 
 // Launches K1 on `stream`. weights: kNumWeights device pointers in the order
-// of WeightIndex. Returns 0, a cudaError_t, or -1 for arguments the kernel
-// does not take.
+// of WeightIndex. proj: 4 ints (lo0, hi0, lo1, hi1) per projection, A, B, C,
+// then D_k for each of the n_coarse heads: the raw columns each may be
+// nonzero in. Returns 0, a cudaError_t, or -1 for arguments the kernel does
+// not take.
 extern "C" int fused_field_launch(const float* x, long long n,
                                   const float* const* weights, int n_weights,
                                   int width, int in_ch, int in_views,
-                                  int n_coarse, int density_only, float* out,
+                                  int n_coarse, int density_only,
+                                  const int* proj, int n_proj, float* out,
                                   void* stream) {
-  if (n_weights != kNumWeights || width != kWidth || in_ch <= 0 ||
-      in_views < 0 || in_ch + in_views > kLane || n_coarse < 0 || n < 0 ||
+  if (n_weights != kNumWeights || width != kWidth ||
+      !dims_ok(in_ch, in_views, n_coarse) || n_proj != 3 + n_coarse || n < 0 ||
       (n + kTile - 1) / kTile > INT_MAX)
     return -1;
+  const Dims d{in_ch, in_views, n_coarse, 9 + 3 * n_coarse};
+  Projs ps{};
+  for (int i = 0; i < n_proj; ++i)
+    for (int r = 0; r < 2; ++r) {
+      const int lo = proj[4 * i + 2 * r], hi = proj[4 * i + 2 * r + 1];
+      if (lo < 0 || hi < lo || hi > d.n_out) return -1;
+      ps.p[i].lo[r] = lo;
+      ps.p[i].hi[r] = hi;
+    }
   if (n == 0) return 0;
   Weights w;
   for (int i = 0; i < kNumWeights; ++i) w.p[i] = weights[i];
-  const Dims d{in_ch, in_views, n_coarse, 9 + 3 * n_coarse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return density_only ? launch<true>(x, n, w, d, out, s)
-                      : launch<false>(x, n, w, d, out, s);
+  return density_only ? launch<true>(x, n, w, d, ps, out, s)
+                      : launch<false>(x, n, w, d, ps, out, s);
+}
+
+// The dynamic shared memory a block of one variant takes and how many of its
+// blocks an SM holds at once. Returns 0, a cudaError_t, or -1.
+extern "C" int fused_field_occupancy(int in_ch, int in_views, int n_coarse,
+                                     int density_only, int* blocks_per_sm,
+                                     long long* smem) {
+  if (!dims_ok(in_ch, in_views, n_coarse)) return -1;
+  const Dims d{in_ch, in_views, n_coarse, 9 + 3 * n_coarse};
+  return density_only ? occupancy<true>(d, blocks_per_sm, smem)
+                      : occupancy<false>(d, blocks_per_sm, smem);
 }

@@ -10,7 +10,9 @@ the reflected march.
 
 Like the JAX kernel, it computes in the dtype of the packed weights
 (`pack_field_weights(..., dtype=)`):
-- f32: `csrc/fused_field.cu`, f32 FMA on the CUDA cores;
+- f32: `csrc/fused_field.cu`, f32 FMA on the CUDA cores, each narrow
+  output projection folded into the epilogue of the layer that feeds it
+  and reading only the raw columns `projection_columns` names;
 - bf16 (the renderer's no-grad dtype under compute_dtype "bfloat16" and
   "mixed"): the embedding rounded to bf16, bf16 products summed in f32,
   every layer rounded to bf16 after its bias and relu, raw in f32. That
@@ -56,6 +58,16 @@ _WEIGHT_ORDER = ["emb_E", "emb_phase", "emb_id",
 LAUNCHES = {"fused_field_apply": 0, "fused_field_density": 0,
             "fused_field_apply_bf16": 0, "fused_field_density_bf16": 0}
 _DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+MAX_COARSE = 39   # n_out = 9 + 3K <= 128 output lanes, as in the JAX kernel
+
+
+def projection_columns(n_coarse: int) -> list[tuple[tuple[int, int], tuple[int, int]]]:
+    """The raw columns [lo, hi), two ranges each, that every output
+    projection may be nonzero in, from the raw layout [σ, albedo3, ρ,
+    irr, rad3, coarse3K]: A (σ, ρ), B (albedo, irr), C (rad), then D_k
+    (coarse head k). The f32 kernel reads only these columns of each."""
+    return ([((0, 1), (4, 5)), ((1, 4), (5, 6)), ((6, 9), (9, 9))]
+            + [((9 + 3 * k, 12 + 3 * k), (0, 0)) for k in range(n_coarse)])
 
 
 def _embedding_constants(cfg: FieldConfig):
@@ -237,6 +249,10 @@ def _check(packed: dict, x: torch.Tensor, cfg: FieldConfig) -> None:
             raise ValueError(f"packed weight {k} must be contiguous "
                              f"{_DTYPE_NAMES[want]} on {x.device}, got {v.dtype} "
                              f"on {v.device}")
+        if v.data_ptr() % 16:
+            raise ValueError(f"packed weight {k} must be 16-byte aligned")
+    if cfg.coarse_radiance_number > MAX_COARSE:
+        raise ValueError(f"the fused field takes at most {MAX_COARSE} coarse heads")
     n_out = 9 + 3 * cfg.coarse_radiance_number
     if packed["A"].shape != (KERNEL_WIDTH, n_out) or packed["w0"].shape[0] != LANE:
         raise ValueError("packed weights do not match the field config")
@@ -245,15 +261,41 @@ def _check(packed: dict, x: torch.Tensor, cfg: FieldConfig) -> None:
         raise ValueError("kernel input must be contiguous f32 (N, 8)")
 
 
+# argtypes of `fused_field_launch`
+ENTRY_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+              ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+              ctypes.c_void_p, ctypes.c_void_p]
+
+
 @functools.cache
 def _entry():
     """`fused_field_launch` of csrc/fused_field.cu, built on first use."""
     fn = _build.load("fused_field").fused_field_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = ENTRY_ARGS
     return fn
+
+
+@functools.cache
+def _proj_table(n_coarse: int):
+    """`projection_columns` as the flat C int array the entry point takes."""
+    flat = [c for ranges in projection_columns(n_coarse) for r in ranges for c in r]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def occupancy(cfg: FieldConfig, density_only: bool) -> dict[str, int]:
+    """The f32 kernel's dynamic shared memory per block and the blocks of
+    it an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    for the current CUDA device."""
+    fn = _build.load("fused_field").fused_field_occupancy
+    fn.restype = ctypes.c_int
+    blocks, smem = ctypes.c_int(), ctypes.c_longlong()
+    err = fn(cfg.input_ch, cfg.input_ch_views, cfg.coarse_radiance_number,
+             int(density_only), ctypes.byref(blocks), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"fused_field occupancy query failed: error {err}")
+    return {"smem_bytes_per_block": smem.value, "blocks_per_sm": blocks.value}
 
 
 def _launch(packed: dict, x: torch.Tensor, cfg: FieldConfig,
@@ -264,11 +306,13 @@ def _launch(packed: dict, x: torch.Tensor, cfg: FieldConfig,
     out = torch.empty((n, n_cols), dtype=torch.float32, device=x.device)
     ptrs = (ctypes.c_void_p * len(_WEIGHT_ORDER))(
         *[packed[k].data_ptr() for k in _WEIGHT_ORDER])
+    table = _proj_table(cfg.coarse_radiance_number)
     with torch.cuda.device(x.device):
         err = _entry()(x.data_ptr(), n, ctypes.cast(ptrs, ctypes.c_void_p),
                        len(_WEIGHT_ORDER), cfg.width, cfg.input_ch,
                        cfg.input_ch_views, cfg.coarse_radiance_number,
-                       int(density_only), out.data_ptr(),
+                       int(density_only), ctypes.cast(table, ctypes.c_void_p),
+                       len(table) // 4, out.data_ptr(),
                        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_field kernel launch failed: error {err}")

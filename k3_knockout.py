@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""K3 or K2 by stage with one part knocked out at a time.
+"""K3, K2 or K1 (f32 weights) with one part knocked out at a time.
 
     python3 k3_knockout.py                # K3, from the root of a checkout, one card
     python3 k3_knockout.py k2             # K2
     python3 k3_knockout.py k2 --parent OLD.cu
+    python3 k3_knockout.py k1 --parent OLD.cu
 
 Builds `ibl_nerf_tpu_torch/csrc/fused_field_train.cu` as it is and once
 per variant -- a text substitution that removes one part of the kernel
@@ -22,6 +23,19 @@ built too: its raw output and residuals are held against the intact
 K2's bit for bit at chip_smoke's six point counts (the run exits 1 if
 any differ), and the two are timed in turns at the fine pass. Fails
 without CUDA, and when a substitution's text is gone from the source.
+
+K1 (`k1`) knocks parts out of `csrc/fused_field.cu` and times both
+variants at the serving shapes (full at 2048 x 64 points, density at
+4 x 2048 x 192), by CUDA events, every variant in turn, twice, with
+each variant's registers and spills and the blocks an SM holds.
+`k1 --parent OLD.cu` takes an earlier K1 source, its entry point with
+or without the projection table (e.g. `git show
+<commit>:ibl_nerf_tpu_torch/csrc/fused_field.cu` into the git-ignored
+`build/`): both are held against the plain version under
+chip_smoke's K1 gate at ragged and main-path counts (the run exits 1 if
+either fails), then timed in turns (parent, new, new, parent) with full
+at 131,072 and at the train step's 32,768 points and density at
+1,572,864.
 """
 
 from __future__ import annotations
@@ -45,6 +59,14 @@ from ibl_nerf_tpu_torch.models.field import FieldConfig, init_field_params
 MMA = ("              mma16816(acc[mt][j], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b[0], b[1]);\n"
        "              mma16816(acc[mt][j + 1], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b[2], b[3]);\n",
        "")
+# K1 at an eighth of its products: one FMA per loaded weight, every load kept
+K1_FMA = ("        for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(a[i], b[jj], acc[i][j]);",
+          "        for (int i = 0; i < 1; ++i) acc[i][j] = fmaf(a[jj + 4 * (q & 1)], b[jj], acc[i][j]);")
+K1_LOADS = ("      const float4 b4 = __ldg(reinterpret_cast<const float4*>(wk + 32 * q));",
+            "      const float4 b4 = make_float4(__int_as_float(0x3c000000 | (k << 3) | q), 1.f, 2.f, 3.f);")
+# every epilogue projection run twice (on column c ^ 1 the second time)
+K1_PROJ = ("      o[c * kStride] += s;",
+           "      o[c * kStride] += s + project_col<NCOL>(v, P, n_out, c ^ 1, t);")
 HEAD_MMA = ("      mma16816(acc[0], a[0], a[1], a[2], a[3], b[0], b[1]);\n"
             "      mma16816(acc[1], a[0], a[1], a[2], a[3], b[2], b[3]);\n",
             "")
@@ -83,7 +105,26 @@ VARIANTS = {
         "no_residual_stores": [("if (kRes) store_tile(res", "if (kRes && n < 0) store_tile(res")],
         "no_sines": [SINES],
     },
+    "k1": {
+        "intact": [],
+        "eighth_products": [K1_FMA],               # 1 FMA of 8 in every layer; loads kept
+        "no_weight_loads": [K1_LOADS],
+        "eighth_products_no_weight_loads": [K1_FMA, K1_LOADS],
+        "projections_twice": [K1_PROJ],            # the full variant's epilogue projections
+        "no_barriers": [('  asm volatile("bar.sync %0, 128;" ::"r"(quad + 1) : "memory");', "")],
+        "no_sines": [("? u : sinf(u + __ldg(w.p[kEmbPhase] + l));",
+                      "? u : u + __ldg(w.p[kEmbPhase] + l);")],
+        "no_act_loads": [
+            ("    const float4 a0 = *reinterpret_cast<const float4*>(in + k * kStride + t.prow);",
+             "    const float4 a0 = make_float4(k, 1.f, 2.f, 3.f);"),
+            ("        *reinterpret_cast<const float4*>(in + k * kStride + t.prow + 4);",
+             "        make_float4(k, 5.f, 6.f, 7.f);")],
+        # settings: the k loop unrolled 2 or 8 times instead of 4
+        "unroll_2": [("#pragma unroll 4\n  for (int k = 0;", "#pragma unroll 2\n  for (int k = 0;")],
+        "unroll_8": [("#pragma unroll 4\n  for (int k = 0;", "#pragma unroll 8\n  for (int k = 0;")],
+    },
 }
+SOURCES = {"k3": "fused_field_train", "k2": "fused_field_train", "k1": "fused_field"}
 OUT = kb.BUILD_DIR / "knockout"
 # the entry point of K2 before its weights became a slab stream
 _PARENT_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
@@ -92,10 +133,12 @@ _PARENT_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_vo
 _BIASES = ("tb", "bpf", "bfeat", "bv", "bcf", "bias")
 
 
-def build_variants(variants: dict, extra: dict[str, str]) -> dict[str, Path]:
-    """One library per variant of the source, and one per `extra` source
-    text (name -> text), nvcc all at once."""
-    src = (kb.CSRC / "fused_field_train.cu").read_text()
+def build_variants(source: str, variants: dict, extra: dict[str, str],
+                   logs: dict | None = None) -> dict[str, Path]:
+    """One library per variant of csrc/<source>.cu, and one per `extra`
+    source text (name -> text), nvcc all at once; the compiler's output
+    of each goes into `logs`."""
+    src = (kb.CSRC / f"{source}.cu").read_text()
     OUT.mkdir(parents=True, exist_ok=True)
     texts = dict(extra)
     for name, subs in variants.items():
@@ -115,6 +158,8 @@ def build_variants(variants: dict, extra: dict[str, str]) -> dict[str, Path]:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{out}")
+        if logs is not None:
+            logs[name] = out
     return {name: OUT / f"lib{name}.so" for name in texts}
 
 
@@ -165,19 +210,135 @@ def parent_check(fn, w16, emb, gen, n_out) -> bool:
     return identical
 
 
+# the entry point of K1 before it took a projection table
+_K1_PARENT_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+
+
+def k1_runner(fn, old_abi: bool, packed, cfg, pts, dirs):
+    """A call of one K1 build (its own `fused_field_launch`, with no
+    projection table if `old_abi`) on these inputs, through the
+    wrapper's checks; dirs None for density."""
+    x = ff._pack_inputs(pts, dirs)
+    density = dirs is None
+    n_cols = 1 if density else 9 + 3 * cfg.coarse_radiance_number
+    ptrs = (ctypes.c_void_p * len(ff._WEIGHT_ORDER))(
+        *[packed[k].data_ptr() for k in ff._WEIGHT_ORDER])
+    table = ff._proj_table(cfg.coarse_radiance_number)
+    dims = (len(ff._WEIGHT_ORDER), cfg.width, cfg.input_ch, cfg.input_ch_views,
+            cfg.coarse_radiance_number, int(density))
+    extra = () if old_abi else (ctypes.cast(table, ctypes.c_void_p), len(table) // 4)
+    ff._check(packed, x, cfg)
+
+    def run():
+        out = torch.empty((x.shape[0], n_cols), dtype=torch.float32, device=x.device)
+        err = fn(x.data_ptr(), x.shape[0], ctypes.cast(ptrs, ctypes.c_void_p), *dims, *extra,
+                 out.data_ptr(), fft._stream(x.device))
+        if err != 0:
+            raise RuntimeError(f"K1 launch failed: error {err}")
+        return out
+    return run
+
+
+def k1_main(args, card: str, extra: dict) -> int:
+    logs: dict = {}
+    libs = build_variants(SOURCES["k1"], VARIANTS["k1"], extra, logs)
+    old_abi = "parent" in extra and "const int* proj" not in extra["parent"]
+    fns = {}
+    for name in libs:
+        fn = ctypes.CDLL(str(libs[name])).fused_field_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = _K1_PARENT_ARGS if name == "parent" and old_abi else ff.ENTRY_ARGS
+        fns[name] = fn
+    cfg = FieldConfig(depth=8, width=256, coarse_radiance_number=3)
+    params = init_field_params(np.random.default_rng(cs.SEED), cfg, "cuda")
+    params["sigma"]["b"] += 0.5
+    packed = ff.pack_field_weights(params, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    occ = ctypes.CDLL(str(libs["intact"])).fused_field_occupancy
+    occupancy = {}
+    for density in (False, True):
+        blocks, smem = ctypes.c_int(), ctypes.c_longlong()
+        if occ(cfg.input_ch, cfg.input_ch_views, cfg.coarse_radiance_number, int(density),
+               ctypes.byref(blocks), ctypes.byref(smem)) != 0:
+            raise RuntimeError("occupancy query failed")
+        occupancy["density" if density else "full"] = {
+            "smem_bytes_per_block": smem.value, "blocks_per_sm": blocks.value}
+    print(json.dumps({"ptxas": {k: cs.k1_ptxas(v) for k, v in logs.items()},
+                      "occupancy": occupancy}), flush=True)
+
+    def inputs(lead, with_dirs):
+        pts, dirs = cs.k1_inputs(lead, gen)
+        return pts, dirs if with_dirs else None
+
+    def plain(pts, dirs):
+        return (ff.fused_field_density_plain(packed, pts, cfg) if dirs is None
+                else ff.fused_field_apply_plain(packed, pts, dirs, cfg))
+
+    full, train, density = 2048 * 64, 512 * 64, 4 * 2048 * 192
+    ok = True
+    checked = ["intact"] + (["parent"] if "parent" in fns else [])
+    for n, with_dirs in ((full + 37, True), (full, True), (train, True),
+                         (density + 37, False), (density, False)):
+        pts, dirs = inputs((n, 1), with_dirs)
+        ref = plain(pts, dirs).reshape(n, -1)
+        for name in checked:
+            out = k1_runner(fns[name], name == "parent" and old_abi, packed, cfg, pts, dirs)()
+            torch.cuda.synchronize()
+            err = (out - ref).abs()
+            bad = int((err > cs.KERNEL_ATOL + cs.KERNEL_RTOL * ref.abs()).sum())
+            bad += int((~torch.isfinite(out)).sum())
+            ok &= bad == 0
+            print(json.dumps({"check": name, "points": n, "full": with_dirs,
+                              "max_abs_err": err.max().item(), "values_off": bad}), flush=True)
+        del ref
+    torch.cuda.empty_cache()
+
+    cases = {"full": (full, True), "full_train": (train, True), "density": (density, False)}
+    runs = {}
+    for case, (n, with_dirs) in cases.items():
+        pts, dirs = inputs((n, 1), with_dirs)
+        runs[case] = {name: k1_runner(fn, name == "parent" and old_abi, packed, cfg, pts, dirs)
+                      for name, fn in fns.items()}
+    if "parent" in fns:
+        for case, r in runs.items():
+            new, old = r["intact"], r["parent"]
+            new(), old()
+            o1, n1, n2, o2 = (cs.time_ms(old, 10), cs.time_ms(new, 10), cs.time_ms(new, 10),
+                              cs.time_ms(old, 10))
+            print(json.dumps({"parent_turns": case, "points": cases[case][0],
+                              "ms": [n1, n2], "parent_ms": [o1, o2]}), flush=True)
+    intact = {case: runs[case]["intact"]() for case in ("full", "density")}
+    for rnd in range(2):
+        for name in VARIANTS["k1"]:
+            ms, diff = {}, {}
+            for case in ("full", "density"):
+                run = runs[case][name]
+                # a knock-out is wrong by design; a setting must agree
+                diff[case] = (run() - intact[case]).abs().max().item()
+                ms[case] = cs.time_ms(run, 10)
+            print(json.dumps({"variant": name, "round": rnd, "ms": ms,
+                              "max_abs_diff_vs_intact": diff}), flush=True)
+    print(card)
+    return 0 if ok else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("kernel", nargs="?", choices=sorted(VARIANTS), default="k3")
-    ap.add_argument("--parent", type=Path, help="source of an earlier K2 (k2 only)")
+    ap.add_argument("--parent", type=Path, help="source of an earlier K2 or K1 (k2, k1)")
     args = ap.parse_args()
-    if args.parent and args.kernel != "k2":
-        ap.error("--parent applies to k2")
+    if args.parent and args.kernel == "k3":
+        ap.error("--parent applies to k2 and k1")
     if not torch.cuda.is_available():
         print("k3_knockout: no CUDA device", file=sys.stderr)
         return 2
     card = cs.card_line()
     extra = {"parent": args.parent.read_text()} if args.parent else {}
-    libs = build_variants(VARIANTS[args.kernel], extra)
+    if args.kernel == "k1":
+        return k1_main(args, card, extra)
+    libs = build_variants(SOURCES[args.kernel], VARIANTS[args.kernel], extra)
     entry = fft._entries
     fwd0, bwd0, k1_bf16 = entry()
     stage = {"k3": 1, "k2": 0}[args.kernel]

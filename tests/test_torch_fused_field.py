@@ -124,8 +124,108 @@ def test_kernel_input_checks():
         tff._check(dict(packed, w1=packed["w1"].bfloat16()), x, cfg)
     with pytest.raises(ValueError, match="contiguous"):
         tff._check(packed, x[:, :4], cfg)
+    shifted = torch.zeros(packed["w1"].numel() + 1)[1:].view_as(packed["w1"])
+    with pytest.raises(ValueError, match="aligned"):  # the kernel's 16-byte loads
+        tff._check(dict(packed, w1=shifted), x, cfg)
+    with pytest.raises(ValueError, match="coarse heads"):
+        big = tfield.FieldConfig(depth=8, width=256, coarse_radiance_number=tff.MAX_COARSE + 1)
+        tff._check(packed, x, big)
     with pytest.raises(ValueError):
         tff.fused_field_density(packed, torch.zeros(4, 3, device="meta"), cfg)
     with pytest.raises(ValueError, match="skip"):
         tff.pack_field_weights(params, tfield.FieldConfig(depth=8, width=256,
                                                           skips=(3,)))
+
+
+def _heads_cfg(width, k):
+    cfg = tfield.FieldConfig(depth=8, width=width, coarse_radiance_number=k)
+    return cfg, tfield.init_field_params(np.random.default_rng(k + 7), cfg, "cpu")
+
+
+def _outside(ranges, n_out):
+    """Mask of the raw columns outside a projection's ranges."""
+    mask = torch.ones(n_out, dtype=torch.bool)
+    for lo, hi in ranges:
+        mask[lo:hi] = False
+    return mask
+
+
+@pytest.mark.parametrize("k", [0, 1, 3])
+def test_projection_columns_hold_every_nonzero_head_column(k):
+    """The f32 kernel reads each projection only at `projection_columns`:
+    the packer (and `_assembly_matrices`, freeze flags off) must leave A,
+    B, C and each coarse head's rows of D zero everywhere else, and no
+    column may be claimed by two projections of one layer output."""
+    cfg, params = _heads_cfg(32, k)
+    n_out, half = 9 + 3 * k, cfg.width // 2
+    cols = tff.projection_columns(k)
+    assert len(cols) == 3 + k
+    packed = tff.pack_field_weights(params, cfg)
+    A, B, C, D, _ = tfield._assembly_matrices(params, cfg, freeze_radiance=False,
+                                              freeze_roughness=False)
+    mats = {"A": (A, packed["A"]), "B": (B, packed["B"]), "C": (C, packed["C"])}
+    for name, ranges in zip("ABC", cols):
+        for m in mats[name]:
+            assert m.shape[1] == n_out
+            assert not m[:, _outside(ranges, n_out)].any(), name
+            assert all(m[:, lo:hi].abs().amax(0).gt(0).all() for lo, hi in ranges), name
+    for j in range(k):
+        for m in (D, packed["D"]):
+            rows = m[j * half:(j + 1) * half]
+            assert not rows[:, _outside(cols[3 + j], n_out)].any(), j
+    claimed = [c for ranges in cols[3:] for lo, hi in ranges for c in range(lo, hi)]
+    assert len(claimed) == len(set(claimed)) == 3 * k
+    assert all(0 <= lo <= hi <= n_out for ranges in cols for lo, hi in ranges)
+
+
+def _kernel_order(packed, x, n_coarse):
+    """The f32 kernel's dataflow in plain PyTorch: each head projected
+    straight onto its raw columns from the layer that feeds it, h
+    overwritten by `feature` and then by `h2`, the coarse heads in tiles
+    of two, the bias added last."""
+    w, relu = packed, torch.relu
+    cols = tff.projection_columns(n_coarse)
+    out = x.new_zeros((x.shape[0], 9 + 3 * n_coarse))
+
+    def project(act, P, ranges):
+        for lo, hi in ranges:
+            out[:, lo:hi] += act @ P[:, lo:hi]
+
+    t = x @ w["emb_E"]
+    emb = torch.where(w["emb_id"] > 0.0, t, torch.sin(t + w["emb_phase"]))
+    tb = w["tb"]
+    h = relu(emb @ w["w0"] + tb[0])
+    for i in (1, 2, 3, 4):
+        h = relu(h @ w[f"w{i}"] + tb[i])
+    h = relu(emb @ w["w5x"] + h @ w["w5h"] + tb[5])
+    for i in (6, 7):
+        h = relu(h @ w[f"w{i}"] + tb[i])
+    project(h, w["A"], cols[0])
+    project(relu(h @ w["wpf"] + w["bpf"]), w["B"], cols[1])
+    h = h @ w["wfeat"] + w["bfeat"]
+    h = relu(h @ w["wv_f"] + emb @ w["wv_d"] + w["bv"])
+    project(h, w["C"], cols[2])
+    half = w["wfeat"].shape[0] // 2
+    for k0 in range(0, n_coarse, 2):
+        k1 = min(k0 + 2, n_coarse)
+        tile = slice(k0 * half, k1 * half)
+        vf = relu(h @ w["wcf"][:, tile] + w["bcf"][tile])
+        for k in range(k0, k1):
+            project(vf, w["D"][tile], cols[3 + k])
+    return out + w["bias"]
+
+
+@pytest.mark.parametrize("width,k", [(32, 0), (32, 1), (32, 2), (256, 3)])
+def test_kernel_dataflow_matches_plain(width, k):
+    cfg, params = _heads_cfg(width, k)
+    packed = tff.pack_field_weights(params, cfg)
+    rng = np.random.default_rng(3)
+    pts = torch.from_numpy(rng.uniform(-1.5, 1.5, (133, 1, 3)).astype(np.float32))
+    dirs = torch.nn.functional.normalize(
+        torch.from_numpy(rng.standard_normal((133, 3)).astype(np.float32)), dim=-1)
+    x = tff._pack_inputs(pts, dirs)
+    ref = tff._field_plain(packed, x, density_only=False)
+    out = _kernel_order(packed, x, k)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-6, rtol=0)
+    sigma = tff._field_plain(packed, tff._pack_inputs(pts, None), density_only=True)
+    np.testing.assert_allclose(out[:, :1].numpy(), sigma.numpy(), atol=1e-6, rtol=0)
