@@ -1,22 +1,11 @@
 // K2 and K3: the fused IBL-NeRF training field query, forward and backward,
-// for Hopper (sm_90a); and K1's bf16-weight variant on K2's forward.
+// for Hopper (sm_90a).
 //
 // Replaces ibl_nerf_tpu/kernels/fused_field_train.py::_fwd_kernel (K2, the
 // Pallas TPU kernel reached by pl.pallas_call in _fwd_call) and
 // ::_bwd_kernel (K3, pl.pallas_call in _bwd_call), the two halves of the
 // custom_vjp fused_field_train. Weights are bf16, the embedding constants
 // f32; every product has bf16 operands and f32 accumulation.
-//
-// Also replaces ibl_nerf_tpu/kernels/fused_field.py::_field_kernel (K1,
-// pl.pallas_call in _fused_call) when its packed weights are bf16, as the
-// renderer packs them under compute_dtype bfloat16 and mixed: that kernel
-// rounds exactly where K2's forward does, so k1_bf16_forward is K2's
-// forward without the residual stores (raw (N, 9+3K) f32), or the trunk
-// and sigma alone (raw (N, 1) f32). It is bound by operations: 0.98 MFLOP
-// a point for the density variant against 36 bytes of input and output,
-// 1.59 MFLOP against 104 for the full one; at the bf16 tensor-core rate
-// the ε sweep of a 2048-ray chunk (1,572,864 points) takes at least
-// 1.56 ms. Its design is K2's chain below, and so is what holds it back.
 //
 // K2, per point: emb = where(id, t, sin(t + phase)), t = x @ E, rounded to
 // bf16; the 8-layer trunk (layer 5 reads emb and h4); pf = relu(h@wpf+bpf),
@@ -74,28 +63,18 @@
 #include <climits>
 #include <cstdint>
 
-namespace {
+#include "slab_stream.cuh"
 
-typedef unsigned short bf16_t;  // bf16 bits
+namespace {
 
 constexpr int kTile = 64;        // points per block of K2 and the delta chain
 constexpr int kThreads = 256;    // 8 warps
-constexpr int kWidth = 256;      // trunk width the tiling is written for
-constexpr int kLane = 128;       // embedding lanes
-constexpr int kInCols = 8;
 constexpr int kPad = 8;          // bf16 of padding per shared-memory row
 constexpr int kLdX = kLane + kPad;
 constexpr int kLdH = kWidth + kPad;
 constexpr int kGCols = 32;       // g (9+3K columns) padded to a k multiple of 16
 constexpr int kLdG = kGCols + kPad;
 
-// Same names, same order as _DW_ORDER in kernels/fused_field_train.py.
-enum DwIndex {
-  kW0, kW1, kW2, kW3, kW4, kW5x, kW5h, kW6, kW7,
-  kTb, kWpf, kBpf, kWfeat, kBfeat, kWvF, kWvD, kBv,
-  kWcf, kBcf, kA, kB, kC, kD, kBias,
-  kNumDw
-};
 // Same order as _RES_ORDER.
 enum ResIndex { kH0 = 0, kH7 = 7, kPf = 8, kFt = 9, kHv = 10 };
 // Same order as _DELTA_ORDER.
@@ -104,23 +83,6 @@ enum DeltaIndex {
   kD7, kD6, kD5, kD4, kD3, kD2, kD1, kD0,
   kNumDeltas
 };
-
-struct Emb {
-  const float* E;      // (8, 128)
-  const float* phase;  // (128,)
-  const float* id;     // (128,)
-};
-struct Dims {
-  int n_out;    // 9 + 3K
-  int vf_cols;  // K * 128
-};
-
-__device__ __forceinline__ float bf2f(bf16_t b) {
-  return __uint_as_float(static_cast<uint32_t>(b) << 16);
-}
-__device__ __forceinline__ bf16_t f2bf(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
 
 __device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0, uint32_t a1,
                                          uint32_t a2, uint32_t a3, uint32_t b0,
@@ -215,15 +177,9 @@ __device__ __forceinline__ float hi_bf(uint32_t v) { return __uint_as_float(v & 
 // Chains of layers, weights streamed through shared memory (K2, K3 stage 1)
 // ---------------------------------------------------------------------------
 
-// A chain's weights, as B = [n][k] operands, are cut into slabs of
-// kSlabN output columns (one pass) by kSlabK reduction rows and laid out,
-// slab after slab, in the order the chain consumes them (k2_pack_slabs,
+// A chain's weights come as a slab stream (slab_stream.cuh: k2_pack_slabs,
 // k3_pack_slabs; the plain versions are forward_slabs and chain_slabs in
-// kernels/fused_field_train.py). A B of at most kNarrowN columns (K2's
-// output heads) takes narrow slabs instead: kNarrowN columns by kNarrowK
-// reduction rows, kept as kNarrowK / kSlabK blocks of [kNarrowN][kSlabK],
-// so that a slab of either kind is kSlabN rows of kSlabK in the ring. A
-// ring of kRing slabs in shared memory is filled by cp.async, kRing - 1
+// kernels/fused_field_train.py), kSlabN rows of kSlabK each. A ring of kRing slabs in shared memory is filled by cp.async, kRing - 1
 // slabs ahead of the products, across pass and layer boundaries; all 8
 // warps share it. What bounds a chain on this card is shared memory's
 // bandwidth for the operand fragments and the block barrier each slab
@@ -231,19 +187,10 @@ __device__ __forceinline__ float hi_bf(uint32_t v) { return __uint_as_float(v & 
 // covers 256 columns, and each warp a 32 x 64 tile of it, which reads
 // 1.7x fewer fragment bytes per product than 16 x 64 and halves the
 // barriers.
-constexpr int kSlabN = 256;
-constexpr int kSlabK = 32;
 constexpr int kLdSlab = kSlabK + kPad;         // 80-byte rows: ldmatrix without bank conflicts
-constexpr int kSlabElems = kSlabN * kSlabK;    // in device memory
 constexpr int kSlabSmem = kSlabN * kLdSlab;    // in shared memory
 constexpr int kRing = 4;
 constexpr int kChainCols = 64;                 // columns of a warp's tile
-constexpr int kNarrowN = 32;
-constexpr int kNarrowK = kSlabElems / kNarrowN;
-
-// Output columns and reduction rows of one slab of a B with n columns.
-__host__ __device__ constexpr int slab_n(int n) { return n <= kNarrowN ? kNarrowN : kSlabN; }
-__host__ __device__ constexpr int slab_k(int n) { return kSlabElems / slab_n(n); }
 
 struct SlabRing {
   bf16_t* buf;
@@ -430,7 +377,7 @@ __device__ __forceinline__ void head_layer(const ChainOp (&ops)[NOPS], SlabRing&
 }
 
 // ---------------------------------------------------------------------------
-// K2: forward; K1's bf16-weight variant
+// K2: forward
 // ---------------------------------------------------------------------------
 
 // The forward's biases, bf16 as packed.
@@ -438,21 +385,16 @@ struct Biases {
   const bf16_t *tb, *bpf, *bfeat, *bv, *bcf, *bias;
 };
 
-// Layer after layer through chain_layer and head_layer, in the order of
-// forward_schedule in kernels/fused_field_train.py: every summand's
-// products, k order and rounding are those of the plain version. Shared
-// memory: the ring, then hv's buffer HB, the embedding X and HA; vf
-// overwrites X and HA, which nothing reads after hv. kRes: write the 11
-// residual planes (K2). kDensity: stop after h7 and write raw (n, 1) =
-// h7 @ A[:, 0] + bias[0] (K1 density; the stream is density_schedule's,
-// the trunk's slabs and then A's). Column 0 of B, C and D is zero, so the
-// full forward's raw[:, 0] takes the same f32 sums: the two agree bit for
-// bit.
-template <bool kRes, bool kDensity>
-__device__ __forceinline__ void forward_tile(const float* __restrict__ x, long long n, Emb emb,
-                                             const Biases& bs, const bf16_t* __restrict__ slabs,
-                                             int n_slabs, const Dims& d, float* __restrict__ raw,
-                                             bf16_t* __restrict__ res) {
+// K2: raw (n, n_out) f32 and the 11 residual planes. Layer after layer
+// through chain_layer and head_layer, in the order of forward_schedule in
+// kernels/fused_field_train.py: every summand's products, k order and
+// rounding are those of the plain version. Shared memory: the ring, then
+// hv's buffer HB, the embedding X and HA; vf overwrites X and HA, which
+// nothing reads after hv.
+__global__ void __launch_bounds__(kThreads, 1)
+    k2_forward(const float* __restrict__ x, long long n, Emb emb, Biases bs,
+               const bf16_t* __restrict__ slabs, int n_slabs, Dims d,
+               float* __restrict__ raw, bf16_t* __restrict__ res) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ld_vf = d.vf_cols + kPad;
   const int ld_o = (d.n_out + 7) / 8 * 8;
@@ -481,7 +423,7 @@ __device__ __forceinline__ void forward_tile(const float* __restrict__ x, long l
   {
     const ChainOp ops[1] = {{X, kLdX, kLane}};
     chain_layer(ops, kWidth, ring, relu_bias(HA, kLdH, bs.tb));
-    if (kRes) store_tile(res, kWidth, HA, kLdH, base, n);
+    store_tile(res, kWidth, HA, kLdH, base, n);
   }
   for (int i = 1; i <= 7; ++i) {  // h_i from h_{i-1}: ping-pong HA/HB
     bf16_t* in = H[(i - 1) & 1];
@@ -494,25 +436,13 @@ __device__ __forceinline__ void forward_tile(const float* __restrict__ x, long l
       const ChainOp ops[1] = {{in, kLdH, kWidth}};
       chain_layer(ops, kWidth, ring, epi);
     }
-    if (kRes) store_tile(res + i * plane, kWidth, out, kLdH, base, n);
+    store_tile(res + i * plane, kWidth, out, kLdH, base, n);
   }
   // h7 is in HB
-  if (kDensity) {
-    {
-      const ChainOp ops[1] = {{HB, kLdH, kWidth}};
-      head_layer(ops, ring, O, ld_o, 1, false);  // h7 @ A, column 0
-    }
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
-      const long long p = base + r;
-      if (p < n) raw[p] = O[r * ld_o] + bf2f(__ldg(bs.bias));
-    }
-    cp_async_wait<0>();
-    return;
-  }
   {
     const ChainOp ops[1] = {{HB, kLdH, kWidth}};
     chain_layer(ops, kWidth, ring, relu_bias(HA, kLdH, bs.bpf));  // pf
-    if (kRes) store_tile(res + kPf * plane, kWidth, HA, kLdH, base, n);
+    store_tile(res + kPf * plane, kWidth, HA, kLdH, base, n);
   }
   {
     const ChainOp ops[2] = {{HB, kLdH, kWidth}, {HA, kLdH, kWidth}};
@@ -523,12 +453,12 @@ __device__ __forceinline__ void forward_tile(const float* __restrict__ x, long l
     ChainEpi epi = relu_bias(HA, kLdH, bs.bfeat);
     epi.relu = false;
     chain_layer(ops, kWidth, ring, epi);  // ft
-    if (kRes) store_tile(res + kFt * plane, kWidth, HA, kLdH, base, n);
+    store_tile(res + kFt * plane, kWidth, HA, kLdH, base, n);
   }
   {
     const ChainOp ops[2] = {{HA, kLdH, kWidth}, {X, kLdX, kLane}};
     chain_layer(ops, kWidth, ring, relu_bias(HB, kLdH, bs.bv));  // hv
-    if (kRes) store_tile(res + kHv * plane, kWidth, HB, kLdH, base, n);
+    store_tile(res + kHv * plane, kWidth, HB, kLdH, base, n);
   }
   {
     const ChainOp ops[1] = {{HB, kLdH, kWidth}};
@@ -544,24 +474,6 @@ __device__ __forceinline__ void forward_tile(const float* __restrict__ x, long l
     if (p < n) raw[p * d.n_out + c] = O[r * ld_o + c] + bf2f(__ldg(bs.bias + c));
   }
   cp_async_wait<0>();
-}
-
-// K2: raw (n, n_out) f32 and the 11 residual planes.
-__global__ void __launch_bounds__(kThreads, 1)
-    k2_forward(const float* __restrict__ x, long long n, Emb emb, Biases bs,
-               const bf16_t* __restrict__ slabs, int n_slabs, Dims d,
-               float* __restrict__ raw, bf16_t* __restrict__ res) {
-  forward_tile<true, false>(x, n, emb, bs, slabs, n_slabs, d, raw, res);
-}
-
-// K1's bf16-weight variant: K2's forward without the residuals, raw
-// (n, n_out) f32, or with kDensity raw sigma (n, 1) f32; res is unused.
-template <bool kDensity>
-__global__ void __launch_bounds__(kThreads, 1)
-    k1_bf16_forward(const float* __restrict__ x, long long n, Emb emb, Biases bs,
-                    const bf16_t* __restrict__ slabs, int n_slabs, Dims d,
-                    float* __restrict__ raw, bf16_t* __restrict__ res) {
-  forward_tile<false, kDensity>(x, n, emb, bs, slabs, n_slabs, d, raw, res);
 }
 
 // ---------------------------------------------------------------------------
@@ -667,30 +579,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 // The slab streams
 // ---------------------------------------------------------------------------
 
-int passes(int cols) { return (cols + kSlabN - 1) / kSlabN; }
-int k_slabs(int k) { return (k + kSlabK - 1) / kSlabK; }
-int narrow_slabs(int k) { return (k + kNarrowK - 1) / kNarrowK; }
-
-// Slabs the trunk consumes: h0 (256, k 128), h1..h4 (k 256 each), h5 (k
-// 128 + 256), h6, h7 (k 256 each).
-int trunk_slab_count() {
-  return passes(kWidth) * (k_slabs(kLane) + 4 * k_slabs(kWidth) + k_slabs(kLane) +
-                           k_slabs(kWidth) + 2 * k_slabs(kWidth));
-}
-
-// Slabs the forward consumes: the trunk's, pf (k 256), the heads A, B
-// (narrow, k 256 each), ft (k 256), hv (k 256 + 128), vf (vf_cols, k 256),
-// the heads C, D (narrow, k 256 and vf_cols).
-int forward_slab_count(const Dims& d) {
-  const int w = passes(kWidth);
-  return trunk_slab_count() + w * k_slabs(kWidth) + 2 * narrow_slabs(kWidth) +
-         w * k_slabs(kWidth) + w * (k_slabs(kWidth) + k_slabs(kLane)) +
-         passes(d.vf_cols) * k_slabs(kWidth) + narrow_slabs(kWidth) + narrow_slabs(d.vf_cols);
-}
-
-// Slabs the density forward consumes: the trunk's, then the head A.
-int density_slab_count() { return trunk_slab_count() + narrow_slabs(kWidth); }
-
 // Slabs the chain consumes: vf (vf_cols, k 256), dvf (vf_cols, k 32),
 // dhv (256, k 32 + vf_cols), dft (256, k 256), dpf (256, k 32), d7 (256,
 // k 32 + 256 + 256), d6..d0 (256, k 256 each).
@@ -702,36 +590,6 @@ int chain_slab_count(const Dims& d) {
          7 * w * k_slabs(kWidth);
 }
 
-// One weight of a chain, read as B = [n][k] (w itself, or w^T when
-// trans), with the slab index of its first pass's first k-slab and the
-// slabs of one pass of its layer.
-struct SlabOp {
-  const bf16_t* w;
-  int trans, n, k, first, stride;
-};
-constexpr int kMaxSlabOps = 24;
-struct SlabOps {
-  SlabOp o[kMaxSlabOps];
-};
-
-// Block (x, y) writes slab x of op y, zero past its n and k; a slab's
-// rows are (k-block, column) pairs, kSlabK reduction rows each.
-__device__ __forceinline__ void pack_slab(const SlabOp o, bf16_t* __restrict__ slabs) {
-  const int sn = slab_n(o.n), sk = slab_k(o.n);
-  const int ks = (o.k + sk - 1) / sk, np = (o.n + sn - 1) / sn;
-  if (static_cast<int>(blockIdx.x) >= ks * np) return;
-  const int p = blockIdx.x / ks, s = blockIdx.x % ks;
-  bf16_t* dst = slabs + static_cast<long long>(o.first + p * o.stride + s) * kSlabElems;
-  const int cols = o.trans ? o.n : o.k;  // of w
-  for (int e = threadIdx.x; e < kSlabElems; e += kThreads) {
-    const int row = e / kSlabK;
-    const int nn = p * sn + row % sn, kk = s * sk + row / sn * kSlabK + e % kSlabK;
-    bf16_t v = 0;
-    if (nn < o.n && kk < o.k) v = o.trans ? o.w[kk * cols + nn] : o.w[nn * cols + kk];
-    dst[e] = v;
-  }
-}
-
 // The forward's weights, slab after slab (~1.8 MB a call).
 __global__ void __launch_bounds__(kThreads)
     k2_pack_slabs(SlabOps ops, bf16_t* __restrict__ slabs) {
@@ -741,12 +599,6 @@ __global__ void __launch_bounds__(kThreads)
 // The reverse chain's weights, slab after slab (~1.7 MB a call).
 __global__ void __launch_bounds__(kThreads)
     k3_pack_slabs(SlabOps ops, bf16_t* __restrict__ slabs) {
-  pack_slab(ops.o[blockIdx.y], slabs);
-}
-
-// K1's bf16-weight variant's weights (~1.8 MB a call; 1.0 MB for density).
-__global__ void __launch_bounds__(kThreads)
-    k1_bf16_pack_slabs(SlabOps ops, bf16_t* __restrict__ slabs) {
   pack_slab(ops.o[blockIdx.y], slabs);
 }
 
@@ -967,59 +819,6 @@ bool dims_ok(long long n, int n_weights, int width, const Dims& d) {
          d.n_out <= kGCols && d.vf_cols > 0 && d.vf_cols % kChainCols == 0;
 }
 
-// The slab op table (6 ints per op: weight index in DwIndex order, trans,
-// n, k, first, stride) into `so`; false for an op the stream of n_slabs
-// slabs cannot hold. max_slabs: the most slabs of one op (the pack grid).
-bool read_slab_ops(const int* slab_ops, int n_ops, const void* const* wn, int n_slabs,
-                   SlabOps& so, int& max_slabs) {
-  if (n_ops <= 0 || n_ops > kMaxSlabOps) return false;
-  max_slabs = 0;
-  for (int i = 0; i < n_ops; ++i) {
-    const int* v = slab_ops + 6 * i;
-    if (v[0] < 0 || v[0] >= kNumDw || v[2] <= 0 || v[3] <= 0 || v[4] < 0 || v[5] <= 0)
-      return false;
-    const int sn = slab_n(v[2]), sk = slab_k(v[2]);
-    const int ks = (v[3] + sk - 1) / sk, np = (v[2] + sn - 1) / sn;
-    if (v[4] + (np - 1) * v[5] + ks > n_slabs) return false;
-    so.o[i] = SlabOp{static_cast<const bf16_t*>(wn[v[0]]), v[1], v[2], v[3], v[4], v[5]};
-    max_slabs = max(max_slabs, ks * np);
-  }
-  return true;
-}
-
-typedef void (*PackKernel)(SlabOps, bf16_t*);
-typedef void (*ForwardKernel)(const float*, long long, Emb, Biases, const bf16_t*, int, Dims,
-                              float*, bf16_t*);
-
-// `pack` lays the stream of n_slabs slabs (want_slabs for these dims) out
-// per the slab op table, then `fwd` runs over the n points; the launch of
-// K2 and of K1's bf16-weight variant. Returns 0, a cudaError_t, or -1.
-int launch_forward(PackKernel pack, ForwardKernel fwd, int want_slabs, const float* x,
-                   long long n, const Emb& emb, const void* const* wn, int n_weights,
-                   int width, const Dims& d, const int* slab_ops, int n_slab_ops, void* slabs,
-                   int n_slabs, float* raw, void* res, void* stream) {
-  SlabOps so;
-  int max_slabs;
-  if (!dims_ok(n, n_weights, width, d) || n_slabs != want_slabs ||
-      !read_slab_ops(slab_ops, n_slab_ops, wn, n_slabs, so, max_slabs))
-    return -1;
-  if (n == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  pack<<<dim3(max_slabs, n_slab_ops), kThreads, 0, s>>>(so, static_cast<bf16_t*>(slabs));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  auto w = [&](int i) { return static_cast<const bf16_t*>(wn[i]); };
-  const Biases bs{w(kTb), w(kBpf), w(kBfeat), w(kBv), w(kBcf), w(kBias)};
-  const size_t smem = forward_smem(d);
-  err = cudaFuncSetAttribute(fwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>((n + kTile - 1) / kTile);
-  fwd<<<blocks, kThreads, smem, s>>>(x, n, emb, bs, static_cast<const bf16_t*>(slabs), n_slabs,
-                                     d, raw, static_cast<bf16_t*>(res));
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Launches K2 on `stream`, two kernels in order:
@@ -1034,28 +833,27 @@ extern "C" int fused_field_train_fwd_launch(
     int n_out, int vf_cols, const int* slab_ops, int n_slab_ops, void* slabs, int n_slabs,
     float* raw, void* res, void* stream) {
   const Dims d{n_out, vf_cols};
-  return launch_forward(k2_pack_slabs, k2_forward, forward_slab_count(d), x, n,
-                        Emb{emb_E, emb_phase, emb_id}, wn, n_weights, width, d, slab_ops,
-                        n_slab_ops, slabs, n_slabs, raw, res, stream);
-}
-
-// Launches K1's bf16-weight variant on `stream`, two kernels in order:
-//   k1_bf16_pack_slabs  the weights into `slabs`: forward_schedule's
-//                       stream, or with density_only density_schedule's;
-//   k1_bf16_forward     out (n, n_out) f32, or with density_only (n, 1).
-// Arguments as for K2; no residuals. Returns 0, a cudaError_t, or -1.
-extern "C" int fused_field_bf16_launch(
-    const float* x, long long n, const float* emb_E, const float* emb_phase,
-    const float* emb_id, const void* const* wn, int n_weights, int width,
-    int n_out, int vf_cols, int density_only, const int* slab_ops, int n_slab_ops,
-    void* slabs, int n_slabs, float* out, void* stream) {
-  const Dims d{n_out, vf_cols};
-  ForwardKernel fwd = k1_bf16_forward<false>;
-  if (density_only) fwd = k1_bf16_forward<true>;
-  return launch_forward(k1_bf16_pack_slabs, fwd,
-                        density_only ? density_slab_count() : forward_slab_count(d), x, n,
-                        Emb{emb_E, emb_phase, emb_id}, wn, n_weights, width, d, slab_ops,
-                        n_slab_ops, slabs, n_slabs, out, nullptr, stream);
+  SlabOps so;
+  int max_slabs;
+  if (!dims_ok(n, n_weights, width, d) || n_slabs != forward_slab_count(d) ||
+      !read_slab_ops(slab_ops, n_slab_ops, wn, n_slabs, so, max_slabs))
+    return -1;
+  if (n == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  k2_pack_slabs<<<dim3(max_slabs, n_slab_ops), kThreads, 0, s>>>(so, static_cast<bf16_t*>(slabs));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto w = [&](int i) { return static_cast<const bf16_t*>(wn[i]); };
+  const Biases bs{w(kTb), w(kBpf), w(kBfeat), w(kBv), w(kBcf), w(kBias)};
+  const size_t smem = forward_smem(d);
+  err = cudaFuncSetAttribute(k2_forward, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = static_cast<unsigned>((n + kTile - 1) / kTile);
+  k2_forward<<<blocks, kThreads, smem, s>>>(x, n, Emb{emb_E, emb_phase, emb_id}, bs,
+                                            static_cast<const bf16_t*>(slabs), n_slabs, d, raw,
+                                            static_cast<bf16_t*>(res));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launches K3 on `stream`, four kernels in order:

@@ -15,10 +15,9 @@ Like the JAX kernel, it computes in the dtype of the packed weights
   and reading only the raw columns `projection_columns` names;
 - bf16 (the renderer's no-grad dtype under compute_dtype "bfloat16" and
   "mixed"): the embedding rounded to bf16, bf16 products summed in f32,
-  every layer rounded to bf16 after its bias and relu, raw in f32. That
-  is where K2 rounds, so this variant runs on K2's forward chain
-  (`k1_bf16_forward` in `csrc/fused_field_train.cu`, launched by
-  `fused_field_train.field_bf16_launch`).
+  every layer rounded to bf16 after its bias and relu, raw in f32, where
+  K2 rounds: `csrc/fused_field_bf16.cu`, wgmma over 128-point tiles with
+  the weights streamed by TMA, launched by `fused_field_bf16.launch`.
 
 Beside the kernels live their plain PyTorch versions
 (`fused_field_apply_plain` / `fused_field_density_plain`, for bf16 packs
@@ -226,8 +225,8 @@ def _field_plain_any(packed: dict, x: torch.Tensor, density_only: bool) -> torch
 
 
 def _k2():
-    """kernels/fused_field_train, whose forward chain and plain forward
-    K1's bf16 variant shares (imported here: it imports this module)."""
+    """kernels/fused_field_train, whose plain forward K1's bf16 variant
+    shares (imported here: it imports this module)."""
     from ibl_nerf_tpu_torch.kernels import fused_field_train
     return fused_field_train
 
@@ -322,8 +321,9 @@ def _launch(packed: dict, x: torch.Tensor, cfg: FieldConfig,
 
 def _launch_bf16(packed: dict, x: torch.Tensor, cfg: FieldConfig,
                  density_only: bool) -> torch.Tensor:
+    from ibl_nerf_tpu_torch.kernels import fused_field_bf16  # it imports this module
     _check(packed, x, cfg)
-    out = _k2().field_bf16_launch(x, packed, _emb(packed), density_only)
+    out = fused_field_bf16.launch(x, packed, _emb(packed), density_only)
     LAUNCHES["fused_field_density_bf16" if density_only else "fused_field_apply_bf16"] += 1
     return out
 

@@ -145,9 +145,9 @@ def train_forward_plain(x: torch.Tensor, w16: dict, emb: dict):
 
 def field_bf16_plain(x: torch.Tensor, w16: dict, emb: dict,
                      density_only: bool) -> torch.Tensor:
-    """K1's bf16-weight variant (plain version of `k1_bf16_forward`): the
-    JAX `_field_kernel` with bf16 packed weights rounds where K2 does, so
-    the full variant is K2's raw (N, 9+3K) and the density variant the
+    """K1's bf16-weight variant (plain version of csrc/fused_field_bf16.cu):
+    the JAX `_field_kernel` with bf16 packed weights rounds where K2 does,
+    so the full variant is K2's raw (N, 9+3K) and the density variant the
     same trunk, then sigma = h7 @ A[:, :1] + bias[:1] in f32, (N, 1)."""
     if not density_only:
         return train_forward_plain(x, w16, emb)[0]
@@ -330,7 +330,8 @@ _FORWARD_LAYERS = [[(w, True)] for w in ("w0", "w1", "w2", "w3", "w4")] + [
     [("w5x", True), ("w5h", True)], [("w6", True)], [("w7", True)], [("wpf", True)],
     [("A", True), ("B", True)], [("wfeat", True)], [("wv_f", True), ("wv_d", True)],
     [("wcf", True)], [("C", True), ("D", True)]]
-# K1's bf16 density variant: the trunk (h0..h7), then sigma's head A.
+# K1's bf16 density variant (csrc/fused_field_bf16.cu): the trunk (h0..h7),
+# then sigma's head A.
 _DENSITY_LAYERS = _FORWARD_LAYERS[:8] + [[("A", True)]]
 
 
@@ -413,7 +414,8 @@ def forward_slabs(w16: dict) -> torch.Tensor:
 
 def density_slabs(w16: dict) -> torch.Tensor:
     """The slab stream of K1's bf16 density variant (plain version of
-    k1_bf16_pack_slabs with `density_schedule`), as `chain_slabs`."""
+    k1_bf16_pack_slabs in csrc/fused_field_bf16.cu with `density_schedule`),
+    as `chain_slabs`."""
     return _slabs(density_schedule, w16)
 
 
@@ -424,7 +426,7 @@ def density_slabs(w16: dict) -> torch.Tensor:
 @functools.cache
 def _entries():
     """The entry points of csrc/fused_field_train.cu, built on first use:
-    K2, K3 and K1's bf16-weight variant."""
+    K2 and K3."""
     lib = _build.load("fused_field_train")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fwd = lib.fused_field_train_fwd_launch
@@ -434,10 +436,7 @@ def _entries():
     bwd.restype = i
     bwd.argtypes = [p, ll, p, p, p, p, p, p, i, i, i, i, p, i, p, i,
                     p, i, p, i, p, i, ll, i, p, ll, p, p]
-    k1 = lib.fused_field_bf16_launch
-    k1.restype = i
-    k1.argtypes = [p, ll, p, p, p, p, i, i, i, i, i, p, i, p, i, p, p]
-    return fwd, bwd, k1
+    return fwd, bwd
 
 
 def _shapes(w16: dict) -> tuple:
@@ -500,31 +499,6 @@ def _launch_fwd(x, w16, emb):
         raise RuntimeError(f"fused_field_train forward kernel launch failed: error {err}")
     LAUNCHES["fused_field_train_fwd"] += 1
     return raw, res
-
-
-def field_bf16_launch(x, w16, emb, density_only: bool) -> torch.Tensor:
-    """K1's bf16-weight variant on CUDA tensors (`fused_field_bf16_launch`):
-    the slab stream of `density_schedule` or `forward_schedule`, then
-    K2's forward without residuals. Returns raw (N, 1) or (N, 9+3K) f32.
-    Its launches are counted by the wrappers of kernels/fused_field.py."""
-    n_out = w16["bias"].shape[0]
-    _check(x, w16, emb, n_out)
-    n = x.shape[0]
-    schedule = density_schedule if density_only else forward_schedule
-    sched, n_slabs = schedule(_shapes(w16))
-    out = torch.empty((n, 1 if density_only else n_out), dtype=torch.float32,
-                      device=x.device)
-    slabs = torch.empty(n_slabs * SLAB_N * SLAB_K, dtype=torch.bfloat16, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _entries()[2](
-            x.data_ptr(), n, emb["E"].data_ptr(), emb["phase"].data_ptr(),
-            emb["id"].data_ptr(), _ptrs([w16[k].data_ptr() for k in _DW_ORDER]),
-            len(_DW_ORDER), KERNEL_WIDTH, n_out, w16["wcf"].shape[1], int(density_only),
-            ctypes.cast(_slab_table(sched), ctypes.c_void_p), len(sched), slabs.data_ptr(),
-            n_slabs, out.data_ptr(), _stream(x.device))
-    if err != 0:
-        raise RuntimeError(f"fused_field bf16 kernel launch failed: error {err}")
-    return out
 
 
 def _launch_bwd(x, g, res, w16, emb):

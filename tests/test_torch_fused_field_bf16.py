@@ -1,6 +1,8 @@
 """K1's bf16-weight variant: its plain PyTorch version against the JAX
 Pallas kernel, the bf16 packing, the wrappers' dispatch on the packed
-dtype, and the slab stream of the density variant.
+dtype, the slab stream of the density variant, and the CUDA kernel's plan
+(kernels/fused_field_bf16.py): its shared-memory layout, its budget, its
+input checks, and a plain model of its dataflow over 128-point tiles.
 
 The JAX side runs `fused_field_apply` / `fused_field_density` on
 `pack_field_weights(..., dtype=jnp.bfloat16)` in interpret mode, as
@@ -12,7 +14,7 @@ hidden unit near a bf16 rounding tie can land on the neighbouring value
 within 2e-3 relative norm, the bound tests/test_torch_fused_field_train.py
 holds K2 to; a wrong weight, rounding point or head moves them by O(1).
 The CUDA kernel runs only on the card, where chip_smoke.py holds it
-against this plain version and against K2.
+against this plain version.
 """
 
 import jax
@@ -24,6 +26,7 @@ import torch
 from ibl_nerf_tpu.kernels import fused_field as jff
 from ibl_nerf_tpu.models import field as jfield
 from ibl_nerf_tpu_torch.kernels import fused_field as tff
+from ibl_nerf_tpu_torch.kernels import fused_field_bf16 as k1b
 from ibl_nerf_tpu_torch.kernels import fused_field_train as tfft
 from ibl_nerf_tpu_torch.models import field as tfield
 from ibl_nerf_tpu_torch.utils.port import field_params_from_numpy
@@ -157,7 +160,6 @@ def test_bad_dtypes_and_widths_raise():
 # The density variant's slab stream (pure Python; the kernel runs it on the card)
 # ---------------------------------------------------------------------------
 
-TILE = 64  # points per block of k1_bf16_forward
 
 
 def _shapes(k):
@@ -178,8 +180,9 @@ def _slab_b(slab, n):
 @pytest.mark.parametrize("k", [1, 3])
 def test_density_schedule_is_the_trunk_then_sigmas_head(k):
     """The stream holds the trunk's weights where K2's stream holds them,
-    then A in one narrow slab: 65 slabs, as `density_slab_count` counts
-    (h0 4, h1..h4 32, h5 4 + 8, h6 and h7 16, A 1)."""
+    then A in one narrow slab: 65 slabs, as `density_slab_count` in
+    csrc/fused_field_bf16.cu counts (h0 4, h1..h4 32, h5 4 + 8, h6 and h7
+    16, A 1)."""
     w16, shapes = _shapes(k)
     sched, total = tfft.density_schedule(shapes)
     fwd, _ = tfft.forward_schedule(shapes)
@@ -208,45 +211,207 @@ def test_density_slabs_round_trip(k):
     assert int((slabs != 0).sum()) == int(sum((w16[w] != 0).sum() for w, *_ in sched))
 
 
-def _stream_density(x, w16, emb, slabs):
-    """The density variant as `k1_bf16_forward<true>` runs it: per 64-point
-    tile the trunk's layers, each pass summing its operands' slabs in
-    stream order in f32, then bias, relu and bf16; then h7 against A's
-    narrow slab, column 0, plus bias[0]."""
-    bf = torch.bfloat16
+def _stream_model(x, w16, emb, slabs, density_only):
+    """csrc/fused_field_bf16.cu's dataflow in PyTorch: per 128-point tile two
+    warpgroups of 64 points, each consuming the whole slab stream in the
+    producer's order (`stream_order`) and keeping its activations as bf16
+    k-blocks of 64 x 32 in its own shared-memory region (H, P, X, as
+    `act_blocks` places them; vf through P one 256-column pass at a time).
+    A pass sums, k-block after k-block, the f32 products with the first N
+    rows of one wide slab each; a head sums a narrow slab's [32][32] blocks
+    in turn; the epilogue adds the bias, applies relu (not for ft) and
+    rounds to bf16; the heads accumulate in f32 from A and B, then C, then
+    D a vf pass at a time. Returns raw (n, 1) or (n, 9+3K) f32."""
+    bf, rows = torch.bfloat16, k1b.ROWS
+    n, n_out, vf_cols = x.shape[0], w16["bias"].shape[0], w16["wcf"].shape[1]
+    order = k1b.stream_order(slabs.shape[0], vf_cols, density_only)
+    blocks = k1b.act_blocks(density_only)
+    H, X = blocks["H"][0], blocks["X"][0]
+    P = blocks.get("P", (None,))[0]
+    n_blocks = sum(b for _, b in blocks.values())
     out = []
-    for base in range(0, x.shape[0], TILE):
-        xt = torch.zeros((TILE, x.shape[1]))
-        xt[:min(TILE, x.shape[0] - base)] = x[base:base + TILE]
-        ring = iter(slabs)
+    for base in range(0, n, rows):   # a warpgroup's 64 points of a tile
+        xt = torch.zeros((rows, x.shape[1]))
+        xt[:min(rows, n - base)] = x[base:base + rows]
+        region = torch.full((n_blocks, rows, tfft.SLAB_K), float("nan"), dtype=bf)
+        ring = iter(slabs[order])
 
-        def layer(ops, bias):
-            acc = torch.zeros((TILE, tfft.SLAB_N))
-            for a in ops:
-                for k0 in range(0, a.shape[1], tfft.SLAB_K):
-                    acc += a[:, k0:k0 + tfft.SLAB_K].float() @ next(ring).float().t()
-            return torch.relu(acc + bias.float()).to(bf)
+        def read(first, cols):
+            return torch.cat([region[first + b] for b in range(cols // tfft.SLAB_K)], dim=1)
 
-        xe = tfft._embed(xt, emb).to(bf)
+        def write(first, v):
+            for j in range(v.shape[1] // tfft.SLAB_K):
+                region[first + j] = v[:, j * 32:(j + 1) * 32]
+
+        def products(ops, n_cols, narrow, acc):
+            for first, k_blocks in ops:
+                for kb in range(k_blocks):
+                    if not narrow or kb % (tfft.NARROW_K // tfft.SLAB_K) == 0:
+                        slab = next(ring)
+                    b = slab[(kb % 8) * 32:(kb % 8 + 1) * 32] if narrow else slab
+                    acc = acc + region[first + kb].float() @ b[:n_cols].float().t()
+            return acc
+
+        def layer(ops, dst, n_cols, bias, relu=True):
+            v = products(ops, n_cols, False, torch.zeros((rows, n_cols))) + bias.float()
+            write(dst, (torch.relu(v) if relu else v).to(bf))
+
+        write(X, tfft._embed(xt, emb).to(bf))
         tb = w16["tb"]
-        h = layer([xe], tb[0])
+        layer([(X, 4)], H, 256, tb[0])
         for i in range(1, 8):
-            h = layer([xe, h] if i == 5 else [h], tb[i])
-        a = _slab_b(next(ring), w16["A"].shape[1]).float()
-        assert next(ring, None) is None   # the tile used the whole stream
-        sigma = h.float() @ a[0] + w16["bias"][0].float()
-        out.append(sigma[:min(TILE, x.shape[0] - base), None])
+            layer([(X, 4), (H, 8)] if i == 5 else [(H, 8)], H, 256, tb[i])
+        if density_only:
+            o = products([(H, 8)], 8, True, torch.zeros((rows, 8)))
+            raw = o[:, :1] + w16["bias"][0].float()
+        else:
+            layer([(H, 8)], P, 256, w16["bpf"])                          # pf
+            o = products([(H, 8), (P, 8)], k1b.HEAD_N, True,
+                         torch.zeros((rows, k1b.HEAD_N)))                # h7@A + pf@B
+            layer([(H, 8)], P, 256, w16["bfeat"], relu=False)            # ft
+            layer([(P, 8), (X, 4)], H, 256, w16["bv"])                   # hv
+            o = products([(H, 8)], k1b.HEAD_N, True, o)                  # + hv@C
+            for c0 in range(0, vf_cols, 256):                            # vf into P
+                cols = min(256, vf_cols - c0)
+                layer([(H, 8)], P, cols, w16["bcf"][c0:c0 + cols])
+                o = products([(P, cols // 32)], k1b.HEAD_N, True, o)     # + vf@D
+            raw = o[:, :n_out] + w16["bias"].float()
+        assert next(ring, None) is None   # the warpgroup used the whole stream
+        assert not read(H, 256).isnan().any()
+        out.append(raw[:min(rows, n - base)])
     return torch.cat(out)
 
 
-@pytest.mark.parametrize("n", [1, 63, 130])
-def test_executing_the_density_stream_gives_the_plain_density(n):
-    w16, _ = _shapes(3)
+def _model_case(n, k, density_only):
+    w16, _ = _shapes(k)
     rng = np.random.default_rng(n)
-    pts = torch.from_numpy(rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32))
-    x = tff._pack_inputs(pts, None)
-    emb = tfft.emb_constants(tfield.FieldConfig(), "cpu")
-    got = _stream_density(x, w16, emb, tfft.density_slabs(w16))
-    want = tfft.field_bf16_plain(x, w16, emb, density_only=True)
-    assert got.shape == want.shape == (n, 1)
+    pts = torch.from_numpy(rng.uniform(-1.5, 1.5, (n, 1, 3)).astype(np.float32))
+    dirs = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32))
+    x = tff._pack_inputs(pts, None if density_only else dirs)
+    emb = tfft.emb_constants(tfield.FieldConfig(coarse_radiance_number=k), "cpu")
+    slabs = (tfft.density_slabs if density_only else tfft.forward_slabs)(w16)
+    got = _stream_model(x, w16, emb, slabs, density_only)
+    want = tfft.field_bf16_plain(x, w16, emb, density_only)
+    assert got.shape == want.shape == (n, 1 if density_only else 9 + 3 * k)
     assert _rel(got.numpy(), want.numpy()) <= REL
+
+
+@pytest.mark.parametrize("n", [1, 63, 127, 129, 130, 300])
+def test_executing_the_density_stream_gives_the_plain_density(n):
+    _model_case(n, 3, density_only=True)
+
+
+@pytest.mark.parametrize("n,k", [(1, 3), (127, 3), (129, 3), (300, 3), (129, 1), (129, 0),
+                                 (129, 4), (129, 7), (300, 7)])
+def test_executing_the_full_stream_gives_the_plain_field(n, k):
+    """The full variant's dataflow at K = 3 (vf in a 256- and a 128-column
+    pass, D over two narrow slabs), 1 and 0 (one 128-column pass), 4 (two
+    256-column passes) and 7 (30 head columns; vf in three 256-column
+    passes and a 128-column one)."""
+    _model_case(n, k, density_only=False)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's plan: layout, budget, checks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows,cols", [(k1b.ROWS, 256), (k1b.ROWS, 640),
+                                       (tfft.SLAB_N, tfft.SLAB_K)],
+                         ids=["activations_h", "activations_full_region", "slab"])
+def test_swizzled_layout_is_a_bijection(rows, cols):
+    """Every bf16 element of a warpgroup's activations (H alone; the full
+    variant's H, P and X) or of a ring stage gets its own two bytes, the
+    buffer is covered, and each 16-byte chunk stays in its own 64-byte row
+    of its k-block: the swizzle only permutes chunks within a row."""
+    offs = np.array([[k1b.sw64_offset(r, c) for c in range(cols)] for r in range(rows)])
+    assert sorted(offs.ravel()) == list(range(0, 2 * rows * cols, 2))
+    kblock = np.arange(cols)[None, :] // tfft.SLAB_K
+    row = np.arange(rows)[:, None]
+    assert np.array_equal(offs // 64, kblock * rows + row)
+    # within a row, 8 consecutive columns are one 16-byte chunk, in order
+    assert np.array_equal(offs % 16, (np.arange(cols)[None, :] % 8 * 2).repeat(rows, 0))
+
+
+@pytest.mark.parametrize("density_only", [True, False], ids=["density", "full"])
+@pytest.mark.parametrize("k", [0, 1, 3, 4, 7])
+def test_shared_memory_budget_fits(density_only, k):
+    """A block of either variant fits the card's 232,448 bytes at K = 0 to
+    7: vf goes through P a 256-column pass at a time and the heads fit one
+    narrow slab, so the budget does not grow with K."""
+    assert k1b.smem_bytes(density_only) <= k1b.SMEM_LIMIT
+    assert 9 + 3 * k <= k1b.HEAD_N
+    blocks = k1b.act_blocks(density_only)
+    spans = sorted(blocks.values())
+    assert spans[0][0] == 0 and all(a + n == b for (a, n), (b, _) in zip(spans, spans[1:]))
+    if not density_only:   # one vf pass fills P
+        assert blocks["P"][1] * tfft.SLAB_K == tfft.SLAB_N
+
+
+@pytest.mark.parametrize("k", [0, 1, 3, 4, 7])
+def test_stream_order_takes_each_vf_pass_then_its_slab_of_d(k):
+    """The full variant's copy order is a permutation of the stream: the
+    stream as laid out up to hv, then C, then per vf pass its slabs of wcf
+    followed by the narrow slab of D holding that pass's rows."""
+    w16, shapes = _shapes(k)
+    sched, total = tfft.forward_schedule(shapes)
+    order = k1b.stream_order(total, w16["wcf"].shape[1], density_only=False)
+    assert sorted(order) == list(range(total))
+    assert k1b.stream_order(total, 128, density_only=True) == list(range(total))
+    at = {w: (first, stride) for w, _, _, _, first, stride in sched}
+    vf_first, c = at["wcf"][0], at["C"][0]
+    assert order[:vf_first] == list(range(vf_first)) and order[vf_first] == c
+    passes = -(-w16["wcf"].shape[1] // tfft.SLAB_N)
+    rest = order[vf_first + 1:]
+    for p in range(passes):
+        step = rest[9 * p:9 * (p + 1)]
+        assert step[:8] == [vf_first + at["wcf"][1] * p + s for s in range(8)]
+        assert step[8] == at["D"][0] + p
+
+
+def test_plan_constants_are_the_sources():
+    """The mirror's tile, ring and alignment are the ones
+    csrc/fused_field_bf16.cu compiles (read from its text), so the layout
+    and budget tests above hold for the kernel itself."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(tfft.__file__).parent.parent / "csrc" / "fused_field_bf16.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr \w+ {name} = (\d+);", src).group(1))
+
+    assert (const("kRows"), const("kGroups"), const("kAlign")) == (k1b.ROWS, k1b.GROUPS,
+                                                                   k1b.ALIGN)
+    stages = re.search(r"ring_stages\(bool density\) \{ return density \? (\d+) : (\d+);", src)
+    assert tuple(map(int, stages.groups())) == (k1b.ring_stages(True), k1b.ring_stages(False))
+    assert "constexpr int kHeadN = kNarrowN;" in src and k1b.HEAD_N == tfft.NARROW_N
+
+
+def test_bf16_kernel_checks_raise():
+    """What the launcher checks before a CUDA launch: bf16 weights, width
+    256, f32 embedding, (N, 8) f32 input, and at most 7 coarse heads (the
+    heads' 9 + 3K columns fit one narrow slab)."""
+    w16, _ = _shapes(3)
+    emb = tfft.emb_constants(tfield.FieldConfig(), "cpu")
+    x = tff._pack_inputs(torch.rand(5, 3), None)
+    k1b.check(x, w16, emb, density_only=True)
+    k1b.check(x, w16, emb, density_only=False)
+    with pytest.raises(ValueError, match="bf16"):
+        k1b.check(x, dict(w16, w3=w16["w3"].float()), emb, True)
+    with pytest.raises(ValueError, match="f32"):
+        k1b.check(x, w16, dict(emb, E=emb["E"].to(BF16)), True)
+    with pytest.raises(ValueError, match="kernel input"):
+        k1b.check(x[:, :6].contiguous(), w16, emb, True)
+    narrow = tfield.FieldConfig(depth=8, width=32, coarse_radiance_number=1)
+    small = tff.pack_field_weights(
+        tfield.init_field_params(np.random.default_rng(0), narrow, "cpu"), narrow, dtype=BF16)
+    with pytest.raises(ValueError, match="width"):
+        k1b.check(x, small, tfft.emb_constants(narrow, "cpu"), True)
+    for k in (4, 7):
+        wk, _ = _shapes(k)
+        k1b.check(x, wk, emb, density_only=True)
+        k1b.check(x, wk, emb, density_only=False)
+    w8, _ = _shapes(8)
+    for density_only in (True, False):
+        with pytest.raises(ValueError, match="coarse heads"):
+            k1b.check(x, w8, emb, density_only)
