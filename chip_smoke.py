@@ -48,6 +48,22 @@ Phases, one JSON line each; any failure exits non-zero:
           sweeps): 3 warm-up and 10 timed steps, 2 launches of each
           K1-bf16 mode per step, finite loss and f32 params; a profiler
           breakdown.
+  train_cli  `python -m ibl_nerf_tpu_torch.cli.train` through its `main`,
+          on a Mitsuba scene this script writes with the port's PNG
+          encoder (8 train images at 480x640 with their gt normals and
+          albedo, 2 test images with normals, albedo and irradiance):
+          --use_pallas --use_pallas_train and the CLI's defaults
+          otherwise (ground-truth normals, merged sampling, 4096 rays,
+          bf16_grad) at 8x256, K=3, 64+128 samples; 31 updates with the
+          phase switch at 10, a checkpoint and a test-set render (PNGs) at
+          update 30, then a resume to update 35. Gates: finite losses, 2
+          K2 and 2 K3 launches in every step, 2 K1 full launches per step
+          past the switch and none before, no K1 density launch anywhere,
+          one K1 full and one K2 launch per 2048-ray chunk of the render
+          (the fine pass's primary march runs the gradient-path query), the resume
+          starting at update 31, every PNG decoding at 480x640. Prints the
+          scene's decode and pyramid times, ms per step and train rays/s
+          (each step synchronised), the render's time and peak memory.
 Weights are random from a seed. Then the per-kernel JSON line, the card
 line, and the ok line last. Every number printed is measured in this
 run, on this card.
@@ -59,13 +75,18 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from ibl_nerf_tpu_torch.cli import train as cli_train
+from ibl_nerf_tpu_torch.data import dataset as dataset_mod
+from ibl_nerf_tpu_torch.data import native_loader
 from ibl_nerf_tpu_torch.data.brdf_lut import load_brdf_lut
 from ibl_nerf_tpu_torch.eval.render_path import render_path
 from ibl_nerf_tpu_torch.kernels import build as kernel_build
@@ -84,8 +105,10 @@ from ibl_nerf_tpu_torch.train import (
     make_train_step,
     resolve_phase,
 )
+from ibl_nerf_tpu_torch.train import loop as loop_mod
 from ibl_nerf_tpu_torch.train.step import _leaves
 from ibl_nerf_tpu_torch.utils.device import resolve_device
+from ibl_nerf_tpu_torch.utils.png import write_png
 
 # H100 SXM data-sheet rates at the full 700 W: f32 outside the tensor
 # cores, bf16 on the tensor cores (dense), and HBM3.
@@ -143,6 +166,13 @@ TRAIN_H, TRAIN_W, TRAIN_IMAGES = 480, 640, 8
 WARMUP_STEPS, WINDOWS, WINDOW_STEPS = 3, 3, 30
 # The train_mixed phase: scripts/perf_sweep.py's mixed:pallas step.
 MIXED_STEPS = 10
+# The train_cli phase: the training CLI on a scene written under the
+# checkout's git-ignored build/ (Kitchen's 480x640, 8 train images).
+CLI_DIR = Path(__file__).resolve().parent / "build" / "smoke_cli"
+CLI_TRAIN_IMAGES, CLI_TEST_IMAGES = 8, 2
+CLI_RAYS, CLI_CHUNK = 4096, 2048
+CLI_SWITCH, CLI_N_ITER, CLI_RESUME_N_ITER = 10, 30, 35
+CLI_PROFILED = 20  # the update whose step runs under torch.profiler
 
 
 def emit(phase: str, **fields) -> None:
@@ -796,18 +826,18 @@ def flat_grads(grads) -> torch.Tensor:
 OWN_KERNELS = {"fused_field_kernel": "K1", "k1_bf16_": "K1-bf16", "k2_": "K2", "k3_": "K3"}
 
 
-def profile_steps(step, state, arrays, gen, n=2) -> dict:
-    """Kernel time on the device over n train steps (torch.profiler), the
-    share of K1/K2/K3 in it, and the device's busy share of the profiled
-    host-clock window (the profiler slows the host). Empty when the
-    profiler records no device time."""
+def profile_steps(run_step, n=2) -> dict:
+    """Kernel time on the device over n calls of `run_step` (one train
+    step each; torch.profiler), the share of K1/K2/K3 in it, and the
+    device's busy share of the profiled host-clock window (the profiler
+    slows the host). Empty when the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            step(state, arrays, generator=gen)
+            run_step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name, launches, host_waits = {}, 0, 0
@@ -992,7 +1022,7 @@ def train_phase(cfg, variables, consts, kernels, card: str) -> dict:
                               "ratio_bound": GRAD_RATIO},
                   grad_rel_err_free_per_draw=free["per_draw"],
                   peak_memory_bytes=peak,
-                  profile=profile_steps(step, state, arrays, gen))
+                  profile=profile_steps(lambda: step(state, arrays, generator=gen)))
     emit("train", **report)
     return report
 
@@ -1050,8 +1080,233 @@ def train_mixed_phase(cfg, consts, card: str) -> dict:
                   steps=MIXED_STEPS, seconds=seconds,
                   ms_per_step=seconds / MIXED_STEPS * 1e3,
                   rays_per_s=N_RAND * MIXED_STEPS / seconds, launches=launches, loss=loss,
-                  profile=profile_steps(step, state, arrays, gen))
+                  profile=profile_steps(lambda: step(state, arrays, generator=gen)))
     emit("train_mixed", **report)
+    return report
+
+
+def _mitsuba_pose(c2w: np.ndarray) -> np.ndarray:
+    """The 4x4 transform a Mitsuba scene stores for camera-to-world
+    `c2w`: the loader negates the x and z columns, so they are negated
+    here first."""
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :4] = c2w
+    pose[:3, 0] *= -1
+    pose[:3, 2] *= -1
+    return pose
+
+
+def write_cli_scene(root: Path, seed: int = SEED) -> float:
+    """A Mitsuba scene at 480x640 from a seed, written with the port's PNG
+    encoder: `train/{i}.png` with `_normal` and `_albedo`, `test/{i}.png`
+    with `_normal`, `_albedo` and `_irradiance`, the transforms and the
+    depth range. Returns the seconds it took."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:TRAIN_H, 0:TRAIN_W].astype(np.float32)
+    base = np.stack([xx / TRAIN_W, yy / TRAIN_H, 0.5 + 0.5 * np.sin(xx / 37.0)], -1)
+    n = np.stack([0.3 * np.sin(xx / 91.0), 0.3 * np.cos(yy / 73.0), np.ones_like(xx)], -1)
+    normal = (n / np.linalg.norm(n, axis=-1, keepdims=True) + 1.0) * 0.5
+
+    def png(path, img01):
+        write_png(str(path), (np.clip(img01, 0, 1) * 255).astype(np.uint8))
+
+    (root).mkdir(parents=True)
+    with open(root / "min_max_depth.json", "w") as f:
+        json.dump({"min_depth": 2.0, "max_depth": 6.0}, f)
+    for split, count, extra in (("train", CLI_TRAIN_IMAGES, ()),
+                                ("test", CLI_TEST_IMAGES, ("irradiance",))):
+        d = root / split
+        d.mkdir()
+        frames = []
+        for i in range(1, count + 1):
+            img = np.clip(base * 0.7 + 0.3 * rng.uniform(0, 1, 3)
+                          + 0.02 * rng.standard_normal(base.shape), 0, 1)
+            png(d / f"{i}.png", img)
+            png(d / f"{i}_normal.png", normal)
+            png(d / f"{i}_albedo.png", img * 0.8)
+            if "irradiance" in extra:
+                png(d / f"{i}_irradiance.png", np.repeat((0.5 + 0.2 * yy / TRAIN_H)[..., None], 3, -1))
+            a = 0.4 * (i - 1) / max(count - 1, 1) - 0.2
+            c2w = _look_at(np.array([4 * np.sin(a), 0.5, 4 * np.cos(a)]))
+            frames.append({"fov_degree": 50.0, "transform": _mitsuba_pose(c2w).tolist()})
+        with open(root / f"transforms_{split}.json", "w") as f:
+            json.dump({"frames": frames}, f)
+    return time.perf_counter() - t0
+
+
+def _launch_counts() -> dict:
+    return {**ff.LAUNCHES, **fft.LAUNCHES}
+
+
+@contextlib.contextmanager
+def cli_probes(record: dict):
+    """Within the block, the trainer's PNG decodes, pyramid builds, train
+    steps and test-set renders are timed (steps and renders synchronised
+    on the device first), and each step's update index and kernel
+    launches, and each render's launches, are recorded into `record`.
+    The step of update CLI_PROFILED runs under torch.profiler instead of
+    being timed: its breakdown goes to record["profile"]."""
+    originals = {(dataset_mod, "_load_images"): dataset_mod._load_images,
+                 (dataset_mod, "build_prefiltered_pyramid"): dataset_mod.build_prefiltered_pyramid,
+                 (loop_mod, "render_path"): loop_mod.render_path,
+                 (loop_mod, "make_train_step"): loop_mod.make_train_step,
+                 (loop_mod, "_step_generator"): loop_mod._step_generator}
+
+    def timed(name, fn, sync=False, launches=False):
+        def run(*args, **kwargs):
+            before = _launch_counts()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            entry = {"s": time.perf_counter() - t0}
+            if launches:
+                after = _launch_counts()
+                entry["launches"] = {k: after[k] - before[k] for k in after}
+            record.setdefault(name, []).append(entry)
+            return out
+        return run
+
+    def make_train_step(*args, **kwargs):
+        step = originals[(loop_mod, "make_train_step")](*args, **kwargs)
+        timed_step = timed("steps", step, sync=True, launches=True)
+
+        def run(*a, **kw):
+            if record["updates"][-1] != CLI_PROFILED:
+                return timed_step(*a, **kw)
+            out = []
+            before = _launch_counts()
+            record["profile"] = profile_steps(lambda: out.append(step(*a, **kw)), n=1)
+            after = _launch_counts()
+            record["steps"].append({"s": None, "launches": {k: after[k] - before[k]
+                                                            for k in after}})
+            return out[0]
+        return run
+
+    def step_generator(seed, i, device):
+        record.setdefault("updates", []).append(i)
+        return originals[(loop_mod, "_step_generator")](seed, i, device)
+
+    dataset_mod._load_images = timed("decode", originals[(dataset_mod, "_load_images")])
+    dataset_mod.build_prefiltered_pyramid = timed(
+        "pyramid", originals[(dataset_mod, "build_prefiltered_pyramid")])
+    loop_mod.render_path = timed("render", originals[(loop_mod, "render_path")],
+                                 sync=True, launches=True)
+    loop_mod.make_train_step = make_train_step
+    loop_mod._step_generator = step_generator
+    try:
+        yield
+    finally:
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
+
+
+def cli_argv(n_iter: int) -> list[str]:
+    return ["--datadir", str(CLI_DIR / "scene"), "--basedir", str(CLI_DIR / "logs"),
+            "--expname", "train_cli", "--use_pallas", "--use_pallas_train",
+            "--coarse_radiance_number", "3", "--N_samples", "64", "--N_importance", "128",
+            "--load_depth_range_from_file", "--N_iter", str(n_iter),
+            "--N_iter_ignore_approximated_radiance", str(CLI_SWITCH),
+            "--i_weights", str(CLI_N_ITER), "--i_testset", str(CLI_N_ITER),
+            "--i_video", "1000000", "--summary_step", "5"]
+
+
+def _per_step(steps: list, updates: list, lo: int, hi: int) -> dict:
+    """ms per step (median, mean) and train rays/s over updates lo..hi-1."""
+    ms = [e["s"] * 1e3 for e, i in zip(steps, updates) if lo <= i < hi and e["s"]]
+    med = float(np.median(ms))
+    return {"updates": [lo, hi - 1], "ms_per_step_median": med,
+            "ms_per_step_mean": float(np.mean(ms)), "ms_per_step_min": min(ms),
+            "ms_per_step_max": max(ms), "rays_per_s_at_median": CLI_RAYS / med * 1e3}
+
+
+def train_cli_phase(kernels, card: str) -> dict:
+    """The training CLI from a scene directory, then a resume; see the
+    module docstring for its gates."""
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    write_s = write_cli_scene(CLI_DIR / "scene")
+    logdir = CLI_DIR / "logs" / "train_cli"
+
+    for c in (ff.LAUNCHES, fft.LAUNCHES):
+        for k in c:
+            c[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    first, second = {}, {}
+    t0 = time.perf_counter()
+    with cli_probes(first):
+        state = cli_train.main(cli_argv(CLI_N_ITER))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with cli_probes(second):
+        resumed = cli_train.main(cli_argv(CLI_RESUME_N_ITER))
+    torch.cuda.synchronize()
+
+    steps, updates = first["steps"], first["updates"]
+    if updates != list(range(CLI_N_ITER + 1)) or state.step != CLI_N_ITER + 1:
+        fail("train_cli", f"updates {updates[:3]}...{updates[-3:]}, step {state.step}: "
+             f"expected 0..{CLI_N_ITER}")
+    for e, i in zip(steps, updates):
+        k1 = 2 if i >= CLI_SWITCH else 0
+        want = {"fused_field_train_fwd": 2, "fused_field_train_bwd": 2, "fused_field_apply": k1}
+        got = {k: v for k, v in e["launches"].items() if v}
+        if got != {k: v for k, v in want.items() if v}:
+            fail("train_cli", f"update {i} launched {got}, expected {want}")
+    (render,) = first["render"]
+    n_chunks = -(-TRAIN_H * TRAIN_W // CLI_CHUNK)
+    # per chunk: the fine pass's primary march on K2 (the gradient-path
+    # query, as in JAX's render) and its reflected march on K1 full
+    want = {"fused_field_apply": n_chunks, "fused_field_train_fwd": n_chunks}
+    if {k: v for k, v in render["launches"].items() if v} != want:
+        fail("train_cli", f"the test-set render launched {render['launches']}, expected "
+             f"{want} (one of each per chunk) and nothing else")
+    if launches["fused_field_density"] or launches["fused_field_density_bf16"]:
+        fail("train_cli", f"K1 density launched: {launches}")
+
+    records = [json.loads(line) for line in open(logdir / "metrics.jsonl")]
+    losses = [r["loss_total"] for r in records if "loss_total" in r]
+    if not losses or not np.all(np.isfinite(losses)):
+        fail("train_cli", f"losses {losses}")
+    ckpts = sorted(p.name for p in logdir.glob("ckpt_*"))
+    if ckpts != ["ckpt_000000", f"ckpt_{CLI_N_ITER:06d}"]:
+        fail("train_cli", f"checkpoints {ckpts}")
+    if (second["updates"] != list(range(CLI_N_ITER + 1, CLI_RESUME_N_ITER + 1))
+            or resumed.step != CLI_RESUME_N_ITER + 1):
+        fail("train_cli", f"the resume ran updates {second['updates']} to step "
+             f"{resumed.step}; expected {CLI_N_ITER + 1}..{CLI_RESUME_N_ITER}")
+    pngs = sorted((logdir / f"testset_{CLI_N_ITER:06d}").glob("*.png"))
+    decoded = native_loader.batch_load_png_rgb([str(p) for p in pngs], TRAIN_H, TRAIN_W)
+    if len(pngs) < 20 or not np.isfinite(decoded).all():
+        fail("train_cli", f"{len(pngs)} test-set PNGs")
+    for p in pngs[:3]:
+        if native_loader.probe_png(str(p))[:2] != (TRAIN_H, TRAIN_W):
+            fail("train_cli", f"{p.name} is not {TRAIN_H}x{TRAIN_W}")
+
+    n_updates = CLI_N_ITER + 1
+    per_step = {k: sum(e["launches"][k] for e in steps) / n_updates for k in launches}
+    for row in kernels:
+        row.setdefault("launches_by_phase", {})["train_cli"] = launches[row["name"]]
+    report = dict(
+        card=card, rays=CLI_RAYS, height=TRAIN_H, width=TRAIN_W,
+        train_images=CLI_TRAIN_IMAGES, scene_write_s=write_s,
+        decode_s=sum(e["s"] for e in first["decode"]),
+        decode_calls=len(first["decode"]),
+        pyramid_s=sum(e["s"] for e in first["pyramid"]),
+        run_s=run_s, updates=n_updates,
+        before_switch=_per_step(steps, updates, 2, CLI_SWITCH),
+        after_switch=_per_step(steps, updates, CLI_SWITCH + 2, n_updates),
+        resumed=_per_step(second["steps"], second["updates"], CLI_N_ITER + 1,
+                          CLI_RESUME_N_ITER + 1),
+        testset_render_s=render["s"], testset_rays=TRAIN_H * TRAIN_W,
+        testset_chunks=n_chunks, pngs=len(pngs),
+        launches=launches, launches_per_update=per_step,
+        launches_render=render["launches"],
+        peak_memory_bytes=peak, losses=losses, checkpoints=ckpts,
+        resume_updates=[second["updates"][0], second["updates"][-1]],
+        profile={"update": CLI_PROFILED, **first.get("profile", {})})
+    emit("train_cli", **report)
     return report
 
 
@@ -1066,12 +1321,14 @@ def main() -> int:
          count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
+    native = kernel_build.build_native()  # the PNG decoder first: g++ and zlib
+    native_s = time.perf_counter() - t0
     kernel_build.build()
     report = {name: [ln for ln in log.splitlines()
                      if "entry function" in ln or "registers" in ln or "spill" in ln]
-              for name, log in kernel_build.build_logs.items()}
+              for name, log in kernel_build.build_logs.items() if name in kernel_build.SOURCES}
     emit("build", seconds=time.perf_counter() - t0, sources=list(kernel_build.SOURCES),
-         ptxas=report)
+         native_loader=str(native.name), native_seconds=native_s, ptxas=report)
 
     cfg = FieldConfig(depth=8, width=256, coarse_radiance_number=3)
     rng = np.random.default_rng(SEED)
@@ -1095,6 +1352,8 @@ def main() -> int:
     del train_vars
     torch.cuda.empty_cache()
     train_mixed_phase(cfg, consts, card)
+    torch.cuda.empty_cache()
+    train_cli_phase(kernels, card)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

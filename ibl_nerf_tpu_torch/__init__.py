@@ -7,17 +7,21 @@ counterpart there.
 It imports torch and numpy only — never jax, never `ibl_nerf_tpu`.
 
 Covered so far, in every compute mode of the JAX renderer (`float32`,
-`bfloat16`, `mixed`, `bf16_grad`, `amp`, `float64`): split-sum
-inference rendering (`eval.render_path` → `render.render_rays`,
-ε-normals, the BRDF-LUT fetch, the reflected march and mip
-interpolation), and the train step (`train.make_train_step`: pixel
-sampling, the gradient path with random draws, sgs or ε normals, the
-staged losses, named-group Adam). The no-grad sweeps run on the
-hand-written CUDA kernel K1 (`kernels/fused_field.py`; f32 weights in
-`csrc/fused_field.cu`, bf16 weights on K2's chain in
-`csrc/fused_field_train.cu`), the gradient-path field query on K2/K3
-(`kernels/fused_field_train.py`, `csrc/fused_field_train.cu`). Modes
-outside that raise NotImplementedError with the mode's name.
+`bfloat16`, `mixed`, `bf16_grad`, `amp`, `float64`): training from a
+scene directory through the CLI (`cli.train` → `train.loop.train`:
+`data.dataset.load_scene` with the native PNG decoder, the prefiltered
+pyramid, phase segments, checkpoints, health checks, test-set renders
+to PNGs), split-sum inference rendering (`eval.render_path` →
+`render.render_rays`, ε, sgs or gt normals and the gt substitutions,
+the BRDF-LUT fetch, the reflected march and mip interpolation), and the
+train step (`train.make_train_step`: single-image or merged pixel
+sampling, the gradient path with random draws, the staged losses,
+named-group Adam). The no-grad sweeps run on the hand-written CUDA
+kernel K1 (`kernels/fused_field.py`; f32 weights in
+`csrc/fused_field.cu`, bf16 weights in `csrc/fused_field_bf16.cu`), the
+gradient-path field query on K2/K3 (`kernels/fused_field_train.py`,
+`csrc/fused_field_train.cu`). Modes outside that raise
+NotImplementedError with the mode's name.
 """
 
 __version__ = "0.1.0"

@@ -1,12 +1,12 @@
 """Pixel-batch sampling for the train step.
 
 Counterpart of ibl_nerf_tpu/data/sampler.py: the dataset lives on the
-device once; each step draws one image index and `batch_size` pixel
-columns and rows, gathers their colours and K prefiltered targets, and
-builds their rays. Where the JAX sampler derives the indices from a PRNG
-key, this one takes them from a `torch.Generator` or as a `draws` dict,
-so a test can hand both sides the same indices. `patch` and `merged`
-sampling are not ported yet.
+device once; each step draws one image index (or, merged, one per ray)
+and `batch_size` pixel columns and rows, gathers their colours, K
+prefiltered targets and gt buffers, and builds their rays. Where the JAX
+sampler derives the indices from a PRNG key, this one takes them from a
+`torch.Generator` or as a `draws` dict, so a test can hand both sides
+the same indices. `patch` sampling is not ported yet.
 """
 
 from __future__ import annotations
@@ -52,16 +52,18 @@ def pixel_bounds(H: int, W: int, precrop: bool = False,
 
 def draw_pixels(n_images: int, batch_size: int, H: int, W: int, device,
                 generator: torch.Generator | None = None,
-                precrop: bool = False, precrop_frac: float = 0.5) -> dict:
-    """One batch's indices: "img" (an int64 scalar), "u" (columns) and
-    "v" (rows), (batch_size,) int64 each."""
+                precrop: bool = False, precrop_frac: float = 0.5,
+                merged: bool = False) -> dict:
+    """One batch's indices: "img" (an int64 scalar, or (batch_size,) when
+    merged: an image per ray), "u" (columns) and "v" (rows),
+    (batch_size,) int64 each."""
     sH, eH, sW, eW = pixel_bounds(H, W, precrop, precrop_frac)
 
     def randint(lo, hi, shape):
         return torch.randint(lo, hi, shape, device=device, generator=generator)
 
-    return {"img": randint(0, n_images, ()), "u": randint(sW, eW, (batch_size,)),
-            "v": randint(sH, eH, (batch_size,))}
+    return {"img": randint(0, n_images, (batch_size,) if merged else ()),
+            "u": randint(sW, eW, (batch_size,)), "v": randint(sH, eH, (batch_size,))}
 
 
 def sample_pixel_batch(arrays: dict, batch_size: int, H: int, W: int,
@@ -69,20 +71,19 @@ def sample_pixel_batch(arrays: dict, batch_size: int, H: int, W: int,
                        patch: bool = False, merged: bool = False,
                        draws: dict | None = None,
                        generator: torch.Generator | None = None):
-    """Draw one training batch: a random image, `batch_size` random pixels
-    (optionally center-cropped), their rays and per-pixel gt dict.
+    """Draw one training batch: a random image (merged: a random image
+    per ray), `batch_size` random pixels (optionally center-cropped),
+    their rays and per-pixel gt dict.
 
     draws: `draw_pixels` output; drawn from `generator` when absent.
     Returns (pixel_info, rays_o, rays_d).
     """
     if patch:
         raise NotImplementedError("patch sampling is not ported to ibl_nerf_tpu_torch yet")
-    if merged:
-        raise NotImplementedError("merged sampling is not ported to ibl_nerf_tpu_torch yet")
     images = arrays["images"]
     if draws is None:
         draws = draw_pixels(images.shape[0], batch_size, H, W, images.device,
-                            generator, precrop, precrop_frac)
+                            generator, precrop, precrop_frac, merged)
     img, u, v = draws["img"], draws["u"], draws["v"]
 
     def gather(buf):  # (N, H, W, C) -> (B, C)
@@ -101,6 +102,7 @@ def sample_pixel_batch(arrays: dict, batch_size: int, H: int, W: int,
         pixel_info["prior_irradiance"] = gather(arrays["prior_irradiance"])[..., 0]
 
     uv = torch.stack([u, v], dim=1).float()
+    # merged: (B, 3, 4), one pose per ray, which get_rays_for_pixels broadcasts
     c2w = arrays["poses"][img][..., :3, :4]
     rays_o, rays_d = get_rays_for_pixels(uv, arrays["K"], c2w)
     return pixel_info, rays_o, rays_d

@@ -1,24 +1,30 @@
-"""Full test-path rendering.
+"""Full test-path rendering with per-buffer PNG export.
 
 Counterpart of ibl_nerf_tpu/eval/render_path.py on its fast path: every
 pose is rendered as one whole frame with the coarse pass density-only
 and only the exported buffers kept, with the same display transforms
 (normals -> (n+1)/2, depth -> disparity via far*0.1), the `acc`
-coverage buffer and the screen-space normal-from-depth buffer.
+coverage buffer and the screen-space normal-from-depth buffer. The
+scene's gt buffers go to the renderer per pose (shrunk with INTER_AREA
+at render_factor > 1), and with `savedir` every buffer is written as
+`{name}_{idx:03d}.png` through the port's own PNG encoder.
 
-Not ported yet: PNG export (`savedir`), which needs an image encoder,
-and the `fast=False` per-chunk path. The gt buffers of a scene are not
-read: no mode the port covers consumes them.
+Not ported yet: the `fast=False` per-chunk path.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
+from ibl_nerf_tpu_torch.data.resize import resize
+from ibl_nerf_tpu_torch.ops.color import to8b
 from ibl_nerf_tpu_torch.ops.geometry import depth_to_normal_image_space
 from ibl_nerf_tpu_torch.ops.rays import get_rays_full_image
 from ibl_nerf_tpu_torch.render.renderer import make_frame_render_fn, render_frame
+from ibl_nerf_tpu_torch.utils.png import write_png
 
 # result key -> export name (order matches the reference's exports)
 _EXPORTS = [
@@ -41,6 +47,28 @@ _EXPORTS = [
 ]
 
 
+def _resize_gt(buffers: dict[str, np.ndarray], i: int, factor: int, device) -> dict:
+    """Pose i's gt buffers shrunk by 1/factor (INTER_AREA), flattened to
+    (H*W, C) f32 tensors on `device`."""
+    out = {}
+    for k, stack in buffers.items():
+        img = stack[i]
+        if factor != 1:
+            h, w = img.shape[:2]
+            img = resize(img, (w // factor, h // factor), interpolation="area")
+        out[k] = torch.as_tensor(np.ascontiguousarray(img.reshape(-1, img.shape[-1])),
+                                 dtype=torch.float32, device=device)
+    return out
+
+
+def save_image(savedir: str, name: str, idx: int, img: np.ndarray) -> None:
+    """One exported buffer as `{name}_{idx:03d}.png`, 8-bit, RGB or gray."""
+    out8 = to8b(img)
+    if not (out8.ndim == 3 and out8.shape[-1] == 3):
+        out8 = out8.squeeze()
+    write_png(os.path.join(savedir, f"{name}_{idx:03d}.png"), out8)
+
+
 def render_path(
     variables,
     consts,
@@ -54,23 +82,25 @@ def render_path(
 ):
     """Render all poses of `scene`; returns {name: (N, H, W, C?) stack}.
 
-    `scene` is any object with height, width, focal, near, far and
-    poses ((N, 3|4, 4) camera-to-world). The frames render on the device
-    of `consts["brdf_lut"]`. render_factor > 1 renders downsampled
-    (focal rescaled).
+    `scene` is any object with height, width, focal, near, far, poses
+    ((N, 3|4, 4) camera-to-world) and gt_buffers(). The frames render on
+    the device of `consts["brdf_lut"]`. render_factor > 1 renders
+    downsampled (focal rescaled). With `savedir` each buffer of each
+    pose is also written there as a PNG.
     """
-    if savedir is not None:
-        raise NotImplementedError("savedir (PNG export) is not ported to "
-                                  "ibl_nerf_tpu_torch yet")
     if not fast:
         raise NotImplementedError("fast=False is not ported to "
                                   "ibl_nerf_tpu_torch yet")
     H, W, focal = scene.height, scene.width, scene.focal
     if render_factor not in (0, 1):
         H, W, focal = H // render_factor, W // render_factor, focal / render_factor
+    factor = render_factor if render_factor not in (0, 1) else 1
     device = consts["brdf_lut"].device
     K = torch.tensor([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]],
                      dtype=torch.float32, device=device)
+    if savedir is not None:
+        os.makedirs(savedir, exist_ok=True)
+    gt_buffers = scene.gt_buffers()
     render_poses = poses if poses is not None else scene.poses
 
     kk = rcfg.field.coarse_radiance_number
@@ -84,7 +114,7 @@ def render_path(
 
     results: dict[str, list] = {}
 
-    def append(res, key_name, out_name):
+    def append(res, key_name, idx, out_name):
         if key_name not in res:
             return
         img = res[key_name].cpu().numpy()
@@ -94,26 +124,29 @@ def render_path(
             img = img / (scene.far * 0.1)
             img = 1.0 / np.maximum(1e-10, img)
         results.setdefault(out_name, []).append(img)
+        if savedir is not None:
+            save_image(savedir, out_name, idx, img)
 
-    for c2w in render_poses:
+    for i, c2w in enumerate(render_poses):
+        gt_i = _resize_gt(gt_buffers, i, factor, device) if gt_buffers else None
         c2w = torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4], device=device)
         ro, rd = get_rays_full_image(H, W, K, c2w)
         res = render_frame(frame_fn, ro.reshape(-1, 3), rd.reshape(-1, 3),
-                           scene.near, scene.far, chunk)
+                           scene.near, scene.far, chunk, gt_values=gt_i)
         res = {k: v.reshape(H, W, *v.shape[1:]) for k, v in res.items()}
 
         for key_name, out_name in _EXPORTS:
-            append(res, key_name, out_name)
+            append(res, key_name, i, out_name)
         # acc coverage for the collapse detector — returned, never saved
         if "acc_map" in res:
             results.setdefault("acc", []).append(res["acc_map"].cpu().numpy())
         for k in range(kk):
-            append(res, f"radiance_map_{k + 1}", f"radiance_{k + 1}")
-            append(res, f"reflected_coarse_radiance_map_{k + 1}",
+            append(res, f"radiance_map_{k + 1}", i, f"radiance_{k + 1}")
+            append(res, f"reflected_coarse_radiance_map_{k + 1}", i,
                    f"reflected_coarse_radiance_{k + 1}")
         if "depth_map" in res:
             nfd = depth_to_normal_image_space(res["depth_map"], c2w, K)
             append({"normal_map_from_depth_map": nfd},
-                   "normal_map_from_depth_map", "normal_from_depth")
+                   "normal_map_from_depth_map", i, "normal_from_depth")
 
     return {k: np.stack(v, 0) for k, v in results.items()}

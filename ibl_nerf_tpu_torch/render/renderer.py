@@ -5,7 +5,9 @@ Counterpart of ibl_nerf_tpu/render/renderer.py: the coarse pass (full
 shading in training, density-only on the `coarse_shading=False` fast
 path), `sample_pdf`, and the fine pass with ε or sgs normals, the
 BRDF-LUT fetch and Fresnel, the reflected march, `mip_interp` and the
-diffuse + specular combine. Gradients follow the JAX renderer's
+diffuse + specular combine, with the gt inputs (`gt_values`: the
+`ground_truth` normal, `depth_map_from_ground_truth` and the
+`calculate_*_from_gt` substitutions). Gradients follow the JAX renderer's
 `stop_gradient` sites: intrinsic maps on detached weights (radiance on
 live ones), a detached surface point, a detached reflected march and
 detached depth in the mip level. The no-grad sweeps run under
@@ -82,14 +84,10 @@ def _check_supported(rcfg: RenderConfig) -> None:
                 "infer_roughness_separate", "infer_irradiance_separate"):
         if getattr(rcfg, aux):
             missing(aux)
-    for gt in ("depth_map_from_ground_truth", "calculate_albedo_from_gt",
-               "calculate_roughness_from_gt", "calculate_irradiance_from_gt"):
-        if getattr(rcfg, gt):
-            missing(gt)
     if rcfg.approximate_radiance:
         if rcfg.shading_mode != "split_sum":
             missing(f"shading_mode={rcfg.shading_mode}")
-        if rcfg.normal_type not in _EPSILON_NORMALS + _SIGMA_NORMALS:
+        if rcfg.normal_type not in _EPSILON_NORMALS + _SIGMA_NORMALS + ("ground_truth",):
             missing(f"normal_type={rcfg.normal_type}")
 
 
@@ -226,9 +224,12 @@ def _render_depth_only(query_sigma, rays_o, rays_d, z_vals):
 # ---------------------------------------------------------------------------
 
 def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
-                 near, far, rcfg: RenderConfig):
-    """Full compositing + split-sum shading for one sample set."""
+                 near, far, rcfg: RenderConfig, gt_values=None):
+    """Full compositing + split-sum shading for one sample set.
+    gt_values: per-ray gt buffers ("normal", "depth", "albedo",
+    "roughness", "irradiance"), read by the modes that substitute them."""
     rf = _radiance_f(rcfg)
+    gt = gt_values or {}
     (query_full, query_sigma, query_full_ng, query_sigma_ng) = _make_queries(
         variables["coarse_or_fine"], rcfg)
 
@@ -239,7 +240,8 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
     weights = weights_from_alpha(alpha)
     weights_det = weights.detach()
     depth_map, disp_map, acc_map = composite_depth_disp_acc(weights, z_vals)
-    x_surface = (rays_o + rays_d * depth_map[..., None]).detach()
+    target_depth_map = gt["depth"][..., 0] if rcfg.depth_map_from_ground_truth else depth_map
+    x_surface = (rays_o + rays_d * target_depth_map[..., None]).detach()
 
     # --- intrinsic maps: detached weights, radiance on live ones -------------
     albedo_map = accumulate(weights_det, torch.sigmoid(raw[..., 1:4]))
@@ -251,6 +253,13 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
         for k in range(rcfg.field.coarse_radiance_number)]
     irradiance_map = irradiance_map[..., None]
 
+    # --- gt substitutions ----------------------------------------------------
+    target_albedo_map = gt["albedo"] if rcfg.calculate_albedo_from_gt else albedo_map
+    target_roughness_map = (gt["roughness"][..., 0] if rcfg.calculate_roughness_from_gt
+                            else roughness_map)
+    target_irradiance_map = (gt["irradiance"] if rcfg.calculate_irradiance_from_gt
+                             else irradiance_map)
+
     # --- split-sum shading --------------------------------------------------
     target_normal_map = approximated_radiance_map = None
     specular_map = diffuse_map = n_dot_v = None
@@ -260,22 +269,22 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
     if rcfg.approximate_radiance:
         target_normal_map = _estimate_normal(query_sigma, query_sigma_ng, rays_o,
                                              rays_d, z_vals, pts, x_surface,
-                                             weights_det, rcfg)
+                                             weights_det, gt, rcfg)
         n_dot_v = torch.clamp(torch.sum(-rays_d * target_normal_map, -1), 0.0, 1.0)
 
         # BRDF LUT fetch
         lut_uv = torch.stack(
-            [2.0 * n_dot_v - 1.0, 2.0 * roughness_map - 1.0], dim=-1)
+            [2.0 * n_dot_v - 1.0, 2.0 * target_roughness_map - 1.0], dim=-1)
         env_brdf = grid_sample_2d(consts["brdf_lut"], lut_uv)
         env_c1 = env_brdf[..., 0:1]
         env_c0 = env_brdf[..., 1:2]
 
         # dielectric F0 with metallic = 1 - roughness
-        metallic = (1.0 - roughness_map)[..., None]
+        metallic = (1.0 - target_roughness_map)[..., None]
         f0 = torch.full((3,), 0.04, dtype=raw.dtype, device=raw.device)
-        f0 = f0 * (1.0 - metallic) + albedo_map * metallic
+        f0 = f0 * (1.0 - metallic) + target_albedo_map * metallic
 
-        fresnel_map = fresnel_schlick_roughness(n_dot_v, f0, roughness_map)
+        fresnel_map = fresnel_schlick_roughness(n_dot_v, f0, target_roughness_map)
         if rcfg.lut_coefficient == "F":
             spec_coeff = fresnel_map * env_c1 + env_c0
         elif rcfg.lut_coefficient == "F0":
@@ -300,7 +309,7 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
         prefiltered = torch.stack(
             [reflected_radiance_map] + list(reflected_coarse_maps), dim=1)
 
-        # roughness-driven mip level
+        # roughness-driven mip level (the field's roughness, as in JAX)
         if rcfg.correct_depth_for_prefiltered_radiance_infer:
             depth_0 = (far + near) * 0.5
             mip_level = torch.clamp(
@@ -310,16 +319,16 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
         prefiltered_reflected_map = mip_interp(prefiltered, mip_level)
 
         diffuse_map = ((1.0 - fresnel_map) * (1.0 - metallic)
-                       * albedo_map * irradiance_map)
+                       * target_albedo_map * target_irradiance_map)
         specular_map = spec_coeff * prefiltered_reflected_map
         approximated_radiance_map = diffuse_map + specular_map
 
     return _assemble_outputs(
         rcfg, approximated_radiance_map, radiance_map, coarse_radiance_maps,
-        reflected_coarse_maps, irradiance_map, reflected_radiance_map,
-        prefiltered_reflected_map, albedo_map, roughness_map, specular_map,
+        reflected_coarse_maps, target_irradiance_map, reflected_radiance_map,
+        prefiltered_reflected_map, target_albedo_map, target_roughness_map, specular_map,
         diffuse_map, n_dot_v, target_normal_map, disp_map, acc_map, depth_map,
-        weights)
+        weights, target_depth_map)
 
 
 def _assemble_outputs(rcfg, approximated_radiance_map, radiance_map,
@@ -328,8 +337,9 @@ def _assemble_outputs(rcfg, approximated_radiance_map, radiance_map,
                       prefiltered_reflected_map, target_albedo_map,
                       target_roughness_map, specular_map, diffuse_map,
                       n_dot_v, target_normal_map, disp_map, acc_map,
-                      depth_map, weights):
-    """Output transforms + map dict, with the reference's key names."""
+                      depth_map, weights, target_depth_map=None):
+    """Output transforms + map dict, with the reference's key names;
+    target_depth_map defaults to depth_map."""
     ldr = tonemap_reinhard if rcfg.use_radiance_linear else (lambda x: x)
     gam = rgb_to_srgb if rcfg.gamma_correct else (lambda x: x)
 
@@ -363,17 +373,21 @@ def _assemble_outputs(rcfg, approximated_radiance_map, radiance_map,
     results["disp_map"] = disp_map
     results["acc_map"] = acc_map
     results["depth_map"] = depth_map
-    results["target_depth_map"] = depth_map
+    results["target_depth_map"] = depth_map if target_depth_map is None else target_depth_map
     results["weights"] = weights
     return {k: v for k, v in results.items() if v is not None}
 
 
 def _estimate_normal(query_sigma, query_sigma_ng, rays_o, rays_d, z_vals,
-                     pts, x_surface, weights_det, rcfg: RenderConfig):
-    """The shading normal, carrying no gradient: the ε finite
-    differences on the no-grad query, or the density gradient of the
-    gradient-path query (bf16 under bf16_grad, as in the JAX renderer)."""
+                     pts, x_surface, weights_det, gt, rcfg: RenderConfig):
+    """The shading normal, carrying no gradient: the gt normal map
+    (stored as (n + 1) / 2), the ε finite differences on the no-grad
+    query, or the density gradient of the gradient-path query (bf16
+    under bf16_grad, as in the JAX renderer)."""
     nt = rcfg.normal_type
+    if nt == "ground_truth":
+        n = 2.0 * gt["normal"] - 1.0
+        return n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True), min=1e-12)
     if nt == "normal_map_from_sigma_gradient_surface":
         return normals_mod.normal_from_sigma_gradient_surface(query_sigma, x_surface)
     if nt == "normal_map_from_sigma_gradient":
@@ -420,7 +434,7 @@ def draw_render_uniforms(n_rays: int, rcfg: RenderConfig, device,
 
 def render_rays(variables, consts, batch, rcfg: RenderConfig,
                 is_depth_only: bool = False, draws: dict | None = None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, gt_values: dict | None = None):
     """Render a ray batch into all output maps.
 
     variables: {'coarse': field params, 'fine': field params | absent}
@@ -428,6 +442,8 @@ def render_rays(variables, consts, batch, rcfg: RenderConfig,
     batch:     make_ray_batch output.
     draws:     under perturb, the uniforms of `draw_render_uniforms`;
                drawn from `generator` on the rays' device when absent.
+    gt_values: per-ray gt buffers, (B, C) each (the train step passes its
+               pixel batch), for the gt normal and the gt substitutions.
     Returns a dict of maps; coarse-pass results are suffixed '0' when a
     fine pass runs. Differentiable with respect to the params; wrap it in
     torch.no_grad() to render without a graph.
@@ -460,7 +476,7 @@ def render_rays(variables, consts, batch, rcfg: RenderConfig,
     else:
         coarse_vars = dict(variables, coarse_or_fine=variables["coarse"])
         result = _raw2outputs(coarse_vars, consts, rays_o, rays_d, z_vals,
-                              z_vals_constant, near, far, rcfg)
+                              z_vals_constant, near, far, rcfg, gt_values)
 
     if rcfg.n_importance > 0:
         z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
@@ -483,7 +499,7 @@ def render_rays(variables, consts, batch, rcfg: RenderConfig,
             fine_vars = dict(variables, coarse_or_fine=fine_params)
             result_fine = _raw2outputs(fine_vars, consts, rays_o, rays_d,
                                        z_all, z_vals_constant, near, far,
-                                       rcfg_f)
+                                       rcfg_f, gt_values)
         for k, v in result.items():
             result_fine[k + "0"] = v
         result = result_fine
@@ -500,16 +516,19 @@ def make_frame_render_fn(variables, consts, rcfg: RenderConfig,
     """A function that renders a frame pre-tiled as (n_chunks, chunk, 3)
     ray tensors, one chunk after another, keeping only `output_keys`.
 
-    Returns fn(rays_o_t, rays_d_t, near, far) -> {name: (n_chunks, chunk, C?)}.
+    Returns fn(rays_o_t, rays_d_t, near, far, gt_t=None) -> {name:
+    (n_chunks, chunk, C?)}; gt_t is a dict of (n_chunks, chunk, C) gt
+    buffers, tiled as the rays are.
     """
     _check_supported(rcfg)
 
     @torch.no_grad()
-    def run(rays_o_t, rays_d_t, near, far):
+    def run(rays_o_t, rays_d_t, near, far, gt_t=None):
         outs = []
-        for ro, rd in zip(rays_o_t, rays_d_t):
+        for i, (ro, rd) in enumerate(zip(rays_o_t, rays_d_t)):
+            gt = {k: v[i] for k, v in gt_t.items()} if gt_t else None
             out = render_rays(variables, consts, make_ray_batch(ro, rd, near, far),
-                              rcfg)
+                              rcfg, gt_values=gt)
             if output_keys is not None:
                 out = {k: out[k] for k in output_keys if k in out}
             outs.append(out)
@@ -527,24 +546,29 @@ def _pad_tile(x: torch.Tensor, chunk: int) -> torch.Tensor:
     return x.reshape(-1, chunk, *x.shape[1:])
 
 
-def render_frame(fn, rays_o, rays_d, near, far, chunk: int):
-    """Drive a make_frame_render_fn function over flat (N, 3) rays: pad
-    to a chunk multiple, tile, run, un-tile. Returns {name: (N, C?)}."""
+def render_frame(fn, rays_o, rays_d, near, far, chunk: int, gt_values: dict | None = None):
+    """Drive a make_frame_render_fn function over flat (N, 3) rays and
+    (N, C) gt buffers: pad to a chunk multiple, tile, run, un-tile.
+    Returns {name: (N, C?)}."""
     n = rays_o.shape[0]
-    out = fn(_pad_tile(rays_o, chunk), _pad_tile(rays_d, chunk), near, far)
+    gt_t = {k: _pad_tile(v, chunk) for k, v in (gt_values or {}).items()}
+    out = fn(_pad_tile(rays_o, chunk), _pad_tile(rays_d, chunk), near, far, gt_t)
     return {k: v.reshape(-1, *v.shape[2:])[:n] for k, v in out.items()}
 
 
 @torch.no_grad()
 def render_image(variables, consts, H, W, K, c2w, near, far,
-                 rcfg: RenderConfig, chunk: int = 2048):
-    """Render a full image chunk by chunk; every per-ray map comes back
-    as (H, W, C?)."""
+                 rcfg: RenderConfig, gt_values: dict | None = None, chunk: int = 2048):
+    """Render a full image chunk by chunk; gt_values entries are flat
+    (H*W, C). Every per-ray map comes back as (H, W, C?)."""
     rays_o, rays_d = get_rays_full_image(H, W, K, c2w)
     rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
     n = rays_o.shape[0]
-    outs = [render_rays(variables, consts, make_ray_batch(ro, rd, near, far), rcfg)
-            for ro, rd in zip(_pad_tile(rays_o, chunk), _pad_tile(rays_d, chunk))]
+    gt_t = {k: _pad_tile(v, chunk) for k, v in (gt_values or {}).items()}
+    outs = [render_rays(variables, consts, make_ray_batch(ro, rd, near, far), rcfg,
+                        gt_values={k: v[i] for k, v in gt_t.items()} or None)
+            for i, (ro, rd) in enumerate(zip(_pad_tile(rays_o, chunk),
+                                             _pad_tile(rays_d, chunk)))]
     merged = {}
     for k in outs[0]:
         v = torch.cat([o[k] for o in outs], dim=0)[:n]

@@ -1,4 +1,5 @@
-"""Training: losses with the staged warm-up, and the train step."""
+"""Training: losses with the staged warm-up, the train step, checkpoints,
+health checks and the training driver (`train.loop`)."""
 
 from ibl_nerf_tpu_torch.train.losses import LossConfig, Phase, compute_losses, resolve_phase
 from ibl_nerf_tpu_torch.train.step import (

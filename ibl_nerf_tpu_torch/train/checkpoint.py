@@ -1,0 +1,95 @@
+"""Checkpoint / resume.
+
+Counterpart of ibl_nerf_tpu/train/checkpoint.py: checkpoints live in
+`{logdir}/ckpt_{step:06d}` and carry the params, the named Adam state,
+the step and the elapsed training time; restore takes an explicit path
+(`ft_path`) over a target step over the newest checkpoint in the logdir,
+and the learning-rate schedules continue from the restored Adam counts.
+
+Each directory holds one `torch.save` file, written to a temporary name
+and renamed, so a run killed mid-write leaves no half checkpoint. The
+saved step is the state's count of completed updates, so a restored run
+resumes at the first update the checkpoint does not contain.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+
+import torch
+
+from ibl_nerf_tpu_torch.train.step import GroupState, TrainState, _leaves, _unflatten
+
+_CKPT_RE = re.compile(r"ckpt_(\d+)$")
+STATE_FILE = "state.pt"
+
+
+def _ckpt_dir(logdir: str, step: int) -> str:
+    return os.path.join(os.path.abspath(logdir), f"ckpt_{step:06d}")
+
+
+def list_checkpoints(logdir: str) -> list[tuple[int, str]]:
+    """(step, path) of every checkpoint directory in `logdir`, oldest first."""
+    if not os.path.isdir(logdir):
+        return []
+    out = []
+    for name in sorted(os.listdir(logdir)):
+        m = _CKPT_RE.match(name)
+        if m:
+            out.append((int(m.group(1)), os.path.join(os.path.abspath(logdir), name)))
+    return sorted(out)
+
+
+def save_checkpoint(logdir: str, step: int, state: TrainState, elapsed_time: float) -> str:
+    """Write `state` to `{logdir}/ckpt_{step:06d}`; returns that path."""
+    path = _ckpt_dir(logdir, step)
+    os.makedirs(path, exist_ok=True)
+    payload = {
+        "variables": _unflatten(state.variables,
+                                [p.detach() for p in _leaves(state.variables)]),
+        "opt_state": {name: {"mu": st.mu, "nu": st.nu, "count": st.count, "seen": st.seen}
+                      for name, st in state.opt_state.items()},
+        "step": int(state.step),
+        "elapsed_time": float(elapsed_time),
+    }
+    tmp = os.path.join(path, f".{STATE_FILE}.{os.getpid()}.tmp")
+    torch.save(payload, tmp)
+    os.replace(tmp, os.path.join(path, STATE_FILE))
+    return path
+
+
+def restore_checkpoint(logdir: str, state: TrainState, ft_path: str | None = None,
+                       target_step: int = -1):
+    """Restore into the structure of `state`, on the device of its params.
+
+    Returns (state, elapsed_time, found); found=False leaves state
+    untouched (a fresh start when there is no checkpoint).
+    """
+    if ft_path and ft_path != "None":
+        path = ft_path
+    elif target_step > 0:
+        path = _ckpt_dir(logdir, target_step)
+    else:
+        ckpts = list_checkpoints(logdir)
+        if not ckpts:
+            return state, 0.0, False
+        path = ckpts[-1][1]
+
+    if not os.path.isdir(path):
+        return state, 0.0, False
+
+    leaves = _leaves(state.variables)
+    restored = torch.load(os.path.join(path, STATE_FILE), map_location=leaves[0].device,
+                          weights_only=True)
+    saved = _leaves(restored["variables"])
+    if [p.shape for p in saved] != [p.shape for p in leaves]:
+        raise ValueError(f"checkpoint {path} does not match the model's parameters")
+    variables = _unflatten(state.variables,
+                           [p.clone().requires_grad_(True) for p in saved])
+    opt_state = {name: GroupState(mu=st["mu"], nu=st["nu"], count=st["count"],
+                                  seen=st["seen"])
+                 for name, st in restored["opt_state"].items()}
+    new_state = TrainState(variables=variables, opt_state=opt_state,
+                           step=int(restored["step"]))
+    return new_state, float(restored["elapsed_time"]), True

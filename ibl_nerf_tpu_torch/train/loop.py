@@ -1,0 +1,382 @@
+"""The training driver.
+
+Counterpart of ibl_nerf_tpu/train/loop.py on one device: the scene
+loads once and moves to the device; the update indices 0..N_iter
+(inclusive, N_iter + 1 updates on a fresh run) are cut into phase
+segments at the staged-loss boundaries and the precrop end, with one
+train step per segment; every step draws from a generator seeded with
+(42 + seed, i). Every `summary_step` the scalars go to metrics.jsonl and
+the collapse check; every `i_weights` a checkpoint; every `i_testset`
+(past 0) a test-set render to PNGs; `time_limit_in_minute` stops early;
+`train_info_step_time.json` closes the run.
+
+Flags the port does not cover raise NotImplementedError naming the
+flag before the scene loads: more than one device or process, the aux
+MLPs (`infer_*`), the environment map, `init_port_path`, patch
+sampling, and the renderer's unported modes. A video export that would
+fall inside the run is refused once the resume point is known, before
+anything is written or the first step runs.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from dataclasses import replace as dataclasses_replace
+
+import numpy as np
+import torch
+
+from ibl_nerf_tpu_torch.data.brdf_lut import load_brdf_lut
+from ibl_nerf_tpu_torch.data.dataset import load_scene
+from ibl_nerf_tpu_torch.data.sampler import device_arrays_from_scene
+from ibl_nerf_tpu_torch.eval.render_path import render_path
+from ibl_nerf_tpu_torch.models.field import FieldConfig, init_field_params
+from ibl_nerf_tpu_torch.render.config import RenderConfig
+from ibl_nerf_tpu_torch.render.renderer import _check_supported
+from ibl_nerf_tpu_torch.train import checkpoint as ckpt_lib
+from ibl_nerf_tpu_torch.train import health
+from ibl_nerf_tpu_torch.train.losses import LossConfig, resolve_phase
+from ibl_nerf_tpu_torch.train.step import build_optimizer, init_train_state, make_train_step
+from ibl_nerf_tpu_torch.utils.device import resolve_device
+from ibl_nerf_tpu_torch.utils.logging import ScalarWriter, load_logger
+
+_AUX_FLAGS = ("infer_normal", "infer_depth", "infer_visibility", "infer_albedo_separate",
+              "infer_roughness_separate", "infer_irradiance_separate",
+              "use_environment_map")
+
+
+def field_config_from_args(args) -> FieldConfig:
+    # netdepth_fine/netwidth_fine are accepted but unread unless
+    # --use_fine_arch_flags, as in the reference
+    return FieldConfig(
+        depth=args.netdepth, width=args.netwidth,
+        multires=args.multires, multires_views=args.multires_views,
+        coarse_radiance_number=args.coarse_radiance_number,
+        color_independent_to_direction=args.color_independent_to_direction,
+    )
+
+
+def fine_field_config_from_args(args, fcfg: FieldConfig) -> FieldConfig | None:
+    """The fine network's own architecture under --use_fine_arch_flags;
+    None when it shares the coarse one."""
+    if not getattr(args, "use_fine_arch_flags", False):
+        return None
+    if args.netdepth_fine == fcfg.depth and args.netwidth_fine == fcfg.width:
+        return None
+    return dataclasses_replace(fcfg, depth=args.netdepth_fine, width=args.netwidth_fine)
+
+
+def render_config_from_args(args, fcfg: FieldConfig) -> RenderConfig:
+    return RenderConfig(
+        field=fcfg,
+        field_fine=fine_field_config_from_args(args, fcfg),
+        n_samples=args.N_samples,
+        n_importance=args.N_importance,
+        perturb=args.perturb > 0,
+        lindisp=args.lindisp,
+        raw_noise_std=args.raw_noise_std,
+        use_radiance_linear=args.use_radiance_linear,
+        gamma_correct=args.gamma_correct,
+        shading_mode=args.shading_mode,
+        mc_samples_axis=args.mc_samples_axis,
+        normal_type=args.calculating_normal_type,
+        epsilon=args.epsilon_for_numerical_normal,
+        epsilon_direction=args.epsilon_direction_for_numerical_normal,
+        lut_coefficient=args.lut_coefficient,
+        correct_depth_for_prefiltered_radiance_infer=(
+            args.correct_depth_for_prefiltered_radiance_infer),
+        use_gradient_for_incident_radiance=args.use_gradient_for_incident_radiance,
+        depth_map_from_ground_truth=args.depth_map_from_ground_truth,
+        calculate_albedo_from_gt=args.calculate_albedo_from_gt,
+        calculate_roughness_from_gt=args.calculate_roughness_from_gt,
+        calculate_irradiance_from_gt=args.calculate_irradiance_from_gt,
+        infer_normal=args.infer_normal,
+        infer_normal_at_surface=args.infer_normal_at_surface,
+        infer_depth=args.infer_depth,
+        infer_albedo_separate=args.infer_albedo_separate,
+        infer_roughness_separate=args.infer_roughness_separate,
+        infer_irradiance_separate=args.infer_irradiance_separate,
+        compute_dtype=args.compute_dtype,
+        use_pallas=args.use_pallas,
+        use_pallas_train=args.use_pallas_train,
+    )
+
+
+def loss_config_from_args(args) -> LossConfig:
+    return LossConfig(
+        beta_render=args.beta_render,
+        beta_radiance_render=args.beta_radiance_render,
+        beta_albedo_render=args.beta_albedo_render,
+        beta_inferred_normal=args.beta_inferred_normal,
+        beta_inferred_depth=args.beta_inferred_depth,
+        beta_sigma_depth=args.beta_sigma_depth,
+        beta_roughness_render=args.beta_roughness_render,
+        beta_prior_albedo=args.beta_prior_albedo,
+        beta_prior_irradiance=args.beta_prior_irradiance,
+        beta_irradiance_reg=args.beta_irradiance_reg,
+        n_iter_ignore_normal=args.N_iter_ignore_normal,
+        n_iter_ignore_depth=args.N_iter_ignore_depth,
+        n_iter_ignore_approximated_radiance=args.N_iter_ignore_approximated_radiance,
+        n_iter_ignore_prior=args.N_iter_ignore_prior,
+        coarse_radiance_number=args.coarse_radiance_number,
+        load_priors=args.load_priors,
+        albedo_prior_type=args.albedo_prior_type,
+        learn_albedo_from_oracle=args.learn_albedo_from_oracle,
+        initialize_roughness=args.initialize_roughness,
+        roughness_init=args.roughness_init,
+        infer_normal=args.infer_normal,
+        infer_normal_target=args.infer_normal_target,
+        infer_depth=args.infer_depth,
+        depth_map_from_ground_truth=args.depth_map_from_ground_truth,
+        train_depth_from_ground_truth=args.train_depth_from_ground_truth,
+        freeze_radiance=args.freeze_radiance,
+        freeze_roughness=args.freeze_roughness,
+    )
+
+
+def init_variables(seed: int, args, fcfg: FieldConfig, device) -> dict:
+    """The coarse and (with N_importance > 0) fine fields, drawn in that
+    order from a generator seeded with `seed`."""
+    rng = np.random.default_rng(seed)
+    variables = {"coarse": init_field_params(rng, fcfg, device)}
+    if args.N_importance > 0:
+        fcfg_fine = fine_field_config_from_args(args, fcfg) or fcfg
+        variables["fine"] = init_field_params(rng, fcfg_fine, device)
+    return variables
+
+
+def _panelize(stack, max_images: int = 4):
+    """Image stack (N,H,W,C)/(N,H,W) -> clipped NHWC batch for the
+    TensorBoard image panels."""
+    x = np.asarray(stack[:max_images], dtype=np.float32)
+    if x.ndim == 3:
+        x = x[..., None]
+    if x.shape[-1] == 1:
+        x = np.repeat(x, 3, axis=-1)
+    return np.clip(x, 0.0, 1.0)
+
+
+def _load_params(args):
+    return {
+        "image_scale": args.image_scale,
+        "coarse_radiance_number": args.coarse_radiance_number,
+        "near_plane": args.near_plane,
+        "far_plane": args.far_plane,
+        "load_depth_range_from_file": args.load_depth_range_from_file,
+        "load_priors": args.load_priors,
+        "prior_type": args.prior_type,
+    }
+
+
+def n_updates(args) -> int:
+    """The exclusive end of the update indices: N_iter + 1, or a bound
+    no run reaches under `time_limit_in_minute`."""
+    return 1000000 if args.time_limit_in_minute > 0 else args.N_iter + 1
+
+
+def check_supported_flags(args) -> None:
+    """Raise NotImplementedError naming the first flag the port's
+    trainer does not cover."""
+    def missing(flag, why=""):
+        raise NotImplementedError(f"--{flag} is not ported to ibl_nerf_tpu_torch yet{why}")
+
+    if args.mesh_devices > 1:
+        missing("mesh_devices", " (the port trains on one device)")
+    if args.num_processes > 1:
+        missing("num_processes", " (the port trains in one process)")
+    for flag in _AUX_FLAGS:
+        if getattr(args, flag):
+            missing(flag)
+    if args.init_port_path:
+        missing("init_port_path")
+    if args.ray_sample == "patch" and args.no_batching:
+        missing("ray_sample patch")
+    rcfg = render_config_from_args(args, field_config_from_args(args))
+    _check_supported(rcfg.replace(approximate_radiance=True))
+
+
+def check_video_schedule(args, start: int) -> None:
+    """Raise NotImplementedError when a test-set render of a run from
+    update `start` would export a video (`i_video` reached on an
+    `i_testset` update past 0)."""
+    first = -(-max(start, 1) // args.i_testset) * args.i_testset
+    for i in range(first, n_updates(args), args.i_testset):
+        if i % args.i_video == 0:
+            raise NotImplementedError(
+                f"--i_video: the test-set render at update {i} would export a video, "
+                "which is not ported to ibl_nerf_tpu_torch yet; raise --i_video above "
+                f"--N_iter ({args.N_iter})")
+
+
+def _step_generator(seed: int, i: int, device) -> torch.Generator:
+    """The generator of update i's draws, seeded from (42 + seed, i)."""
+    state = np.random.SeedSequence((42 + seed, i)).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state) >> 1)
+
+
+def train(args, device=None):
+    """Train from `args` (the CLI's namespace) on `device`, CUDA unless
+    the caller names another. Returns the final TrainState."""
+    device = resolve_device(device)
+    check_supported_flags(args)
+    logger = load_logger("train")
+    if getattr(args, "debug_nans", False):
+        torch.autograd.set_detect_anomaly(True)
+        logger.info("autograd anomaly detection enabled")
+    if args.ray_sample == "patch":  # without --no_batching (refused with it)
+        logger.warning("--ray_sample patch requires --no_batching (single-image "
+                       "sampling); ignoring patch mode")
+
+    # (1) data
+    t0 = time.time()
+    load_params = _load_params(args)
+    if args.dataset_type == "mitsuba":
+        load_params.update(load_normal=True, load_albedo=True,
+                           load_depth=args.depth_map_from_ground_truth
+                           or args.train_depth_from_ground_truth)
+    scene = load_scene(args.dataset_type, args.datadir, split="train", **load_params)
+    val_params = dict(load_params)
+    val_params["load_priors"] = False
+    if args.dataset_type == "mitsuba":
+        val_params.update(load_albedo=True, load_normal=True, load_irradiance=True,
+                          skip=args.testskip or 10)
+    else:
+        val_params["skip"] = 1
+    scene_val = load_scene(args.dataset_type, args.datadir, split="test", **val_params)
+    logger.info("data loaded in %.1fs: train %d, val %d imgs (%dx%d)",
+                time.time() - t0, len(scene), len(scene_val), scene.width, scene.height)
+
+    # (2) model + optimizer + restore
+    logdir = os.path.join(args.basedir, args.expname)
+    fcfg = field_config_from_args(args)
+    rcfg = render_config_from_args(args, fcfg)
+    lcfg = loss_config_from_args(args)
+    seed = int(getattr(args, "seed", 0) or 0)
+    variables = init_variables(seed, args, fcfg, device)
+    if not args.no_init_rejection:
+        variables = health.reject_dead_inits(
+            seed, variables, fcfg, health.probe_points_from_scene(scene),
+            fcfg_fine=fine_field_config_from_args(args, fcfg),
+            min_fracpos=float(args.init_reject_fracpos), logger=logger)
+    consts = {"brdf_lut": load_brdf_lut(device=device)}
+
+    optimizer = build_optimizer(
+        variables, lrate=args.lrate, lrate_decay=args.lrate_decay, lcfg=lcfg,
+        group_lr_overrides={"env_map": args.lrate_env_map},
+        normal_feeds_shading=args.calculating_normal_type == "inferred_normal_map")
+    state = init_train_state(variables, optimizer)
+    elapsed_time = 0.0
+    if not args.no_reload:
+        state, elapsed_time, found = ckpt_lib.restore_checkpoint(
+            logdir, state, ft_path=args.ft_path, target_step=args.target_load_N_iter)
+        if found:
+            logger.info("restored checkpoint at step %d (elapsed %.0fs)",
+                        state.step, elapsed_time)
+    # state.step counts completed updates: the run resumes at the first
+    # update the checkpoint does not contain
+    start = int(state.step)
+    check_video_schedule(args, start)
+
+    # (3) logdir
+    os.makedirs(logdir, exist_ok=True)
+    writer = ScalarWriter(logdir)
+
+    # (4) the dataset on the device
+    include = ("normal", "albedo", "roughness", "depth", "prior_albedo", "prior_irradiance")
+    arrays = device_arrays_from_scene(scene, include=include, device=device)
+
+    # (5) phase segmentation over update indices start..N_iter inclusive
+    n_iters = n_updates(args)
+    time_limit_sec = args.time_limit_in_minute * 60 if args.time_limit_in_minute > 0 else -1.0
+    boundaries = sorted({
+        0, start,
+        args.N_iter_ignore_approximated_radiance,
+        args.N_iter_ignore_prior,
+        args.N_iter_ignore_normal if args.infer_normal else 0,
+        args.N_iter_ignore_depth if args.infer_depth else 0,
+        args.precrop_iters,
+        n_iters,
+    })
+    boundaries = [b for b in boundaries if start <= b <= n_iters]
+    if not boundaries or boundaries[0] != start:
+        boundaries.insert(0, start)
+    if boundaries[-1] != n_iters:
+        boundaries.append(n_iters)
+
+    def save_ckpt(i):
+        path = ckpt_lib.save_checkpoint(logdir, i, state, elapsed_time)
+        logger.info("saved checkpoint %s", path)
+
+    def run_testset(i):
+        testdir = os.path.join(logdir, f"testset_{i:06d}")
+        results = render_path(state.variables, consts, scene_val,
+                              rcfg.replace(approximate_radiance=True), savedir=testdir,
+                              render_factor=args.render_factor)
+        logger.info("saved test set to %s", testdir)
+        coverage = health.testset_acc_coverage(results)
+        if coverage is not None:
+            health.check_collapse(coverage, i, logger, source="held-out testset")
+            writer.write(i, {"testset_acc_coverage": coverage})
+        for name in ("rgb", "albedo", "roughness", "irradiance", "radiance",
+                     "target_normal_map", "depth", "specular", "diffuse"):
+            if name in results:
+                writer.write_images(f"testset/{name}", _panelize(results[name]), i)
+
+    if start <= 1:
+        writer.write_images("gt/rgb", _panelize(scene.images), 0)
+        if scene.prefiltered_images is not None:
+            for lv in range(scene.prefiltered_images.shape[0]):
+                writer.write_images(f"gt/rgb_prefiltered_{lv + 1}",
+                                    _panelize(scene.prefiltered_images[lv]), 0)
+        for name, buf in scene.gt_buffers().items():
+            writer.write_images(f"gt/{name}", _panelize(buf), 0)
+
+    stop_training = False
+    collapse_warned = False  # warn loudly once, keep logging the scalar
+    global_step = start
+    for seg_start, seg_end in zip(boundaries[:-1], boundaries[1:]):
+        if stop_training or seg_start >= seg_end:
+            continue
+        phase = resolve_phase(seg_start, lcfg)
+        step_fn = make_train_step(
+            rcfg, lcfg, phase, optimizer, consts, scene.height, scene.width, args.N_rand,
+            prior_irradiance_mean=scene.prior_irradiance_mean, near=scene.near,
+            far=scene.far, precrop=seg_start < args.precrop_iters,
+            precrop_frac=args.precrop_frac, merged_sampling=not args.no_batching)
+        logger.info("phase segment [%d, %d): %s", seg_start, seg_end, phase)
+
+        for i in range(seg_start, seg_end):
+            it_t0 = time.time()
+            state, scalars = step_fn(state, arrays,
+                                     generator=_step_generator(seed, i, device))
+
+            if i % args.summary_step == 0:
+                scalars = {k: float(v) for k, v in scalars.items()}
+                writer.write(i, {**scalars, "elapsed_time": elapsed_time})
+                logger.info("iter %d loss %.5f", i, scalars["loss_total"])
+                if "acc_mean" in scalars and i > 0:
+                    hit = health.check_collapse(scalars["acc_mean"], i,
+                                                logger if not collapse_warned else None)
+                    collapse_warned |= hit
+
+            elapsed_time += time.time() - it_t0
+            global_step = i + 1
+
+            if time_limit_sec > 0 and elapsed_time > time_limit_sec:
+                logger.info("time limit reached (%.0fs)", elapsed_time)
+                run_testset(i)
+                save_ckpt(i)
+                stop_training = True
+                break
+
+            if i % args.i_weights == 0:
+                save_ckpt(i)
+            if i % args.i_testset == 0 and i > 0:
+                run_testset(i)
+
+    with open(os.path.join(logdir, "train_info_step_time.json"), "w") as f:
+        json.dump({"training_time": elapsed_time, "global_step": global_step}, f, indent=4)
+    writer.close()
+    return state

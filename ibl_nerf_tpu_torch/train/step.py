@@ -11,8 +11,9 @@ jitted JAX step owns the buffers it donates.
 Random draws (image and pixel indices, stratified jitter, importance
 uniforms) come from a `torch.Generator` on the data's device, or are
 passed in as a dict (`TrainStep.draw`) so that two steps can share
-them. `patch` and `merged` sampling and the depth-volume pass of the
-depth-distillation loss are not ported yet.
+them. Sampling is single-image or merged (an image per ray); the pixel
+batch doubles as the renderer's gt inputs. `patch` sampling and the
+depth-volume pass of the depth-distillation loss are not ported yet.
 """
 
 from __future__ import annotations
@@ -207,13 +208,14 @@ def loss_from_batch(variables, consts, pixel_info, rays_o, rays_d,
                     rcfg_phase: RenderConfig, lcfg: LossConfig, phase: Phase,
                     prior_irradiance_mean: float, near, far,
                     draws: dict | None = None):
-    """Render + loss for an already-sampled pixel batch; `draws` as
-    `render_rays` takes them."""
+    """Render + loss for an already-sampled pixel batch, which is also the
+    renderer's gt inputs; `draws` as `render_rays` takes them."""
     if phase.depth_loss_on and "normal" in pixel_info:
         raise NotImplementedError("the depth-volume pass of the depth loss is "
                                   "not ported to ibl_nerf_tpu_torch yet")
     batch = make_ray_batch(rays_o, rays_d, near, far)
-    result = render_rays(variables, consts, batch, rcfg_phase, draws=draws)
+    result = render_rays(variables, consts, batch, rcfg_phase, draws=draws,
+                         gt_values=pixel_info)
     return compute_losses(result, pixel_info, lcfg, phase, prior_irradiance_mean, far)
 
 
@@ -223,19 +225,21 @@ class TrainStep:
     returns (state, scalars)."""
 
     def __init__(self, rcfg, lcfg, phase, optimizer, consts, H, W, batch_size,
-                 prior_irradiance_mean, near, far, precrop, precrop_frac):
+                 prior_irradiance_mean, near, far, precrop, precrop_frac,
+                 merged_sampling=False):
         self.rcfg = phase_render_config(rcfg, phase)
         self.lcfg, self.phase, self.optimizer, self.consts = lcfg, phase, optimizer, consts
         self.H, self.W, self.batch_size = H, W, batch_size
         self.prior_irradiance_mean, self.near, self.far = prior_irradiance_mean, near, far
         self.precrop, self.precrop_frac = precrop, precrop_frac
+        self.merged_sampling = merged_sampling
 
     def draw(self, arrays: dict, generator: torch.Generator | None = None) -> dict:
         """Every random number of one step: {"pixels": ..., "render": ...}."""
         images = arrays["images"]
         draws = {"pixels": draw_pixels(images.shape[0], self.batch_size, self.H, self.W,
                                        images.device, generator, self.precrop,
-                                       self.precrop_frac)}
+                                       self.precrop_frac, self.merged_sampling)}
         if self.rcfg.perturb:
             draws["render"] = draw_render_uniforms(self.batch_size, self.rcfg,
                                                    images.device, generator)
@@ -245,7 +249,7 @@ class TrainStep:
         """(total, scalars) of one batch, with a graph to the params."""
         pixel_info, rays_o, rays_d = sample_pixel_batch(
             arrays, self.batch_size, self.H, self.W, self.precrop,
-            self.precrop_frac, draws=draws["pixels"])
+            self.precrop_frac, merged=self.merged_sampling, draws=draws["pixels"])
         return loss_from_batch(variables, self.consts, pixel_info, rays_o, rays_d,
                                self.rcfg, self.lcfg, self.phase,
                                self.prior_irradiance_mean, self.near, self.far,
@@ -289,12 +293,11 @@ def make_train_step(
     merged_sampling: bool = False,
     patch: bool = False,
 ) -> TrainStep:
-    """The train step of one phase; it updates its state in place. The
-    depth-volume pass is not ported: the step raises when its loss is
-    on."""
+    """The train step of one phase; it updates its state in place.
+    merged_sampling draws an image per ray. The depth-volume pass is not
+    ported: the step raises when its loss is on."""
     if patch:
         raise NotImplementedError("patch sampling is not ported to ibl_nerf_tpu_torch yet")
-    if merged_sampling:
-        raise NotImplementedError("merged sampling is not ported to ibl_nerf_tpu_torch yet")
     return TrainStep(rcfg, lcfg, phase, optimizer, consts, H, W, batch_size,
-                     prior_irradiance_mean, near, far, precrop, precrop_frac)
+                     prior_irradiance_mean, near, far, precrop, precrop_frac,
+                     merged_sampling)

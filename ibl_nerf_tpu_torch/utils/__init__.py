@@ -1,4 +1,5 @@
-"""Utilities: device selection and weight conversion."""
+"""Utilities: device selection, weight conversion, logging and the PNG
+encoder."""
 
 from ibl_nerf_tpu_torch.utils.device import pin_f32_matmul, resolve_device
 from ibl_nerf_tpu_torch.utils.port import (

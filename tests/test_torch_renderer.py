@@ -220,13 +220,13 @@ def test_render_path(setup):
 @pytest.mark.parametrize("kw,mode", [
     (dict(normal_type="normal_map_from_depth_gradient_direction"), "normal_type"),
     (dict(normal_type="normal_map_from_depth_gradient"), "normal_type"),
-    (dict(normal_type="ground_truth"), "normal_type"),
+    (dict(normal_type="inferred_normal_map"), "normal_type"),
     (dict(shading_mode="monte_carlo"), "monte_carlo"),
     (dict(edit=EditConfig()), "edit"),
     (dict(infer_normal=True), "infer_normal"),
     (dict(infer_depth=True), "infer_depth"),
-    (dict(calculate_albedo_from_gt=True), "calculate_albedo_from_gt"),
-    (dict(depth_map_from_ground_truth=True), "depth_map_from_ground_truth"),
+    (dict(infer_albedo_separate=True), "infer_albedo_separate"),
+    (dict(infer_roughness_separate=True), "infer_roughness_separate"),
     (dict(raw_noise_std=0.5), "raw_noise_std"),
     (dict(compute_dtype="float64", use_pallas=True), "float64 with use_pallas"),
     (dict(infer_irradiance_separate=True), "infer_irradiance_separate"),
@@ -261,7 +261,5 @@ def test_normal_estimator_key_only_for_normal_map_types(normal_type, aliased):
 def test_render_path_uncovered_options_raise(setup):
     _, tvars, _, tconsts, _, _ = setup
     _, tr = _cfgs()
-    with pytest.raises(NotImplementedError, match="savedir"):
-        render_path(tvars, tconsts, _Scene(), tr, savedir="out")
     with pytest.raises(NotImplementedError, match="fast"):
         render_path(tvars, tconsts, _Scene(), tr, fast=False)

@@ -267,10 +267,8 @@ def test_train_step_uncovered_modes_raise(scene):
     _, tv = _variables(4)
     opt = tstep.build_optimizer(tv, lcfg=tl)
     phase = tlosses.resolve_phase(50000, tl)
-    for mode in ("patch", "merged_sampling"):
-        with pytest.raises(NotImplementedError, match=mode.split("_")[0]):
-            tstep.make_train_step(tr, tl, phase, opt, tc, H, W, B, 0.7, NEAR, FAR,
-                                  **{mode: True})
+    with pytest.raises(NotImplementedError, match="patch"):
+        tstep.make_train_step(tr, tl, phase, opt, tc, H, W, B, 0.7, NEAR, FAR, patch=True)
     depth = tlosses.LossConfig(**LOSS, infer_depth=True, n_iter_ignore_depth=0)
     with pytest.raises(NotImplementedError, match="depth-volume"):
         tstep.loss_from_batch(tv, tc, {"normal": None}, None, None, tr, depth,
