@@ -64,6 +64,22 @@ Phases, one JSON line each; any failure exits non-zero:
           starting at update 31, every PNG decoding at 480x640. Prints the
           scene's decode and pyramid times, ms per step and train rays/s
           (each step synchronised), the render's time and peak memory.
+  eval_cli  on train_cli's newest checkpoint (ckpt_000030) and scene,
+          through the CLIs' `main`s with --use_pallas --use_pallas_train
+          and the defaults otherwise: `cli.test` at 480x640 with
+          --extract_mesh (one K1 full and one K2 launch per 2048-ray
+          chunk, no K1 density; 20 or more PNGs decoding at 480x640; the
+          rgb's psnr and ssim against the test image, the mesh's grid
+          and marching-cubes seconds and vertex count); an edit (albedo
+          and roughness constants on object 1) and an insert into test
+          frame 1, each equal bit for bit to the plain render outside
+          the mask and to its targets inside; normal_map_from_depth_
+          gradient at render factor 4 (unit-norm, finite normals); and
+          `cli.render` over a 3-frame orbit at render factor 2 (ε normals:
+          one K1 density launch per chunk besides K1 full and K2; its
+          rgb.avi, parsed here, holds the rgb stack). Prints the seconds
+          per 480x640 image, of the edit and the insert, per orbit frame
+          and of the mesh.
 Weights are random from a seed. Then the per-kernel JSON line, the card
 line, and the ok line last. Every number printed is measured in this
 run, on this card.
@@ -76,6 +92,7 @@ import json
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -84,10 +101,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ibl_nerf_tpu_torch.cli import render as cli_render
+from ibl_nerf_tpu_torch.cli import test as cli_test
 from ibl_nerf_tpu_torch.cli import train as cli_train
 from ibl_nerf_tpu_torch.data import dataset as dataset_mod
 from ibl_nerf_tpu_torch.data import native_loader
 from ibl_nerf_tpu_torch.data.brdf_lut import load_brdf_lut
+from ibl_nerf_tpu_torch.eval.metrics import batch_metrics
 from ibl_nerf_tpu_torch.eval.render_path import render_path
 from ibl_nerf_tpu_torch.kernels import build as kernel_build
 from ibl_nerf_tpu_torch.kernels import fused_field as ff
@@ -108,6 +128,7 @@ from ibl_nerf_tpu_torch.train import (
 from ibl_nerf_tpu_torch.train import loop as loop_mod
 from ibl_nerf_tpu_torch.train.step import _leaves
 from ibl_nerf_tpu_torch.utils.device import resolve_device
+from ibl_nerf_tpu_torch.utils import mesh_extract
 from ibl_nerf_tpu_torch.utils.png import write_png
 
 # H100 SXM data-sheet rates at the full 700 W: f32 outside the tensor
@@ -173,6 +194,13 @@ CLI_TRAIN_IMAGES, CLI_TEST_IMAGES = 8, 2
 CLI_RAYS, CLI_CHUNK = 4096, 2048
 CLI_SWITCH, CLI_N_ITER, CLI_RESUME_N_ITER = 10, 30, 35
 CLI_PROFILED = 20  # the update whose step runs under torch.profiler
+# The eval_cli phase: the test and render CLIs on train_cli's newest
+# checkpoint and scene. Test frame 1 holds one object, a rectangle at gray
+# 10/255, in its edit and insert masks.
+EVAL_MASK = (slice(120, 300), slice(200, 440))
+EVAL_ALBEDO, EVAL_ROUGHNESS = (0.9, 0.2, 0.1), 0.8
+INSERT_ALBEDO, INSERT_ROUGHNESS, INSERT_IRRADIANCE = (0.3, 0.6, 0.9), 0.2, 0.7
+DGRAD_FACTOR, ORBIT_FRAMES, ORBIT_FACTOR = 4, 3, 2
 
 
 def emit(phase: str, **fields) -> None:
@@ -1125,6 +1153,8 @@ def write_cli_scene(root: Path, seed: int = SEED) -> float:
             png(d / f"{i}.png", img)
             png(d / f"{i}_normal.png", normal)
             png(d / f"{i}_albedo.png", img * 0.8)
+            if split == "test" and i == 1:
+                write_eval_buffers(d)
             if "irradiance" in extra:
                 png(d / f"{i}_irradiance.png", np.repeat((0.5 + 0.2 * yy / TRAIN_H)[..., None], 3, -1))
             a = 0.4 * (i - 1) / max(count - 1, 1) - 0.2
@@ -1133,6 +1163,20 @@ def write_cli_scene(root: Path, seed: int = SEED) -> float:
         with open(root / f"transforms_{split}.json", "w") as f:
             json.dump({"frames": frames}, f)
     return time.perf_counter() - t0
+
+
+def write_eval_buffers(d: Path) -> None:
+    """Test frame 1's edit and insert inputs: both masks hold one object
+    (gray 10/255 in EVAL_MASK), the insert depth is 3.0 there and its
+    normal +y."""
+    mask = np.zeros((TRAIN_H, TRAIN_W, 3), np.uint8)
+    mask[EVAL_MASK] = 10
+    write_png(str(d / "1_edit_intrinsic_mask.png"), mask)
+    write_png(str(d / "1_insert_mask.png"), mask)
+    np.save(d / "1_insert_depth.npy", np.full((TRAIN_H, TRAIN_W), 3.0, np.float32))
+    normal = np.zeros((TRAIN_H, TRAIN_W, 3), np.uint8)
+    normal[...] = (128, 255, 128)
+    write_png(str(d / "1_insert_normal.png"), normal)
 
 
 def _launch_counts() -> dict:
@@ -1310,6 +1354,188 @@ def train_cli_phase(kernels, card: str) -> dict:
     return report
 
 
+def eval_argv(*extra) -> list[str]:
+    """The test and render CLIs' flags on train_cli's run: its scene,
+    logdir, field and samples, K1 and K2/K3 on, the defaults otherwise
+    (gt normals, bf16_grad, render factor 1)."""
+    return ["--datadir", str(CLI_DIR / "scene"), "--basedir", str(CLI_DIR / "logs"),
+            "--expname", "train_cli", "--use_pallas", "--use_pallas_train",
+            "--coarse_radiance_number", "3", "--N_samples", "64", "--N_importance", "128",
+            "--load_depth_range_from_file", *extra]
+
+
+@contextlib.contextmanager
+def eval_probes(record: dict):
+    """Within the block, the CLIs' renders, the mesh's density grid and
+    its marching cubes are timed (synchronised on the device first) into
+    `record`."""
+    originals = {(cli_test, "render_path"): cli_test.render_path,
+                 (cli_render, "render_path"): cli_render.render_path,
+                 (mesh_extract, "query_density_grid"): mesh_extract.query_density_grid,
+                 (mesh_extract, "marching_cubes"): mesh_extract.marching_cubes}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            record.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return run
+
+    for (mod, name), fn in originals.items():
+        setattr(mod, name, timed("render" if name == "render_path" else name, fn))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
+
+
+def read_avi(path: Path) -> tuple[np.ndarray, float]:
+    """(frames (N, H, W, 3) RGB uint8, fps) of an uncompressed 24-bit AVI."""
+    data = path.read_bytes()
+    if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
+        raise ValueError(f"{path} is not an AVI file")
+    i = data.index(b"strh")
+    scale, rate = struct.unpack("<II", data[i + 28:i + 36])
+    fps = rate / scale
+    i = data.index(b"strf")
+    _, w, h = struct.unpack("<Iii", data[i + 8:i + 20])
+    row, frames, pos = (3 * w + 3) // 4 * 4, [], data.index(b"movi") + 4
+    while data[pos:pos + 4] == b"00db":
+        n = struct.unpack("<I", data[pos + 4:pos + 8])[0]
+        img = np.frombuffer(data, np.uint8, n, pos + 8).reshape(abs(h), row)[:, :3 * w]
+        img = img.reshape(abs(h), w, 3)[..., ::-1]
+        frames.append(img if h < 0 else img[::-1])
+        pos += 8 + n + n % 2
+    return np.stack(frames), fps
+
+
+def eval_cli_phase(kernels, card: str) -> dict:
+    """The test and render CLIs on train_cli's newest checkpoint; see
+    the module docstring for its gates."""
+    phase = "eval_cli"
+    record, runs, totals = {}, {}, {k: 0 for k in _launch_counts()}
+
+    def run(name, fn, argv, expect_per_chunk, n_chunks):
+        for c in (ff.LAUNCHES, fft.LAUNCHES):
+            for k in c:
+                c[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with eval_probes(record):
+            results = fn(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _launch_counts()
+        for k, v in launches.items():
+            totals[k] += v
+        want = {k: v * n_chunks for k, v in expect_per_chunk.items()}
+        got = {k: v for k, v in launches.items() if v}
+        if got != want:
+            fail(phase, f"{name} launched {got}, expected {want} ({expect_per_chunk} in each "
+                 f"of {n_chunks} chunks) and nothing else")
+        for k, v in results.items():
+            if not np.isfinite(v).all():
+                fail(phase, f"{name}: buffer {k} has non-finite values")
+        runs[name] = {"s": seconds, "render_s": record["render"][-1], "chunks": n_chunks,
+                      "launches": got}
+        return results
+
+    full_chunks = -(-TRAIN_H * TRAIN_W // CLI_CHUNK)
+    primary = {"fused_field_apply": 1, "fused_field_train_fwd": 1}  # reflected + primary march
+
+    # cli.test at 480x640 with the mesh: one K1 full and one K2 a chunk, no K1 density
+    plain = run("test", cli_test.main, eval_argv("--extract_mesh"), primary, full_chunks)
+    testdir = CLI_DIR / "logs_eval" / "train_cli" / f"testset_{CLI_N_ITER:06d}"
+    pngs = sorted(testdir.glob("*.png"))
+    if len(pngs) < 20 or any(native_loader.probe_png(str(p))[:2] != (TRAIN_H, TRAIN_W)
+                             for p in pngs):
+        fail(phase, f"{len(pngs)} PNGs in {testdir}, or one not {TRAIN_H}x{TRAIN_W}")
+    decoded = native_loader.batch_load_png_rgb([str(p) for p in pngs], TRAIN_H, TRAIN_W)
+    if not np.isfinite(decoded).all():
+        fail(phase, "a test-set PNG decodes to non-finite values")
+    gt = native_loader.batch_load_png_rgb([str(CLI_DIR / "scene" / "test" / "1.png")],
+                                          TRAIN_H, TRAIN_W)
+    metrics = batch_metrics(plain["rgb"], gt)
+    mesh = (testdir / "mesh.obj").read_text().splitlines()
+    n_verts = sum(ln.startswith("v ") for ln in mesh)
+    n_faces = sum(ln.startswith("f ") for ln in mesh)
+
+    # edit and insert on frame 1: outside the mask every buffer is the plain
+    # render's, bit for bit; inside, the intrinsics are their targets
+    outside = np.ones((TRAIN_H, TRAIN_W), bool)
+    outside[EVAL_MASK] = False
+    albedo_flags = sum((["--editing_target_albedo_list", str(v)] for v in EVAL_ALBEDO), [])
+    edited = run("edit", cli_test.main, eval_argv(
+        "--edit_intrinsic", "--editing_img_idx", "1", "--edit_albedo", "--edit_roughness",
+        *albedo_flags, "--editing_target_roughness_list", str(EVAL_ROUGHNESS),
+        "--export_basedir", str(CLI_DIR / "eval_edit")), primary, full_chunks)
+    insert_flags = sum((["--inserting_target_albedo_list", str(v)] for v in INSERT_ALBEDO), [])
+    inserted = run("insert", cli_test.main, eval_argv(
+        "--insert_object", "--inserting_img_idx", "1", *insert_flags,
+        "--inserting_target_roughness_list", str(INSERT_ROUGHNESS),
+        "--inserting_target_irradiance_list", str(INSERT_IRRADIANCE),
+        "--export_basedir", str(CLI_DIR / "eval_insert")), primary, full_chunks)
+    targets = {"edit": (edited, {"albedo": EVAL_ALBEDO, "roughness": EVAL_ROUGHNESS}),
+               "insert": (inserted, {"albedo": INSERT_ALBEDO, "roughness": INSERT_ROUGHNESS,
+                                     "irradiance": INSERT_IRRADIANCE})}
+    for name, (res, want) in targets.items():
+        if set(res) != set(plain):
+            fail(phase, f"{name}: buffers {sorted(res)} against {sorted(plain)}")
+        for k, v in res.items():
+            if not np.array_equal(v[0][outside], plain[k][0][outside]):
+                fail(phase, f"{name}: {k} differs from the plain render outside the mask")
+        for k, target in want.items():
+            inside = res[k][0][EVAL_MASK]
+            err = float(np.abs(inside - np.asarray(target, np.float32)).max())
+            if err > 1e-6:
+                fail(phase, f"{name}: {k} inside the mask is {err:.3e} from its target")
+
+    # autograd depth-gradient normals at render factor 4: eager forward mode
+    h4, w4 = TRAIN_H // DGRAD_FACTOR, TRAIN_W // DGRAD_FACTOR
+    dgrad = run("depth_gradient", cli_test.main, eval_argv(
+        "--calculating_normal_type", "normal_map_from_depth_gradient",
+        "--render_factor", str(DGRAD_FACTOR), "--export_basedir", str(CLI_DIR / "eval_dgrad")),
+        primary, -(-h4 * w4 // CLI_CHUNK))
+    normal = 2.0 * dgrad["target_normal_map"] - 1.0
+    norm_err = float(np.abs(np.linalg.norm(normal, axis=-1) - 1.0).max())
+    if normal.shape != (1, h4, w4, 3) or not norm_err < 1e-4:
+        fail(phase, f"depth-gradient normals {normal.shape}, | |n| - 1 | up to {norm_err}")
+
+    # cli.render: a 3-frame orbit, ε normals in place of the gt ones (K1 density)
+    h2, w2 = TRAIN_H // ORBIT_FACTOR, TRAIN_W // ORBIT_FACTOR
+    orbit = run("render", cli_render.main, eval_argv(
+        "--orbit_frames", str(ORBIT_FRAMES), "--render_factor", str(ORBIT_FACTOR)),
+        {**primary, "fused_field_density": 1}, ORBIT_FRAMES * -(-h2 * w2 // CLI_CHUNK))
+    orbit_dir = CLI_DIR / "logs" / "train_cli" / f"orbit_{CLI_N_ITER:06d}"
+    frames, fps = read_avi(orbit_dir / "rgb.avi")
+    want = (np.clip(orbit["rgb"], 0, 1) * 255).astype(np.uint8)
+    if fps != 30.0 or frames.shape != (ORBIT_FRAMES, h2, w2, 3) or not np.array_equal(
+            frames, want):
+        fail(phase, f"rgb.avi: {frames.shape} at {fps} fps does not hold the rgb stack")
+
+    for row in kernels:
+        row.setdefault("launches_by_phase", {})[phase] = totals[row["name"]]
+    report = dict(
+        card=card, checkpoint=f"ckpt_{CLI_N_ITER:06d}", height=TRAIN_H, width=TRAIN_W,
+        test_s_per_image=runs["test"]["render_s"], test_run_s=runs["test"]["s"],
+        psnr=metrics["psnr"], ssim=metrics["ssim"], pngs=len(pngs),
+        mesh_grid_s=record["query_density_grid"][0], mesh_marching_cubes_s=record[
+            "marching_cubes"][0], mesh_vertices=n_verts, mesh_faces=n_faces,
+        edit_s=runs["edit"]["s"], edit_render_s=runs["edit"]["render_s"],
+        insert_s=runs["insert"]["s"], insert_render_s=runs["insert"]["render_s"],
+        depth_gradient_render_s=runs["depth_gradient"]["render_s"],
+        depth_gradient_size=[h4, w4], normal_unit_err=norm_err,
+        orbit_s_per_frame=runs["render"]["render_s"] / ORBIT_FRAMES,
+        orbit_size=[h2, w2], orbit_run_s=runs["render"]["s"], avi_frames=len(frames),
+        runs=runs, launches=totals)
+    emit(phase, **report)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1354,6 +1580,7 @@ def main() -> int:
     train_mixed_phase(cfg, consts, card)
     torch.cuda.empty_cache()
     train_cli_phase(kernels, card)
+    eval_cli_phase(kernels, card)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -11,9 +11,13 @@ Covered so far, in every compute mode of the JAX renderer (`float32`,
 scene directory through the CLI (`cli.train` → `train.loop.train`:
 `data.dataset.load_scene` with the native PNG decoder, the prefiltered
 pyramid, phase segments, checkpoints, health checks, test-set renders
-to PNGs), split-sum inference rendering (`eval.render_path` →
-`render.render_rays`, ε, sgs or gt normals and the gt substitutions,
-the BRDF-LUT fetch, the reflected march and mip interpolation), and the
+to PNGs and AVI videos), evaluation through the CLIs (`cli.test` with
+material editing, object insertion and mesh export; `cli.render`
+trajectories; `cli.port_checkpoint`, `cli.preprocess`,
+`eval.metrics`), split-sum inference rendering (`eval.render_path` →
+`render.render_rays`, ε, autograd depth-gradient, sgs or gt normals,
+the gt substitutions and the edit overrides, the BRDF-LUT fetch, the
+reflected march and mip interpolation), and the
 train step (`train.make_train_step`: single-image or merged pixel
 sampling, the gradient path with random draws, the staged losses,
 named-group Adam). The no-grad sweeps run on the hand-written CUDA

@@ -1,15 +1,15 @@
 """Full test-path rendering with per-buffer PNG export.
 
-Counterpart of ibl_nerf_tpu/eval/render_path.py on its fast path: every
+Counterpart of ibl_nerf_tpu/eval/render_path.py: on the fast path every
 pose is rendered as one whole frame with the coarse pass density-only
-and only the exported buffers kept, with the same display transforms
-(normals -> (n+1)/2, depth -> disparity via far*0.1), the `acc`
-coverage buffer and the screen-space normal-from-depth buffer. The
-scene's gt buffers go to the renderer per pose (shrunk with INTER_AREA
-at render_factor > 1), and with `savedir` every buffer is written as
-`{name}_{idx:03d}.png` through the port's own PNG encoder.
-
-Not ported yet: the `fast=False` per-chunk path.
+and only the exported buffers kept; with `fast=False` chunk by chunk
+through `render_image` with the coarse pass shaded. Both give the same
+display transforms (normals -> (n+1)/2, depth -> disparity via
+far*0.1), the `acc` coverage buffer and the screen-space
+normal-from-depth buffer. The scene's gt buffers go to the renderer per
+pose (shrunk with INTER_AREA at render_factor > 1), and with `savedir`
+every buffer is written as `{name}_{idx:03d}.png` through the port's
+own PNG encoder.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ from ibl_nerf_tpu_torch.data.resize import resize
 from ibl_nerf_tpu_torch.ops.color import to8b
 from ibl_nerf_tpu_torch.ops.geometry import depth_to_normal_image_space
 from ibl_nerf_tpu_torch.ops.rays import get_rays_full_image
-from ibl_nerf_tpu_torch.render.renderer import make_frame_render_fn, render_frame
+from ibl_nerf_tpu_torch.render.renderer import (make_frame_render_fn, render_frame,
+                                                render_image)
 from ibl_nerf_tpu_torch.utils.png import write_png
 
 # result key -> export name (order matches the reference's exports)
@@ -87,10 +88,12 @@ def render_path(
     the device of `consts["brdf_lut"]`. render_factor > 1 renders
     downsampled (focal rescaled). With `savedir` each buffer of each
     pose is also written there as a PNG.
+
+    fast=True renders each frame through make_frame_render_fn with the
+    coarse pass weights-only and only the exported buffers kept; every
+    exported buffer equals the fast=False render, which shades the
+    coarse pass too and renders chunk by chunk through render_image.
     """
-    if not fast:
-        raise NotImplementedError("fast=False is not ported to "
-                                  "ibl_nerf_tpu_torch yet")
     H, W, focal = scene.height, scene.width, scene.focal
     if render_factor not in (0, 1):
         H, W, focal = H // render_factor, W // render_factor, focal / render_factor
@@ -104,13 +107,14 @@ def render_path(
     render_poses = poses if poses is not None else scene.poses
 
     kk = rcfg.field.coarse_radiance_number
-    export_keys = tuple(k for k, _ in _EXPORTS) + ("acc_map",) + tuple(
-        f"radiance_map_{k + 1}" for k in range(kk)) + tuple(
-        f"reflected_coarse_radiance_map_{k + 1}" for k in range(kk))
-    frame_fn = make_frame_render_fn(
-        variables, consts,
-        rcfg.replace(perturb=False, raw_noise_std=0.0, coarse_shading=False),
-        output_keys=export_keys)
+    rcfg_test = rcfg.replace(perturb=False, raw_noise_std=0.0)
+    if fast:
+        export_keys = tuple(k for k, _ in _EXPORTS) + ("acc_map",) + tuple(
+            f"radiance_map_{k + 1}" for k in range(kk)) + tuple(
+            f"reflected_coarse_radiance_map_{k + 1}" for k in range(kk))
+        frame_fn = make_frame_render_fn(
+            variables, consts, rcfg_test.replace(coarse_shading=False),
+            output_keys=export_keys)
 
     results: dict[str, list] = {}
 
@@ -130,10 +134,14 @@ def render_path(
     for i, c2w in enumerate(render_poses):
         gt_i = _resize_gt(gt_buffers, i, factor, device) if gt_buffers else None
         c2w = torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4], device=device)
-        ro, rd = get_rays_full_image(H, W, K, c2w)
-        res = render_frame(frame_fn, ro.reshape(-1, 3), rd.reshape(-1, 3),
-                           scene.near, scene.far, chunk, gt_values=gt_i)
-        res = {k: v.reshape(H, W, *v.shape[1:]) for k, v in res.items()}
+        if fast:
+            ro, rd = get_rays_full_image(H, W, K, c2w)
+            res = render_frame(frame_fn, ro.reshape(-1, 3), rd.reshape(-1, 3),
+                               scene.near, scene.far, chunk, gt_values=gt_i)
+            res = {k: v.reshape(H, W, *v.shape[1:]) for k, v in res.items()}
+        else:
+            res = render_image(variables, consts, H, W, K, c2w, scene.near, scene.far,
+                               rcfg_test, gt_values=gt_i, chunk=chunk)
 
         for key_name, out_name in _EXPORTS:
             append(res, key_name, i, out_name)

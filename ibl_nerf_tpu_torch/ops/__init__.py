@@ -17,4 +17,5 @@ from ibl_nerf_tpu_torch.ops.shading import fresnel_schlick_roughness, reflect
 from ibl_nerf_tpu_torch.ops.geometry import (
     depth_to_position,
     depth_to_normal_image_space,
+    pose_spherical,
 )

@@ -1,12 +1,14 @@
-"""Depth -> position / screen-space normal.
+"""Depth -> position / screen-space normal, and spherical camera poses.
 
-Counterpart of `depth_to_position` and `depth_to_normal_image_space` in
-ibl_nerf_tpu/ops/geometry.py. The tangent frames and hemisphere
-samplers of the Monte-Carlo estimator are not ported yet.
+Counterpart of `depth_to_position`, `depth_to_normal_image_space` and
+`pose_spherical` in ibl_nerf_tpu/ops/geometry.py. The tangent frames
+and hemisphere samplers of the Monte-Carlo estimator are not ported
+yet.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -47,3 +49,29 @@ def depth_to_normal_image_space(depth: torch.Tensor, c2w: torch.Tensor,
     va = _normalize(right - left)
     vb = _normalize(bottom - up)
     return _normalize(torch.linalg.cross(vb, va, dim=-1))
+
+
+def pose_spherical(theta: float, phi: float, radius: float) -> np.ndarray:
+    """(4, 4) float32 camera-to-world on a sphere of `radius`: azimuth
+    `theta` and elevation `phi` in degrees, looking at the origin."""
+    trans = np.eye(4, dtype=np.float32)
+    trans[2, 3] = radius
+
+    p = phi / 180.0 * np.pi
+    rot_p = np.array(
+        [[1, 0, 0, 0],
+         [0, np.cos(p), -np.sin(p), 0],
+         [0, np.sin(p), np.cos(p), 0],
+         [0, 0, 0, 1]], dtype=np.float32)
+
+    t = theta / 180.0 * np.pi
+    rot_t = np.array(
+        [[np.cos(t), 0, -np.sin(t), 0],
+         [0, 1, 0, 0],
+         [np.sin(t), 0, np.cos(t), 0],
+         [0, 0, 0, 1]], dtype=np.float32)
+
+    flip = np.array(
+        [[-1, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0], [0, 0, 0, 1]],
+        dtype=np.float32)
+    return flip @ rot_t @ rot_p @ trans

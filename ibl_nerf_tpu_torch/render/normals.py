@@ -3,10 +3,12 @@ gradient.
 
 Counterpart of ibl_nerf_tpu/render/normals.py: the ε variants
 (`normal_from_depth_gradient_epsilon`,
-`normal_from_depth_gradient_direction_epsilon`) and the sigma-gradient
-variants (`normal_from_sigma_gradient`,
-`normal_from_sigma_gradient_surface`). The autograd depth-gradient
-variants are not ported yet.
+`normal_from_depth_gradient_direction_epsilon`), the autograd
+depth-gradient variants (`normal_from_depth_gradient`,
+`normal_from_depth_gradient_direction`: two forward-mode
+`torch.func.jvp` of the depth render, as JAX takes two `jax.jvp`) and
+the sigma-gradient variants (`normal_from_sigma_gradient`,
+`normal_from_sigma_gradient_surface`).
 
 `query_sigma` is a callable pts[..., 3] -> raw sigma[..., 1]. Every
 estimator returns a normal that carries no gradient.
@@ -96,6 +98,50 @@ def normal_from_depth_gradient_direction_epsilon(query_sigma, rays_o, rays_d,
     pos = [rays_o + _depth_from_sigma(sigma[i], dists, z_vals)[..., None] * nd[i]
            for i in range(4)]
     return _normalize(torch.linalg.cross(pos[0] - pos[1], pos[2] - pos[3], dim=-1))
+
+
+def _depth_gradient_normal(depth_of, rays_d, right, up):
+    """normalize(right * dD/da + up * dD/db - rays_d), the two derivatives
+    of `depth_of` ((B, 2) offsets -> (B,) depth) at zero offset taken by
+    forward mode along the unit tangents."""
+    zero = rays_d.new_zeros((*rays_d.shape[:-1], 2))
+    ea, eb = torch.zeros_like(zero), torch.zeros_like(zero)
+    ea[..., 0] = 1.0
+    eb[..., 1] = 1.0
+    _, dx = torch.func.jvp(depth_of, (zero,), (ea,))
+    _, dy = torch.func.jvp(depth_of, (zero,), (eb,))
+    grad = right * dx[..., None] + up * dy[..., None]
+    return _normalize(grad - rays_d)
+
+
+def normal_from_depth_gradient(query_sigma, rays_o, rays_d, z_vals):
+    """Autograd normals wrt *position* offsets: the ray origin moves by
+    a * right + b * up."""
+    right, up = _pixel_basis(rays_d)
+    dists = dists_from_z_vals(z_vals, rays_d)
+
+    def depth_of(ab):
+        a, b = ab[..., 0:1], ab[..., 1:2]
+        new_x = rays_o + right * a + up * b
+        pts = new_x[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
+        return _depth_from_sigma(query_sigma(pts)[..., 0], dists, z_vals)
+
+    return _depth_gradient_normal(depth_of, rays_d, right, up)
+
+
+def normal_from_depth_gradient_direction(query_sigma, rays_o, rays_d, z_vals):
+    """Autograd normals wrt *direction* offsets: the ray turns to
+    a * right + b * up + sqrt(1 - a^2 - b^2) * rays_d."""
+    right, up = _pixel_basis(rays_d)
+    dists = dists_from_z_vals(z_vals, rays_d)
+
+    def depth_of(ab):
+        a, b = ab[..., 0:1], ab[..., 1:2]
+        new_d = a * right + b * up + torch.sqrt(1.0 - a * a - b * b) * rays_d
+        pts = rays_o[..., None, :] + new_d[..., None, :] * z_vals[..., :, None]
+        return _depth_from_sigma(query_sigma(pts)[..., 0], dists, z_vals)
+
+    return _depth_gradient_normal(depth_of, rays_d, right, up)
 
 
 def _sigma_gradient(query_sigma, pts: torch.Tensor) -> torch.Tensor:

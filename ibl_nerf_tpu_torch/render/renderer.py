@@ -3,14 +3,17 @@ compositing, and split-sum image-based-lighting shading.
 
 Counterpart of ibl_nerf_tpu/render/renderer.py: the coarse pass (full
 shading in training, density-only on the `coarse_shading=False` fast
-path), `sample_pdf`, and the fine pass with ε or sgs normals, the
-BRDF-LUT fetch and Fresnel, the reflected march, `mip_interp` and the
-diffuse + specular combine, with the gt inputs (`gt_values`: the
+path), `sample_pdf`, and the fine pass with ε, depth-gradient, sgs or
+gt normals, the BRDF-LUT fetch and Fresnel, the reflected march,
+`mip_interp` and the diffuse + specular combine, with the gt inputs (`gt_values`: the
 `ground_truth` normal, `depth_map_from_ground_truth` and the
-`calculate_*_from_gt` substitutions). Gradients follow the JAX renderer's
-`stop_gradient` sites: intrinsic maps on detached weights (radiance on
-live ones), a detached surface point, a detached reflected march and
-detached depth in the mip level. The no-grad sweeps run under
+`calculate_*_from_gt` substitutions) and the material-edit and
+object-insert overrides (`RenderConfig.edit`: gray-level object masks,
+the edit/insert depth before the surface point, the normal, albedo,
+roughness and irradiance overrides before the LUT fetch). Gradients
+follow the JAX renderer's `stop_gradient` sites: intrinsic maps on
+detached weights (radiance on live ones), a detached surface point, a
+detached reflected march and detached depth in the mip level. The no-grad sweeps run under
 `torch.no_grad()`; `render_image`, `make_frame_render_fn` and the
 serving path render under no-grad throughout.
 
@@ -59,6 +62,8 @@ _EPSILON_NORMALS = ("normal_map_from_depth_gradient_epsilon",
                     "normal_map_from_depth_gradient_direction_epsilon")
 _SIGMA_NORMALS = ("normal_map_from_sigma_gradient",
                   "normal_map_from_sigma_gradient_surface")
+_AUTOGRAD_NORMALS = ("normal_map_from_depth_gradient",
+                     "normal_map_from_depth_gradient_direction")
 
 
 _COMPUTE_DTYPES = ("float32", "bfloat16", "mixed", "bf16_grad", "amp", "float64")
@@ -78,8 +83,6 @@ def _check_supported(rcfg: RenderConfig) -> None:
                                   "float64 kernel on any platform")
     if rcfg.raw_noise_std > 0.0:
         missing("raw_noise_std")
-    if rcfg.edit is not None:
-        missing("edit")
     for aux in ("infer_normal", "infer_depth", "infer_albedo_separate",
                 "infer_roughness_separate", "infer_irradiance_separate"):
         if getattr(rcfg, aux):
@@ -87,7 +90,8 @@ def _check_supported(rcfg: RenderConfig) -> None:
     if rcfg.approximate_radiance:
         if rcfg.shading_mode != "split_sum":
             missing(f"shading_mode={rcfg.shading_mode}")
-        if rcfg.normal_type not in _EPSILON_NORMALS + _SIGMA_NORMALS + ("ground_truth",):
+        if rcfg.normal_type not in (_EPSILON_NORMALS + _SIGMA_NORMALS + _AUTOGRAD_NORMALS
+                                    + ("ground_truth",)):
             missing(f"normal_type={rcfg.normal_type}")
 
 
@@ -220,6 +224,68 @@ def _render_depth_only(query_sigma, rays_o, rays_d, z_vals):
 
 
 # ---------------------------------------------------------------------------
+# Edit / insert masks
+# ---------------------------------------------------------------------------
+
+def _decode_object_masks(mask_img: torch.Tensor, num_objects: int):
+    """Object masks from gray levels ~10(i+1)/255: object i where
+    9(i+1)/255 < m < 11(i+1)/255, and every object where m > 0.
+    mask_img: (B,) channel-0 values."""
+    masks = [(mask_img > 9.0 * (i + 1) / 255.0) & (mask_img < 11.0 * (i + 1) / 255.0)
+             for i in range(num_objects)]
+    return masks, mask_img > 0
+
+
+def _where(mask: torch.Tensor, new, old: torch.Tensor) -> torch.Tensor:
+    """Masked override; mask (B,), values (B,) or (B, C). `new` is a
+    tensor, a number, or a sequence of C numbers (one per channel);
+    constants stay Python numbers, so no host-to-device copy is made."""
+    if isinstance(new, (tuple, list)):
+        return torch.stack([torch.where(mask, float(v), old[..., c])
+                            for c, v in enumerate(new)], dim=-1)
+    if old.ndim > mask.ndim:
+        mask = mask[..., None]
+    return torch.where(mask, new if isinstance(new, torch.Tensor) else float(new), old)
+
+
+def _gt_normal(g: torch.Tensor) -> torch.Tensor:
+    """A normal map stored as (n + 1) / 2, unpacked and normalised."""
+    n = 2.0 * g - 1.0
+    return n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True), min=1e-12)
+
+
+def _apply_edit_overrides(edit, masks, mask_all, gt, normal_map, albedo_map,
+                          roughness_map, irradiance_map):
+    """The intrinsic overrides before shading, in the JAX renderer's
+    order: edit (normal, albedo by image or per-object constants,
+    roughness likewise) or insert (normal, then per object roughness,
+    irradiance where its target is positive, and albedo)."""
+    if edit.mode == "edit":
+        if edit.edit_normal:
+            normal_map = _where(mask_all, _gt_normal(gt["edit_normal"]), normal_map)
+        if edit.edit_albedo:
+            if edit.edit_albedo_by_img:
+                albedo_map = _where(mask_all, gt["edit_albedo"], albedo_map)
+            else:
+                for i, m in enumerate(masks):
+                    albedo_map = _where(m, edit.target_albedo[3 * i: 3 * i + 3], albedo_map)
+        if edit.edit_roughness:
+            if edit.edit_roughness_by_img:
+                roughness_map = _where(mask_all, gt["edit_roughness"][..., 0], roughness_map)
+            else:
+                for i, r in enumerate(edit.target_roughness):
+                    roughness_map = _where(masks[i], r, roughness_map)
+    else:  # insert
+        normal_map = _where(mask_all, _gt_normal(gt["object_insert_normal"]), normal_map)
+        for i, m in enumerate(masks):
+            roughness_map = _where(m, edit.target_roughness[i], roughness_map)
+            if edit.target_irradiance and edit.target_irradiance[i] > 0:
+                irradiance_map = _where(m, edit.target_irradiance[i], irradiance_map)
+            albedo_map = _where(m, edit.target_albedo[3 * i: 3 * i + 3], albedo_map)
+    return normal_map, albedo_map, roughness_map, irradiance_map
+
+
+# ---------------------------------------------------------------------------
 # The main per-ray renderer
 # ---------------------------------------------------------------------------
 
@@ -227,9 +293,11 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
                  near, far, rcfg: RenderConfig, gt_values=None):
     """Full compositing + split-sum shading for one sample set.
     gt_values: per-ray gt buffers ("normal", "depth", "albedo",
-    "roughness", "irradiance"), read by the modes that substitute them."""
+    "roughness", "irradiance", and the edit and insert buffers), read by
+    the modes that substitute them."""
     rf = _radiance_f(rcfg)
     gt = gt_values or {}
+    edit = rcfg.edit
     (query_full, query_sigma, query_full_ng, query_sigma_ng) = _make_queries(
         variables["coarse_or_fine"], rcfg)
 
@@ -240,7 +308,18 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
     weights = weights_from_alpha(alpha)
     weights_det = weights.detach()
     depth_map, disp_map, acc_map = composite_depth_disp_acc(weights, z_vals)
+
+    # --- edit/insert masks and the target depth --------------------------------
+    masks, mask_all = [], None
+    if edit is not None:
+        mask_key = "edit_intrinsic_mask" if edit.mode == "edit" else "object_insert_mask"
+        masks, mask_all = _decode_object_masks(gt[mask_key][:, 0], edit.num_objects)
     target_depth_map = gt["depth"][..., 0] if rcfg.depth_map_from_ground_truth else depth_map
+    if edit is not None and edit.mode == "edit" and edit.edit_depth:
+        target_depth_map = _where(mask_all, gt["edit_depth"][..., 0], target_depth_map)
+    if edit is not None and edit.mode == "insert":
+        target_depth_map = _where(mask_all, gt["object_insert_depth"][..., 0],
+                                  target_depth_map)
     x_surface = (rays_o + rays_d * target_depth_map[..., None]).detach()
 
     # --- intrinsic maps: detached weights, radiance on live ones -------------
@@ -270,6 +349,11 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
         target_normal_map = _estimate_normal(query_sigma, query_sigma_ng, rays_o,
                                              rays_d, z_vals, pts, x_surface,
                                              weights_det, gt, rcfg)
+        if edit is not None:
+            (target_normal_map, target_albedo_map, target_roughness_map,
+             target_irradiance_map) = _apply_edit_overrides(
+                edit, masks, mask_all, gt, target_normal_map, target_albedo_map,
+                target_roughness_map, target_irradiance_map)
         n_dot_v = torch.clamp(torch.sum(-rays_d * target_normal_map, -1), 0.0, 1.0)
 
         # BRDF LUT fetch
@@ -382,12 +466,17 @@ def _estimate_normal(query_sigma, query_sigma_ng, rays_o, rays_d, z_vals,
                      pts, x_surface, weights_det, gt, rcfg: RenderConfig):
     """The shading normal, carrying no gradient: the gt normal map
     (stored as (n + 1) / 2), the ε finite differences on the no-grad
-    query, or the density gradient of the gradient-path query (bf16
-    under bf16_grad, as in the JAX renderer)."""
+    query, or the depth gradient (forward mode) or density gradient of
+    the gradient-path query (bf16 under bf16_grad, as in the JAX
+    renderer). That query stays eager: K2/K3 have no forward mode."""
     nt = rcfg.normal_type
     if nt == "ground_truth":
-        n = 2.0 * gt["normal"] - 1.0
-        return n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True), min=1e-12)
+        return _gt_normal(gt["normal"])
+    if nt in _AUTOGRAD_NORMALS:
+        fn = (normals_mod.normal_from_depth_gradient if nt == "normal_map_from_depth_gradient"
+              else normals_mod.normal_from_depth_gradient_direction)
+        with torch.no_grad():
+            return fn(query_sigma, rays_o.detach(), rays_d.detach(), z_vals.detach()).detach()
     if nt == "normal_map_from_sigma_gradient_surface":
         return normals_mod.normal_from_sigma_gradient_surface(query_sigma, x_surface)
     if nt == "normal_map_from_sigma_gradient":
@@ -511,24 +600,35 @@ def render_rays(variables, consts, batch, rcfg: RenderConfig,
 # Whole-frame rendering (inference fast path)
 # ---------------------------------------------------------------------------
 
+def _static_viewdirs(batch: dict, viewdirs: torch.Tensor) -> dict:
+    """The batch with its viewdirs taken from another camera's rays."""
+    return dict(batch, viewdirs=viewdirs / torch.linalg.vector_norm(
+        viewdirs, dim=-1, keepdim=True))
+
+
 def make_frame_render_fn(variables, consts, rcfg: RenderConfig,
-                         output_keys: tuple[str, ...] | None = None):
+                         output_keys: tuple[str, ...] | None = None,
+                         staticcam: bool = False):
     """A function that renders a frame pre-tiled as (n_chunks, chunk, 3)
     ray tensors, one chunk after another, keeping only `output_keys`.
 
-    Returns fn(rays_o_t, rays_d_t, near, far, gt_t=None) -> {name:
-    (n_chunks, chunk, C?)}; gt_t is a dict of (n_chunks, chunk, C) gt
-    buffers, tiled as the rays are.
+    Returns fn(rays_o_t, rays_d_t, near, far, gt_t=None, viewdirs_t=None)
+    -> {name: (n_chunks, chunk, C?)}; gt_t is a dict of (n_chunks, chunk,
+    C) gt buffers, tiled as the rays are. viewdirs_t is consulted only
+    when staticcam=True: the batch's viewdirs come from it (the rays of
+    another camera), as JAX's render_decomp takes c2w_staticcam.
     """
     _check_supported(rcfg)
 
     @torch.no_grad()
-    def run(rays_o_t, rays_d_t, near, far, gt_t=None):
+    def run(rays_o_t, rays_d_t, near, far, gt_t=None, viewdirs_t=None):
         outs = []
         for i, (ro, rd) in enumerate(zip(rays_o_t, rays_d_t)):
             gt = {k: v[i] for k, v in gt_t.items()} if gt_t else None
-            out = render_rays(variables, consts, make_ray_batch(ro, rd, near, far),
-                              rcfg, gt_values=gt)
+            batch = make_ray_batch(ro, rd, near, far)
+            if staticcam:
+                batch = _static_viewdirs(batch, viewdirs_t[i])
+            out = render_rays(variables, consts, batch, rcfg, gt_values=gt)
             if output_keys is not None:
                 out = {k: out[k] for k in output_keys if k in out}
             outs.append(out)
@@ -546,29 +646,41 @@ def _pad_tile(x: torch.Tensor, chunk: int) -> torch.Tensor:
     return x.reshape(-1, chunk, *x.shape[1:])
 
 
-def render_frame(fn, rays_o, rays_d, near, far, chunk: int, gt_values: dict | None = None):
-    """Drive a make_frame_render_fn function over flat (N, 3) rays and
-    (N, C) gt buffers: pad to a chunk multiple, tile, run, un-tile.
-    Returns {name: (N, C?)}."""
+def render_frame(fn, rays_o, rays_d, near, far, chunk: int, gt_values: dict | None = None,
+                 viewdirs: torch.Tensor | None = None):
+    """Drive a make_frame_render_fn function over flat (N, 3) rays, (N, C)
+    gt buffers and (N, 3) viewdirs (rays_d when absent): pad to a chunk
+    multiple, tile, run, un-tile. Returns {name: (N, C?)}."""
     n = rays_o.shape[0]
     gt_t = {k: _pad_tile(v, chunk) for k, v in (gt_values or {}).items()}
-    out = fn(_pad_tile(rays_o, chunk), _pad_tile(rays_d, chunk), near, far, gt_t)
+    vd_t = _pad_tile(rays_d if viewdirs is None else viewdirs, chunk)
+    out = fn(_pad_tile(rays_o, chunk), _pad_tile(rays_d, chunk), near, far, gt_t, vd_t)
     return {k: v.reshape(-1, *v.shape[2:])[:n] for k, v in out.items()}
 
 
 @torch.no_grad()
 def render_image(variables, consts, H, W, K, c2w, near, far,
-                 rcfg: RenderConfig, gt_values: dict | None = None, chunk: int = 2048):
+                 rcfg: RenderConfig, gt_values: dict | None = None, chunk: int = 2048,
+                 c2w_staticcam: torch.Tensor | None = None):
     """Render a full image chunk by chunk; gt_values entries are flat
-    (H*W, C). Every per-ray map comes back as (H, W, C?)."""
+    (H*W, C). Every per-ray map comes back as (H, W, C?). With
+    c2w_staticcam the rays come from that camera while the viewdirs
+    keep c2w's, which shows the view dependence."""
     rays_o, rays_d = get_rays_full_image(H, W, K, c2w)
+    viewdirs = rays_d.reshape(-1, 3)
+    if c2w_staticcam is not None:
+        rays_o, rays_d = get_rays_full_image(H, W, K, c2w_staticcam)
     rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
     n = rays_o.shape[0]
     gt_t = {k: _pad_tile(v, chunk) for k, v in (gt_values or {}).items()}
-    outs = [render_rays(variables, consts, make_ray_batch(ro, rd, near, far), rcfg,
-                        gt_values={k: v[i] for k, v in gt_t.items()} or None)
-            for i, (ro, rd) in enumerate(zip(_pad_tile(rays_o, chunk),
-                                             _pad_tile(rays_d, chunk)))]
+    outs = []
+    for i, (ro, rd, vd) in enumerate(zip(_pad_tile(rays_o, chunk), _pad_tile(rays_d, chunk),
+                                         _pad_tile(viewdirs, chunk))):
+        batch = make_ray_batch(ro, rd, near, far)
+        if c2w_staticcam is not None:
+            batch = _static_viewdirs(batch, vd)
+        outs.append(render_rays(variables, consts, batch, rcfg,
+                                gt_values={k: v[i] for k, v in gt_t.items()} or None))
     merged = {}
     for k in outs[0]:
         v = torch.cat([o[k] for o in outs], dim=0)[:n]

@@ -59,6 +59,39 @@ def save_checkpoint(logdir: str, step: int, state: TrainState, elapsed_time: flo
     return path
 
 
+def find_checkpoint(logdir: str, ft_path: str | None = None,
+                    target_step: int = -1) -> str | None:
+    """The checkpoint directory a restore reads: `ft_path`, else
+    `ckpt_{target_step:06d}`, else the newest in `logdir`; None when it
+    does not exist."""
+    if ft_path and ft_path != "None":
+        path = ft_path
+    elif target_step > 0:
+        path = _ckpt_dir(logdir, target_step)
+    else:
+        ckpts = list_checkpoints(logdir)
+        path = ckpts[-1][1] if ckpts else None
+    return path if path is not None and os.path.isdir(path) else None
+
+
+def checkpoint_step(path: str, state: TrainState) -> int:
+    """The update index a checkpoint directory is named after (JAX's
+    saved step), or the state's count when the name carries none."""
+    m = _CKPT_RE.match(os.path.basename(os.path.normpath(path)))
+    return int(m.group(1)) if m else int(state.step)
+
+
+def _same_structure(a, b) -> bool:
+    """The same keys, list lengths and leaf shapes, in any key order."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and set(a) == set(b)
+                and all(_same_structure(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_same_structure(x, y) for x, y in zip(a, b)))
+    return isinstance(b, torch.Tensor) and a.shape == b.shape
+
+
 def restore_checkpoint(logdir: str, state: TrainState, ft_path: str | None = None,
                        target_step: int = -1):
     """Restore into the structure of `state`, on the device of its params.
@@ -66,27 +99,17 @@ def restore_checkpoint(logdir: str, state: TrainState, ft_path: str | None = Non
     Returns (state, elapsed_time, found); found=False leaves state
     untouched (a fresh start when there is no checkpoint).
     """
-    if ft_path and ft_path != "None":
-        path = ft_path
-    elif target_step > 0:
-        path = _ckpt_dir(logdir, target_step)
-    else:
-        ckpts = list_checkpoints(logdir)
-        if not ckpts:
-            return state, 0.0, False
-        path = ckpts[-1][1]
-
-    if not os.path.isdir(path):
+    path = find_checkpoint(logdir, ft_path, target_step)
+    if path is None:
         return state, 0.0, False
 
-    leaves = _leaves(state.variables)
-    restored = torch.load(os.path.join(path, STATE_FILE), map_location=leaves[0].device,
-                          weights_only=True)
-    saved = _leaves(restored["variables"])
-    if [p.shape for p in saved] != [p.shape for p in leaves]:
+    restored = torch.load(os.path.join(path, STATE_FILE),
+                          map_location=_leaves(state.variables)[0].device, weights_only=True)
+    if not _same_structure(state.variables, restored["variables"]):
         raise ValueError(f"checkpoint {path} does not match the model's parameters")
-    variables = _unflatten(state.variables,
-                           [p.clone().requires_grad_(True) for p in saved])
+    # the saved key order, which the saved Adam moments follow
+    variables = _unflatten(restored["variables"],
+                           [p.clone().requires_grad_(True) for p in _leaves(restored["variables"])])
     opt_state = {name: GroupState(mu=st["mu"], nu=st["nu"], count=st["count"],
                                   seen=st["seen"])
                  for name, st in restored["opt_state"].items()}

@@ -7,15 +7,15 @@ segments at the staged-loss boundaries and the precrop end, with one
 train step per segment; every step draws from a generator seeded with
 (42 + seed, i). Every `summary_step` the scalars go to metrics.jsonl and
 the collapse check; every `i_weights` a checkpoint; every `i_testset`
-(past 0) a test-set render to PNGs; `time_limit_in_minute` stops early;
-`train_info_step_time.json` closes the run.
+(past 0) a test-set render to PNGs, and where that update is a multiple
+of `i_video` the rgb stack as `video_{i:06d}.avi` (`utils/video.py`);
+`time_limit_in_minute` stops early; `train_info_step_time.json` closes
+the run.
 
 Flags the port does not cover raise NotImplementedError naming the
 flag before the scene loads: more than one device or process, the aux
 MLPs (`infer_*`), the environment map, `init_port_path`, patch
-sampling, and the renderer's unported modes. A video export that would
-fall inside the run is refused once the resume point is known, before
-anything is written or the first step runs.
+sampling, and the renderer's unported modes.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from ibl_nerf_tpu_torch.train.losses import LossConfig, resolve_phase
 from ibl_nerf_tpu_torch.train.step import build_optimizer, init_train_state, make_train_step
 from ibl_nerf_tpu_torch.utils.device import resolve_device
 from ibl_nerf_tpu_torch.utils.logging import ScalarWriter, load_logger
+from ibl_nerf_tpu_torch.utils.video import export_stack_as_video
 
 _AUX_FLAGS = ("infer_normal", "infer_depth", "infer_visibility", "infer_albedo_separate",
               "infer_roughness_separate", "infer_irradiance_separate",
@@ -197,19 +198,6 @@ def check_supported_flags(args) -> None:
     _check_supported(rcfg.replace(approximate_radiance=True))
 
 
-def check_video_schedule(args, start: int) -> None:
-    """Raise NotImplementedError when a test-set render of a run from
-    update `start` would export a video (`i_video` reached on an
-    `i_testset` update past 0)."""
-    first = -(-max(start, 1) // args.i_testset) * args.i_testset
-    for i in range(first, n_updates(args), args.i_testset):
-        if i % args.i_video == 0:
-            raise NotImplementedError(
-                f"--i_video: the test-set render at update {i} would export a video, "
-                "which is not ported to ibl_nerf_tpu_torch yet; raise --i_video above "
-                f"--N_iter ({args.N_iter})")
-
-
 def _step_generator(seed: int, i: int, device) -> torch.Generator:
     """The generator of update i's draws, seeded from (42 + seed, i)."""
     state = np.random.SeedSequence((42 + seed, i)).generate_state(1, np.uint64)[0]
@@ -277,7 +265,6 @@ def train(args, device=None):
     # state.step counts completed updates: the run resumes at the first
     # update the checkpoint does not contain
     start = int(state.step)
-    check_video_schedule(args, start)
 
     # (3) logdir
     os.makedirs(logdir, exist_ok=True)
@@ -309,7 +296,7 @@ def train(args, device=None):
         path = ckpt_lib.save_checkpoint(logdir, i, state, elapsed_time)
         logger.info("saved checkpoint %s", path)
 
-    def run_testset(i):
+    def run_testset(i, export_video=False):
         testdir = os.path.join(logdir, f"testset_{i:06d}")
         results = render_path(state.variables, consts, scene_val,
                               rcfg.replace(approximate_radiance=True), savedir=testdir,
@@ -323,6 +310,10 @@ def train(args, device=None):
                      "target_normal_map", "depth", "specular", "diffuse"):
             if name in results:
                 writer.write_images(f"testset/{name}", _panelize(results[name]), i)
+        if export_video and "rgb" in results:
+            path = export_stack_as_video(results["rgb"],
+                                         os.path.join(logdir, f"video_{i:06d}.avi"))
+            logger.info("saved video %s", path)
 
     if start <= 1:
         writer.write_images("gt/rgb", _panelize(scene.images), 0)
@@ -374,7 +365,7 @@ def train(args, device=None):
             if i % args.i_weights == 0:
                 save_ckpt(i)
             if i % args.i_testset == 0 and i > 0:
-                run_testset(i)
+                run_testset(i, export_video=i % args.i_video == 0)
 
     with open(os.path.join(logdir, "train_info_step_time.json"), "w") as f:
         json.dump({"training_time": elapsed_time, "global_step": global_step}, f, indent=4)

@@ -1,8 +1,9 @@
-"""Utilities: device selection, weight conversion, logging and the PNG
-encoder."""
+"""Utilities: device selection, weight conversion, logging, the PNG
+encoder, video export and mesh extraction."""
 
 from ibl_nerf_tpu_torch.utils.device import pin_f32_matmul, resolve_device
 from ibl_nerf_tpu_torch.utils.port import (
     field_params_from_numpy,
     field_params_from_torch_state,
+    load_reference_checkpoint,
 )

@@ -1,8 +1,9 @@
 """Weight conversion into the port's field params.
 
-Two sources: a PyTorch reference IBL-NeRF state_dict (Linear weights
-(out, in), counterpart of ibl_nerf_tpu/utils/port.py), and a JAX field
-pytree already turned into numpy arrays (same (in, out) layout).
+Two sources: a PyTorch reference IBL-NeRF state_dict or its `.tar`
+checkpoint (Linear weights (out, in), counterpart of
+ibl_nerf_tpu/utils/port.py), and a JAX field pytree already turned into
+numpy arrays (same (in, out) layout).
 """
 
 from __future__ import annotations
@@ -68,3 +69,18 @@ def field_params_from_torch_state(sd: dict, coarse_radiance_number: int = 3,
         "coarse": [lin(f"additional_radiance_linear.{i}")
                    for i in range(coarse_radiance_number)],
     }
+
+
+def load_reference_checkpoint(path: str, coarse_radiance_number: int = 3,
+                              depth: int = 8, device: str | torch.device | None = None):
+    """Read a reference `.tar` checkpoint into (coarse, fine, step,
+    elapsed): the field params on `device` (CUDA unless named), fine
+    None when the checkpoint has no fine network."""
+    ckpt = torch.load(path, map_location="cpu")
+    coarse = field_params_from_torch_state(ckpt["network_fn_state_dict"],
+                                           coarse_radiance_number, depth, device)
+    fine = None
+    if ckpt.get("network_fine_state_dict"):
+        fine = field_params_from_torch_state(ckpt["network_fine_state_dict"],
+                                             coarse_radiance_number, depth, device)
+    return coarse, fine, ckpt.get("global_step", 0), ckpt.get("elapsed_time", 0.0)

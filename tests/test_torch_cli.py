@@ -7,8 +7,7 @@ normals, merged sampling, bf16_grad) writes the same files as JAX's
 `train` on the same scene and arguments: the checkpoint names, the keys
 of train_info_step_time.json and of metrics.jsonl, and the test-set
 PNG names. Flags the port does not cover are refused before anything
-runs, the video export among them, and the CLI refuses to run without a
-card.
+runs, and the CLI refuses to run without a card.
 """
 
 import json
@@ -23,7 +22,7 @@ from ibl_nerf_tpu.cli.config import parse_with_includes as j_parse
 from ibl_nerf_tpu.train.loop import train as j_train
 from ibl_nerf_tpu_torch.cli import train as cli_train
 from ibl_nerf_tpu_torch.cli.config import build_parser, parse_with_includes
-from ibl_nerf_tpu_torch.train.loop import check_video_schedule, train
+from ibl_nerf_tpu_torch.train.loop import train
 
 sys.path.insert(0, os.path.dirname(__file__))
 from make_synthetic_scene import make_scene  # noqa: E402
@@ -96,7 +95,7 @@ def test_train_writes_the_files_jax_writes(scene_dir, tmp_path):
 
 def test_unported_flags_are_refused_before_anything_runs(scene_dir, tmp_path):
     logdir = str(tmp_path / "refused")
-    cases = [(["--i_video", "6"], "i_video"), (["--infer_normal"], "infer_normal"),
+    cases = [(["--infer_normal"], "infer_normal"),
              (["--mesh_devices", "2"], "mesh_devices"),
              (["--use_environment_map"], "use_environment_map"),
              (["--init_port_path", "x.tar"], "init_port_path"),
@@ -106,21 +105,6 @@ def test_unported_flags_are_refused_before_anything_runs(scene_dir, tmp_path):
         with pytest.raises(NotImplementedError, match=flag):
             train(parse_with_includes(_argv(scene_dir, logdir, *extra)), device="cpu")
     assert not os.path.exists(logdir)
-
-
-def test_video_refusal_names_the_fix(scene_dir, tmp_path):
-    """The default schedule (--i_video 50000 <= --N_iter 200000) would
-    export a video at update 50000: refused at start, with the way out."""
-    args = parse_with_includes(["--datadir", scene_dir, "--basedir", str(tmp_path),
-                                "--expname", "exp", "--netwidth", "32"])
-    with pytest.raises(NotImplementedError, match="update 50000.*raise --i_video above"):
-        train(args, device="cpu")
-    assert not os.path.exists(os.path.join(str(tmp_path), "exp"))
-    # a run resumed past every video update is not refused
-    args.N_iter = 70000
-    check_video_schedule(args, 60001)
-    with pytest.raises(NotImplementedError, match="update 50000"):
-        check_video_schedule(args, 50000)
 
 
 def test_cli_needs_a_card(scene_dir, tmp_path):

@@ -44,7 +44,9 @@ def test_port_imports_nothing_of_jax():
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("kernels.fused_field", "kernels.fused_field_train", "eval.render_path",
-                 "train.step", "train.losses", "data.sampler"):
+                 "train.step", "train.losses", "data.sampler", "cli.test", "cli.render",
+                 "cli.port_checkpoint", "cli.preprocess", "utils.video",
+                 "utils.mesh_extract", "eval.metrics"):
         assert f"ibl_nerf_tpu_torch.{name}" in report["modules"]
     assert not set(report["loaded"]) & set(FORBIDDEN), report["loaded"]
 

@@ -218,11 +218,11 @@ def test_render_path(setup):
 
 
 @pytest.mark.parametrize("kw,mode", [
-    (dict(normal_type="normal_map_from_depth_gradient_direction"), "normal_type"),
-    (dict(normal_type="normal_map_from_depth_gradient"), "normal_type"),
+    (dict(normal_type="inferred_normal_map", infer_normal=True), "infer_normal"),
+    (dict(normal_type="ground_truth", shading_mode="monte_carlo"), "monte_carlo"),
     (dict(normal_type="inferred_normal_map"), "normal_type"),
     (dict(shading_mode="monte_carlo"), "monte_carlo"),
-    (dict(edit=EditConfig()), "edit"),
+    (dict(edit=EditConfig(), raw_noise_std=1.0), "raw_noise_std"),
     (dict(infer_normal=True), "infer_normal"),
     (dict(infer_depth=True), "infer_depth"),
     (dict(infer_albedo_separate=True), "infer_albedo_separate"),
@@ -257,9 +257,3 @@ def test_normal_estimator_key_only_for_normal_map_types(normal_type, aliased):
         _cfgs(normal_type="ground_truth")[1], m, m, [], [], m[:, :1], m, m, m, s, m, m, s,
         m, s, s, s, torch.zeros(2, 4)))
 
-
-def test_render_path_uncovered_options_raise(setup):
-    _, tvars, _, tconsts, _, _ = setup
-    _, tr = _cfgs()
-    with pytest.raises(NotImplementedError, match="fast"):
-        render_path(tvars, tconsts, _Scene(), tr, fast=False)
