@@ -12,7 +12,9 @@ Phases, one JSON line each; any failure exits non-zero:
           with its shared memory per block, resident blocks per SM (at
           least 2 for f32) and ptxas registers and spills; K1 full at f32
           also at the train step's 512 x 64 points and with 0, 1 and 2
-          coarse heads; K1 at bf16 weights also against K2's raw), K2
+          coarse heads, and as a row of its own at the Monte-Carlo
+          incident march of a chunk, 18,432 rays x 64 samples with a view
+          direction per ray; K1 at bf16 weights also against K2's raw), K2
           (raw and the 11 residuals) and K3 (the 24 weight gradients), the
           bf16 ones each with two runs bit-identical;
           errors against the stated tolerance, kernel and plain times (CUDA
@@ -80,6 +82,29 @@ Phases, one JSON line each; any failure exits non-zero:
           rgb.avi, parsed here, holds the rgb stack). Prints the seconds
           per 480x640 image, of the edit and the insert, per orbit frame
           and of the mesh.
+  aux_cli  the aux heads and Monte-Carlo shading through the CLIs' `main`s
+          on train_cli's scene: `cli.train` with every aux head
+          (--infer_normal --infer_depth --infer_{albedo,roughness,
+          irradiance}_separate --infer_visibility --use_environment_map)
+          at 1024 rays, train_cli's flags otherwise, the normal, depth and
+          shading losses from update 10, 21 updates and a checkpoint at 20.
+          Gates: finite losses; the inferred-normal and depth losses 0
+          before update 10 and above 0 from it; the five trained heads
+          unchanged before update 10 and moved after it, the visibility
+          head and the environment map never moved; 2 K2 and 2 K3 launches
+          an update, 2 K1 full from the switch on, no K1 density. Then a
+          resume to update 24 under --shading_mode monte_carlo: finite
+          losses, 2 K1 full launches an update (the incident march of the
+          coarse and the fine pass), each at 1024 x 9 rays x 64 samples.
+          Then `cli.test` on ckpt_000020 with the same heads, Monte-Carlo
+          shading and --calculating_normal_type inferred_normal_map at
+          render factor 2 (38 chunks): one K2 and one K1 full launch (at
+          2048 x 9 x 64 points) per chunk and nothing else, every buffer
+          finite, the inferred_normal_map and inferred_disp PNGs written.
+          Prints ms per update before and after the switch and under
+          Monte-Carlo shading, peak memory, cli.test's seconds per image,
+          and a profiler breakdown of update 20 and of a second cli.test
+          call.
 Weights are random from a seed. Then the per-kernel JSON line, the card
 line, and the ok line last. Every number printed is measured in this
 run, on this card.
@@ -201,6 +226,19 @@ EVAL_MASK = (slice(120, 300), slice(200, 440))
 EVAL_ALBEDO, EVAL_ROUGHNESS = (0.9, 0.2, 0.1), 0.8
 INSERT_ALBEDO, INSERT_ROUGHNESS, INSERT_IRRADIANCE = (0.3, 0.6, 0.9), 0.2, 0.7
 DGRAD_FACTOR, ORBIT_FRAMES, ORBIT_FACTOR = 4, 3, 2
+# The aux_cli phase: the training CLI on train_cli's scene with every aux
+# head and the environment map, at 1024 rays (the heads' stored
+# activations come on top of the 4096-ray update's), both aux losses and
+# the split-sum shading from update CLI_SWITCH on, a checkpoint at
+# AUX_N_ITER; a resume under Monte-Carlo shading to AUX_MC_N_ITER; then
+# cli.test on that checkpoint with Monte-Carlo shading and the inferred
+# normal at render factor AUX_FACTOR.
+AUX_RAYS, AUX_N_ITER, AUX_MC_N_ITER, AUX_FACTOR = 1024, 20, 24, 2
+AUX_FLAGS = ("--infer_normal", "--infer_depth", "--infer_albedo_separate",
+             "--infer_roughness_separate", "--infer_irradiance_separate", "--infer_visibility",
+             "--use_environment_map")
+AUX_TRAINED = ("normal_mlp", "depth_mlp", "albedo_mlp", "roughness_mlp", "irradiance_mlp")
+AUX_UNREAD = ("visibility_mlp", "env_map")   # no renderer reads them
 
 
 def emit(phase: str, **fields) -> None:
@@ -276,6 +314,12 @@ K1_BF16_SOURCE = "ibl_nerf_tpu_torch/csrc/fused_field_bf16.cu"
 # K1 full's launch on the training step's reflected march: 512 rays x 64
 # coarse samples.
 K1_TRAIN_SHAPE = (N_RAND, 64)
+# K1 full's launch on the Monte-Carlo incident march of one 2048-ray chunk:
+# mc_samples_axis² = 9 hemisphere directions a ray, each a ray of its own
+# with its own view direction, over the 64 coarse samples.
+MC_DIRS = 9
+K1_MC_NAME = "fused_field_apply_mc_march"
+K1_MC_SHAPE = (CHUNK * MC_DIRS, 64)
 # Resident blocks per SM that the f32 K1's design promises for both variants
 # (csrc/fused_field.cu: shared memory and registers sized for two).
 K1_BLOCKS_PER_SM = 2
@@ -347,29 +391,60 @@ def k1_head_counts(cfg, gen) -> dict:
     return errs
 
 
+def k1_bound(cfg, packed, with_dirs: bool, points: int):
+    """(FLOPs, bytes, ms at the f32 peak, ms at the memory rate) of one K1
+    launch at f32 weights on `points` points: each input row, weight it
+    reads and output row once."""
+    n_cols = 9 + 3 * cfg.coarse_radiance_number if with_dirs else 1
+    read = (ff._WEIGHT_ORDER if with_dirs else
+            ["emb_E", "emb_phase", "emb_id", "w0", "w1", "w2", "w3", "w4",
+             "w5x", "w5h", "w6", "w7", "tb", "A", "bias"])
+    weight_bytes = sum(packed[k].numel() * 4 for k in read)
+    flops = 2 * field_macs(cfg, density_only=not with_dirs) * points
+    nbytes = points * (ff.IN_COLS + n_cols) * 4 + weight_bytes
+    return flops, nbytes, flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def k1_mc_row(cfg, packed, gen) -> dict:
+    """K1 full at f32 weights at the Monte-Carlo incident march's shape
+    (K1_MC_SHAPE, a view direction per ray) against its plain version
+    within K1's gate, timed in turns; its launches come from aux_cli."""
+    kern, plain = k1_calls(packed, cfg, *k1_inputs(K1_MC_SHAPE, gen), True)
+    max_abs, max_rel = k1_check(K1_MC_NAME, kern, plain, K1_MC_SHAPE)
+    iters = 5
+    kern(), plain()
+    p1, k1, k2, p2 = (time_ms(plain, iters), time_ms(kern, iters),
+                      time_ms(kern, iters), time_ms(plain, iters))
+    n_pts = K1_MC_SHAPE[0] * K1_MC_SHAPE[1]
+    flops, nbytes, t_ops, t_bytes = k1_bound(cfg, packed, True, n_pts)
+    emit("kernel", name=K1_MC_NAME, points=n_pts, rays=K1_MC_SHAPE[0], flops=flops,
+         bytes=nbytes, max_abs_err=max_abs, max_rel_err=max_rel, atol=KERNEL_ATOL,
+         rtol=KERNEL_RTOL, ms=[k1, k2], plain_ms=[p1, p2], bound_ms=max(t_ops, t_bytes),
+         tflops=flops / ((k1 + k2) / 2) / 1e9)
+    torch.cuda.empty_cache()
+    return {"name": K1_MC_NAME, "route": "cuda",
+            "source": "ibl_nerf_tpu_torch/csrc/fused_field.cu", "replaces": K1_SOURCE,
+            "launches": None, "max_abs_err": max_abs,
+            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
+
+
 def kernel_phase(cfg, packed, gen) -> list[dict]:
     """Both variants of K1 against the plain version, with their shared
     memory, resident blocks per SM and registers; K1 full also at the
-    train step's shape."""
+    train step's shape, and as its own row at the Monte-Carlo march's."""
     ptxas = k1_ptxas(kernel_build.build_logs.get("fused_field", ""))
     report = []
     for name, shape, with_dirs in K1_VARIANTS:
         n_pts = shape[0] * shape[1]
-        n_cols = 9 + 3 * cfg.coarse_radiance_number if with_dirs else 1
-        read = (ff._WEIGHT_ORDER if with_dirs else
-                ["emb_E", "emb_phase", "emb_id", "w0", "w1", "w2", "w3", "w4",
-                 "w5x", "w5h", "w6", "w7", "tb", "A", "bias"])
-        weight_bytes = sum(packed[k].numel() * 4 for k in read)
-
         occupancy = ff.occupancy(cfg, density_only=not with_dirs)
         if occupancy["blocks_per_sm"] < K1_BLOCKS_PER_SM:
             fail("kernel", f"{name}: {occupancy['blocks_per_sm']} resident blocks per SM, "
                  f"the design needs {K1_BLOCKS_PER_SM}")
 
         def bound(points):
-            flops = 2 * field_macs(cfg, density_only=not with_dirs) * points
-            nbytes = points * (ff.IN_COLS + n_cols) * 4 + weight_bytes
-            return flops, nbytes, flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            return k1_bound(cfg, packed, with_dirs, points)
 
         max_abs = max_rel = 0.0
         # the train step's shape (full only), ragged (+37 points, not a
@@ -413,6 +488,7 @@ def kernel_phase(cfg, packed, gen) -> list[dict]:
              ptxas=ptxas.get("density" if not with_dirs else "full", "not built in this run"),
              train_shape=train,
              other_head_counts_max_abs_err=k1_head_counts(cfg, gen) if with_dirs else None)
+    report.append(k1_mc_row(cfg, packed, gen))
     return report
 
 
@@ -1184,13 +1260,15 @@ def _launch_counts() -> dict:
 
 
 @contextlib.contextmanager
-def cli_probes(record: dict):
+def cli_probes(record: dict, snapshot_at: tuple = ()):
     """Within the block, the trainer's PNG decodes, pyramid builds, train
     steps and test-set renders are timed (steps and renders synchronised
     on the device first), and each step's update index and kernel
     launches, and each render's launches, are recorded into `record`.
     The step of update CLI_PROFILED runs under torch.profiler instead of
-    being timed: its breakdown goes to record["profile"]."""
+    being timed: its breakdown goes to record["profile"]. Before the step
+    of each update in `snapshot_at`, a copy of the params goes to
+    record["params_before"][update]."""
     originals = {(dataset_mod, "_load_images"): dataset_mod._load_images,
                  (dataset_mod, "build_prefiltered_pyramid"): dataset_mod.build_prefiltered_pyramid,
                  (loop_mod, "render_path"): loop_mod.render_path,
@@ -1217,6 +1295,10 @@ def cli_probes(record: dict):
         timed_step = timed("steps", step, sync=True, launches=True)
 
         def run(*a, **kw):
+            if record["updates"][-1] in snapshot_at:
+                record.setdefault("params_before", {})[record["updates"][-1]] = {
+                    name: [p.detach().clone() for p in _leaves(v)]
+                    for name, v in a[0].variables.items()}
             if record["updates"][-1] != CLI_PROFILED:
                 return timed_step(*a, **kw)
             out = []
@@ -1256,13 +1338,13 @@ def cli_argv(n_iter: int) -> list[str]:
             "--i_video", "1000000", "--summary_step", "5"]
 
 
-def _per_step(steps: list, updates: list, lo: int, hi: int) -> dict:
+def _per_step(steps: list, updates: list, lo: int, hi: int, rays: int = CLI_RAYS) -> dict:
     """ms per step (median, mean) and train rays/s over updates lo..hi-1."""
     ms = [e["s"] * 1e3 for e, i in zip(steps, updates) if lo <= i < hi and e["s"]]
     med = float(np.median(ms))
     return {"updates": [lo, hi - 1], "ms_per_step_median": med,
             "ms_per_step_mean": float(np.mean(ms)), "ms_per_step_min": min(ms),
-            "ms_per_step_max": max(ms), "rays_per_s_at_median": CLI_RAYS / med * 1e3}
+            "ms_per_step_max": max(ms), "rays_per_s_at_median": rays / med * 1e3}
 
 
 def train_cli_phase(kernels, card: str) -> dict:
@@ -1331,7 +1413,7 @@ def train_cli_phase(kernels, card: str) -> dict:
     n_updates = CLI_N_ITER + 1
     per_step = {k: sum(e["launches"][k] for e in steps) / n_updates for k in launches}
     for row in kernels:
-        row.setdefault("launches_by_phase", {})["train_cli"] = launches[row["name"]]
+        row.setdefault("launches_by_phase", {})["train_cli"] = launches.get(row["name"], 0)
     report = dict(
         card=card, rays=CLI_RAYS, height=TRAIN_H, width=TRAIN_W,
         train_images=CLI_TRAIN_IMAGES, scene_write_s=write_s,
@@ -1518,7 +1600,7 @@ def eval_cli_phase(kernels, card: str) -> dict:
         fail(phase, f"rgb.avi: {frames.shape} at {fps} fps does not hold the rgb stack")
 
     for row in kernels:
-        row.setdefault("launches_by_phase", {})[phase] = totals[row["name"]]
+        row.setdefault("launches_by_phase", {})[phase] = totals.get(row["name"], 0)
     report = dict(
         card=card, checkpoint=f"ckpt_{CLI_N_ITER:06d}", height=TRAIN_H, width=TRAIN_W,
         test_s_per_image=runs["test"]["render_s"], test_run_s=runs["test"]["s"],
@@ -1532,6 +1614,192 @@ def eval_cli_phase(kernels, card: str) -> dict:
         orbit_s_per_frame=runs["render"]["render_s"] / ORBIT_FRAMES,
         orbit_size=[h2, w2], orbit_run_s=runs["render"]["s"], avi_frames=len(frames),
         runs=runs, launches=totals)
+    emit(phase, **report)
+    return report
+
+
+def zero_launch_counts() -> None:
+    for c in (ff.LAUNCHES, fft.LAUNCHES):
+        for k in c:
+            c[k] = 0
+
+
+@contextlib.contextmanager
+def k1_full_points(points: list):
+    """Within the block, the point count of every K1 full launch at f32
+    weights is appended to `points`."""
+    original = ff._launch
+
+    def launch(packed, x, cfg, density_only):
+        if not density_only:
+            points.append(x.shape[0])
+        return original(packed, x, cfg, density_only)
+
+    ff._launch = launch
+    try:
+        yield
+    finally:
+        ff._launch = original
+
+
+def aux_argv(n_iter: int, *extra) -> list[str]:
+    """train_cli's flags (later flags win) with every aux head and the
+    environment map, AUX_RAYS rays, both aux losses from CLI_SWITCH on, a
+    checkpoint at AUX_N_ITER, no test-set render, scalars every update."""
+    return cli_argv(n_iter) + [
+        "--expname", "aux_cli", "--N_rand", str(AUX_RAYS),
+        "--N_iter_ignore_normal", str(CLI_SWITCH), "--N_iter_ignore_depth", str(CLI_SWITCH),
+        "--i_weights", str(AUX_N_ITER), "--i_testset", "1000000", "--summary_step", "1",
+        *AUX_FLAGS, *extra]
+
+
+def _same(a: list, b: list) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def aux_cli_phase(kernels, card: str) -> dict:
+    """The aux heads and Monte-Carlo shading through the CLIs, on
+    train_cli's scene; see the module docstring for its gates."""
+    phase = "aux_cli"
+    logdir = CLI_DIR / "logs" / "aux_cli"
+    shutil.rmtree(logdir, ignore_errors=True)
+    totals = {k: 0 for k in _launch_counts()}
+
+    def add_totals():
+        for k, v in _launch_counts().items():
+            totals[k] += v
+
+    # 1. training with every aux head: the switch at CLI_SWITCH
+    zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    first = {}
+    t0 = time.perf_counter()
+    with cli_probes(first, snapshot_at=(0, CLI_SWITCH)):
+        state = cli_train.main(aux_argv(AUX_N_ITER))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    add_totals()
+    steps, updates = first["steps"], first["updates"]
+    if updates != list(range(AUX_N_ITER + 1)) or state.step != AUX_N_ITER + 1:
+        fail(phase, f"updates {updates[:3]}...{updates[-3:]}, step {state.step}: "
+             f"expected 0..{AUX_N_ITER}")
+    for e, i in zip(steps, updates):
+        # K2/K3 on both passes' primary march; past the switch K1 full on
+        # both reflected marches; the aux heads and the depth-volume pass eager
+        want = {"fused_field_train_fwd": 2, "fused_field_train_bwd": 2,
+                "fused_field_apply": 2 if i >= CLI_SWITCH else 0}
+        got = {k: v for k, v in e["launches"].items() if v}
+        if got != {k: v for k, v in want.items() if v}:
+            fail(phase, f"update {i} launched {got}, expected {want}")
+    records = [json.loads(line) for line in open(logdir / "metrics.jsonl")]
+    at_switch = {k: [r[k] for r in records if r["step"] in (CLI_SWITCH - 1, CLI_SWITCH)]
+                 for k in ("loss_inferred_normal", "loss_depth", "loss_render")}
+    for r in records:
+        losses = {k: v for k, v in r.items() if k.startswith("loss_")}
+        if not all(np.isfinite(v) for v in losses.values()):
+            fail(phase, f"update {r['step']}: losses {losses}")
+        for k in ("loss_inferred_normal", "loss_depth"):
+            if (r[k] > 0) != (r["step"] >= CLI_SWITCH):
+                fail(phase, f"update {r['step']}: {k} = {r[k]}, expected 0 before update "
+                     f"{CLI_SWITCH} and above 0 from it")
+    if [r["step"] for r in records] != updates:
+        fail(phase, f"metrics.jsonl holds updates {[r['step'] for r in records]}")
+    before = first["params_before"]
+    final = {name: _leaves(v) for name, v in state.variables.items()}
+    for name in AUX_TRAINED:
+        if not _same(before[0][name], before[CLI_SWITCH][name]):
+            fail(phase, f"{name} moved before its start, update {CLI_SWITCH}")
+        if _same(before[CLI_SWITCH][name], final[name]):
+            fail(phase, f"{name} did not move from update {CLI_SWITCH} on")
+    for name in AUX_UNREAD:
+        if not _same(before[0][name], final[name]):
+            fail(phase, f"{name} moved, though no renderer reads it")
+
+    # 2. a resume under Monte-Carlo shading: every pass shades, and the
+    # training passes are two (coarse and fine), so 2 K1 full launches an
+    # update, each the incident march of AUX_RAYS x MC_DIRS rays
+    zero_launch_counts()
+    second, mc_points = {}, []
+    with cli_probes(second), k1_full_points(mc_points):
+        resumed = cli_train.main(aux_argv(AUX_MC_N_ITER, "--shading_mode", "monte_carlo"))
+    torch.cuda.synchronize()
+    add_totals()
+    mc_updates = list(range(AUX_N_ITER + 1, AUX_MC_N_ITER + 1))
+    if second["updates"] != mc_updates or resumed.step != AUX_MC_N_ITER + 1:
+        fail(phase, f"the Monte-Carlo resume ran updates {second['updates']} to step "
+             f"{resumed.step}; expected {mc_updates}")
+    for e, i in zip(second["steps"], second["updates"]):
+        want = {"fused_field_train_fwd": 2, "fused_field_train_bwd": 2, "fused_field_apply": 2}
+        if {k: v for k, v in e["launches"].items() if v} != want:
+            fail(phase, f"Monte-Carlo update {i} launched {e['launches']}, expected {want}")
+    mc_pts = AUX_RAYS * MC_DIRS * K1_MC_SHAPE[1]
+    if mc_points != [mc_pts] * (2 * len(mc_updates)):
+        fail(phase, f"Monte-Carlo K1 full launches at {mc_points} points, expected "
+             f"{2 * len(mc_updates)} at {mc_pts}")
+    mc_losses = [r["loss_total"] for r in map(json.loads, open(logdir / "metrics.jsonl"))
+                 if r["step"] > AUX_N_ITER]
+    if len(mc_losses) != len(mc_updates) or not np.all(np.isfinite(mc_losses)):
+        fail(phase, f"Monte-Carlo losses {mc_losses}")
+
+    # 3. cli.test on ckpt AUX_N_ITER: Monte-Carlo shading, the inferred normal
+    zero_launch_counts()
+    h, w = TRAIN_H // AUX_FACTOR, TRAIN_W // AUX_FACTOR
+    n_chunks = -(-h * w // CLI_CHUNK)
+    timed, test_points = {}, []
+    export = CLI_DIR / "eval_aux"
+    test_argv = eval_argv(
+        "--expname", "aux_cli", *AUX_FLAGS, "--shading_mode", "monte_carlo",
+        "--calculating_normal_type", "inferred_normal_map",
+        "--render_factor", str(AUX_FACTOR), "--target_load_N_iter", str(AUX_N_ITER),
+        "--export_basedir", str(export))
+    t0 = time.perf_counter()
+    with eval_probes(timed), k1_full_points(test_points):
+        results = cli_test.main(test_argv)
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = {k: v for k, v in _launch_counts().items() if v}
+    add_totals()
+    # per chunk: the fine pass's primary march on K2 and its incident march
+    # on K1 full; the coarse pass density-only, no ε sweep
+    want = {"fused_field_apply": n_chunks, "fused_field_train_fwd": n_chunks}
+    if test_launches != want:
+        fail(phase, f"cli.test launched {test_launches}, expected {want}")
+    if test_points != [CHUNK * MC_DIRS * K1_MC_SHAPE[1]] * n_chunks:
+        fail(phase, f"cli.test's K1 full launches at {sorted(set(test_points))} points")
+    for k, v in results.items():
+        if v.shape[:3] != (1, h, w) or not np.isfinite(v).all():
+            fail(phase, f"cli.test buffer {k}: shape {v.shape} or non-finite values")
+    testdir = export / "aux_cli" / f"testset_{AUX_N_ITER:06d}"
+    for name in ("inferred_normal_map", "inferred_disp", "rgb"):
+        png = testdir / f"{name}_000.png"
+        if not png.exists() or native_loader.probe_png(str(png))[:2] != (h, w):
+            fail(phase, f"{png} missing or not {h}x{w}")
+    if {"reflected_radiance", "prefiltered_reflected"} & set(results):
+        fail(phase, "Monte-Carlo shading exported a reflected or prefiltered buffer")
+    # the same call once more under torch.profiler: where an image's time goes
+    test_profile = profile_steps(lambda: cli_test.main(test_argv), n=1)
+
+    for row in kernels:
+        row.setdefault("launches_by_phase", {})[phase] = totals.get(row["name"], 0)
+        if row["name"] == K1_MC_NAME:
+            row["launches"] = len(mc_points) + len(test_points)
+            row["launches_by_phase"][phase] = row["launches"]
+    n_updates = AUX_N_ITER + 1
+    report = dict(
+        card=card, rays=AUX_RAYS, height=TRAIN_H, width=TRAIN_W, heads=list(AUX_TRAINED),
+        run_s=run_s, updates=n_updates,
+        before_switch=_per_step(steps, updates, 2, CLI_SWITCH, AUX_RAYS),
+        after_switch=_per_step(steps, updates, CLI_SWITCH + 2, n_updates, AUX_RAYS),
+        monte_carlo=_per_step(second["steps"], second["updates"], AUX_N_ITER + 1,
+                              AUX_MC_N_ITER + 1, AUX_RAYS),
+        peak_memory_bytes=peak,
+        losses_at_switch=at_switch, monte_carlo_losses=mc_losses,
+        mc_k1_points=mc_pts, test_k1_points=CHUNK * MC_DIRS * K1_MC_SHAPE[1],
+        test_size=[h, w], test_chunks=n_chunks, test_s_per_image=timed["render"][0],
+        test_run_s=test_s, test_launches=test_launches, buffers=sorted(results),
+        launches=totals, test_profile=test_profile,
+        profile={"update": CLI_PROFILED, **first.get("profile", {})})
     emit(phase, **report)
     return report
 
@@ -1581,6 +1849,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_cli_phase(kernels, card)
     eval_cli_phase(kernels, card)
+    aux_cli_phase(kernels, card)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,4 +1,5 @@
-"""Neural field (dict-of-tensor params + pure apply functions)."""
+"""Neural field and auxiliary heads (dict-of-tensor params + pure apply
+functions)."""
 
 from ibl_nerf_tpu_torch.models.field import (
     FieldConfig,
@@ -6,4 +7,10 @@ from ibl_nerf_tpu_torch.models.field import (
     apply_field,
     apply_field_density,
     field_raw_channels,
+)
+from ibl_nerf_tpu_torch.models.aux_mlp import (
+    init_position_mlp,
+    apply_position_mlp,
+    init_position_direction_mlp,
+    apply_position_direction_mlp,
 )

@@ -1,5 +1,5 @@
 """Pure tensor math: encoding, rays, compositing, sampling, LUT
-sampling, Fresnel, geometry, color."""
+sampling, shading (split-sum and GGX), geometry, color."""
 
 from ibl_nerf_tpu_torch.ops.embedding import positional_encoding, embedding_dim
 from ibl_nerf_tpu_torch.ops.rays import get_rays_full_image, get_rays_for_pixels
@@ -13,8 +13,18 @@ from ibl_nerf_tpu_torch.ops.compositing import (
 from ibl_nerf_tpu_torch.ops.sampling import sample_pdf, stratified_z_vals
 from ibl_nerf_tpu_torch.ops.texture import grid_sample_2d, mip_interp
 from ibl_nerf_tpu_torch.ops.color import rgb_to_srgb, tonemap_reinhard, to8b
-from ibl_nerf_tpu_torch.ops.shading import fresnel_schlick_roughness, reflect
+from ibl_nerf_tpu_torch.ops.shading import (
+    fresnel_schlick_roughness,
+    ggx_distribution,
+    ggx_geometry,
+    schlick_fresnel,
+    microfacet_brdf,
+    reflect,
+)
 from ibl_nerf_tpu_torch.ops.geometry import (
+    get_tbn,
+    hemisphere_samples,
+    uniform_hemisphere_samples,
     depth_to_position,
     depth_to_normal_image_space,
     pose_spherical,

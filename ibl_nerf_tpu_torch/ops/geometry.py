@@ -1,9 +1,10 @@
-"""Depth -> position / screen-space normal, and spherical camera poses.
+"""Geometric helpers: tangent frames, hemisphere sampling, depth ->
+position / screen-space normal, and spherical camera poses.
 
-Counterpart of `depth_to_position`, `depth_to_normal_image_space` and
-`pose_spherical` in ibl_nerf_tpu/ops/geometry.py. The tangent frames
-and hemisphere samplers of the Monte-Carlo estimator are not ported
-yet.
+Counterpart of ibl_nerf_tpu/ops/geometry.py. The low-discrepancy
+hemisphere directions of the Monte-Carlo estimator are numpy, computed
+as the JAX package computes them (bit for bit); the uniform hemisphere
+sampler takes its uniforms from the caller.
 """
 
 from __future__ import annotations
@@ -15,6 +16,76 @@ import torch
 def _normalize(x: torch.Tensor) -> torch.Tensor:
     return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
                            min=1e-12)
+
+
+def get_tbn(normal: torch.Tensor):
+    """A (binormal, tangent) frame from normals (..., 3). The frame jumps
+    where normal x crosses normal z (the branch of the reference)."""
+    cond = normal[..., 0] > normal[..., 2]
+    zeros = torch.zeros_like(normal[..., 0])
+    b0 = torch.where(cond, -normal[..., 1], zeros)
+    b1 = torch.where(cond, normal[..., 0], -normal[..., 2])
+    b2 = torch.where(cond, zeros, normal[..., 1])
+    binormal = _normalize(torch.stack([b0, b1, b2], dim=-1))
+    tangent = torch.linalg.cross(binormal, normal, dim=-1)
+    return binormal, tangent
+
+
+def _map_uv_to_direction(u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """The area-preserving square -> hemisphere map, vectorised over the
+    grid: octant, then the polar angle from x and the azimuth from y/x."""
+    x = 2 * u - 1
+    y = 2 * v - 1
+
+    c1 = y > -x
+    c2 = y < x
+    c3 = y > 0
+    c4 = x > 0
+    c5 = y > x
+
+    xx = np.where(
+        c1,
+        np.where(c2, x, y),
+        np.where(c5, -x, -y),
+    )
+    offset = np.where(
+        c1,
+        np.where(c2, np.where(c3, 0, 7), np.where(c4, 1, 2)),
+        np.where(c5, np.where(c3, 3, 4), np.where(c4, 6, 5)),
+    ).astype(np.float64)
+    yy = np.where(
+        c1,
+        np.where(c2, np.where(c3, y, x + y), np.where(c4, y - x, -x)),
+        np.where(c5, np.where(c3, -x - y, -y), np.where(c4, x, x - y)),
+    )
+
+    degenerate = (~c1) & (~c5) & (~c4) & (y == 0)
+    xx_safe = np.where(xx == 0, 1.0, xx)
+
+    theta = np.arccos(np.clip(1 - xx * xx, -1.0, 1.0))
+    phi = (np.pi / 4) * (offset + yy / xx_safe)
+    d = np.stack(
+        [np.sin(theta) * np.cos(phi), np.sin(theta) * np.sin(phi), np.cos(theta)],
+        axis=-1,
+    )
+    return np.where(degenerate[..., None], np.array([0.0, 1.0, 0.0]), d)
+
+
+def hemisphere_samples(n: int, offset=(0.5, 0.5)) -> np.ndarray:
+    """n*n low-discrepancy hemisphere directions about +z, (n*n, 3) f32."""
+    idx = np.arange(n * n)
+    u = ((idx // n).astype(np.float64) + offset[0]) / n
+    v = ((idx % n).astype(np.float64) + offset[1]) / n
+    return _map_uv_to_direction(u, v).astype(np.float32)
+
+
+def uniform_hemisphere_samples(u: torch.Tensor) -> torch.Tensor:
+    """Uniform hemisphere directions about +z from (n, 2) uniforms in
+    [0, 1) (JAX draws them with jax.random.uniform(key, (n, 2)))."""
+    z = u[..., 0]
+    r = torch.sqrt(torch.clamp(1 - z * z, 0.0, 1.0))
+    phi = 2 * np.pi * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=1)
 
 
 def depth_to_position(H: int, W: int, K: torch.Tensor, c2w: torch.Tensor,

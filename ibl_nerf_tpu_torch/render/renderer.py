@@ -3,9 +3,13 @@ compositing, and split-sum image-based-lighting shading.
 
 Counterpart of ibl_nerf_tpu/render/renderer.py: the coarse pass (full
 shading in training, density-only on the `coarse_shading=False` fast
-path), `sample_pdf`, and the fine pass with ε, depth-gradient, sgs or
-gt normals, the BRDF-LUT fetch and Fresnel, the reflected march,
-`mip_interp` and the diffuse + specular combine, with the gt inputs (`gt_values`: the
+path), `sample_pdf`, and the fine pass with ε, depth-gradient, sgs, gt
+or inferred normals, then split-sum shading (the BRDF-LUT fetch and
+Fresnel, the reflected march, `mip_interp` and the diffuse + specular
+combine) or Monte-Carlo shading (GGX over `mc_samples_axis`² hemisphere
+directions, each marched for its incident radiance); the aux heads
+(`models/aux_mlp`: the inferred normal, the separate albedo, roughness
+and irradiance, the inferred depth); the gt inputs (`gt_values`: the
 `ground_truth` normal, `depth_map_from_ground_truth` and the
 `calculate_*_from_gt` substitutions) and the material-edit and
 object-insert overrides (`RenderConfig.edit`: gray-level object masks,
@@ -18,7 +22,8 @@ detached reflected march and detached depth in the mip level. The no-grad sweeps
 serving path render under no-grad throughout.
 
 With `use_pallas` the no-grad sweeps (ε-offset density sweeps,
-reflected march) go through the fused-field kernel K1
+reflected march, Monte-Carlo incident march) go through the fused-field
+kernel K1
 (`kernels/fused_field.py`); with `use_pallas_train` and bf16 gradients
 the gradient-path full query goes through K2/K3
 (`kernels/fused_field_train.py`), as the JAX renderer routes them
@@ -29,6 +34,7 @@ NotImplementedError naming the mode.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -39,6 +45,7 @@ from ibl_nerf_tpu_torch.kernels.fused_field import (
     pack_field_weights,
 )
 from ibl_nerf_tpu_torch.kernels.fused_field_train import fused_field_apply_train
+from ibl_nerf_tpu_torch.models.aux_mlp import apply_position_direction_mlp, apply_position_mlp
 from ibl_nerf_tpu_torch.models.field import apply_field, apply_field_density
 from ibl_nerf_tpu_torch.ops.color import rgb_to_srgb, tonemap_reinhard
 from ibl_nerf_tpu_torch.ops.compositing import (
@@ -50,18 +57,15 @@ from ibl_nerf_tpu_torch.ops.compositing import (
     weights_from_alpha,
 )
 from ibl_nerf_tpu_torch.ops.embedding import positional_encoding
+from ibl_nerf_tpu_torch.ops.geometry import get_tbn, hemisphere_samples
 from ibl_nerf_tpu_torch.ops.rays import get_rays_full_image
 from ibl_nerf_tpu_torch.ops.sampling import sample_pdf, stratified_z_vals
-from ibl_nerf_tpu_torch.ops.shading import fresnel_schlick_roughness, reflect
+from ibl_nerf_tpu_torch.ops.shading import fresnel_schlick_roughness, microfacet_brdf, reflect
 from ibl_nerf_tpu_torch.ops.texture import grid_sample_2d, mip_interp
 from ibl_nerf_tpu_torch.render import normals as normals_mod
-from ibl_nerf_tpu_torch.render.config import RenderConfig
+from ibl_nerf_tpu_torch.render.config import NORMAL_TYPES, RenderConfig
 from ibl_nerf_tpu_torch.utils.device import pin_f32_matmul
 
-_EPSILON_NORMALS = ("normal_map_from_depth_gradient_epsilon",
-                    "normal_map_from_depth_gradient_direction_epsilon")
-_SIGMA_NORMALS = ("normal_map_from_sigma_gradient",
-                  "normal_map_from_sigma_gradient_surface")
 _AUTOGRAD_NORMALS = ("normal_map_from_depth_gradient",
                      "normal_map_from_depth_gradient_direction")
 
@@ -71,10 +75,7 @@ _COMPUTE_DTYPES = ("float32", "bfloat16", "mixed", "bf16_grad", "amp", "float64"
 
 def _check_supported(rcfg: RenderConfig) -> None:
     """Raise NotImplementedError, naming the mode, for what the port
-    does not cover yet."""
-    def missing(mode):
-        raise NotImplementedError(f"{mode} is not ported to ibl_nerf_tpu_torch yet")
-
+    does not cover yet, and ValueError for an unknown mode."""
     if rcfg.compute_dtype not in _COMPUTE_DTYPES:
         raise ValueError(f"unknown compute_dtype {rcfg.compute_dtype!r}")
     if rcfg.compute_dtype == "float64" and rcfg.use_pallas:
@@ -82,17 +83,9 @@ def _check_supported(rcfg: RenderConfig) -> None:
         raise NotImplementedError("compute_dtype=float64 with use_pallas: K1 has no "
                                   "float64 kernel on any platform")
     if rcfg.raw_noise_std > 0.0:
-        missing("raw_noise_std")
-    for aux in ("infer_normal", "infer_depth", "infer_albedo_separate",
-                "infer_roughness_separate", "infer_irradiance_separate"):
-        if getattr(rcfg, aux):
-            missing(aux)
-    if rcfg.approximate_radiance:
-        if rcfg.shading_mode != "split_sum":
-            missing(f"shading_mode={rcfg.shading_mode}")
-        if rcfg.normal_type not in (_EPSILON_NORMALS + _SIGMA_NORMALS + _AUTOGRAD_NORMALS
-                                    + ("ground_truth",)):
-            missing(f"normal_type={rcfg.normal_type}")
+        raise NotImplementedError("raw_noise_std is not ported to ibl_nerf_tpu_torch yet")
+    if rcfg.approximate_radiance and rcfg.normal_type not in NORMAL_TYPES:
+        raise ValueError(f"unknown normal_type {rcfg.normal_type!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -289,12 +282,35 @@ def _apply_edit_overrides(edit, masks, mask_all, gt, normal_map, albedo_map,
 # The main per-ray renderer
 # ---------------------------------------------------------------------------
 
+def _aux_maps(variables, pts, x_surface, weights_det, rcfg: RenderConfig) -> dict:
+    """The maps of the aux heads the config turns on, composited on the
+    detached weights: "normal", the inferred normal 2 sigmoid - 1 (per
+    sample, or at the surface point; not normalised), and the separate
+    "albedo", "roughness" and "irradiance"."""
+    per_sample = [("normal", rcfg.infer_normal and not rcfg.infer_normal_at_surface,
+                   "normal_mlp", slice(None)),
+                  ("albedo", rcfg.infer_albedo_separate, "albedo_mlp", slice(0, 3)),
+                  ("roughness", rcfg.infer_roughness_separate, "roughness_mlp", 0),
+                  ("irradiance", rcfg.infer_irradiance_separate, "irradiance_mlp", 0)]
+    out = {}
+    if rcfg.infer_normal and rcfg.infer_normal_at_surface:
+        pe = positional_encoding(x_surface, rcfg.field.multires)
+        out["normal"] = 2.0 * torch.sigmoid(apply_position_mlp(variables["normal_mlp"], pe)) - 1.0
+    if any(on for _, on, _, _ in per_sample):
+        pe = positional_encoding(pts, rcfg.field.multires)
+    for name, on, head, cols in per_sample:
+        if on:
+            v = torch.sigmoid(apply_position_mlp(variables[head], pe)[..., cols])
+            out[name] = accumulate(weights_det, 2.0 * v - 1.0 if name == "normal" else v)
+    return out
+
+
 def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
                  near, far, rcfg: RenderConfig, gt_values=None):
-    """Full compositing + split-sum shading for one sample set.
-    gt_values: per-ray gt buffers ("normal", "depth", "albedo",
-    "roughness", "irradiance", and the edit and insert buffers), read by
-    the modes that substitute them."""
+    """Full compositing + shading (split-sum or Monte-Carlo) for one
+    sample set. gt_values: per-ray gt buffers ("normal", "depth",
+    "albedo", "roughness", "irradiance", and the edit and insert
+    buffers), read by the modes that substitute them."""
     rf = _radiance_f(rcfg)
     gt = gt_values or {}
     edit = rcfg.edit
@@ -321,11 +337,20 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
         target_depth_map = _where(mask_all, gt["object_insert_depth"][..., 0],
                                   target_depth_map)
     x_surface = (rays_o + rays_d * target_depth_map[..., None]).detach()
+    aux = _aux_maps(variables, pts, x_surface, weights_det, rcfg)
+    inferred_normal_map = aux.get("normal")
 
-    # --- intrinsic maps: detached weights, radiance on live ones -------------
-    albedo_map = accumulate(weights_det, torch.sigmoid(raw[..., 1:4]))
-    roughness_map = accumulate(weights_det, torch.sigmoid(raw[..., 4]))
-    irradiance_map = accumulate(weights_det, rf(raw[..., 5]))
+    # --- intrinsic maps: detached weights, radiance on live ones; the
+    # separate heads replace the field's ----------------------------------
+    albedo_map = aux.get("albedo")
+    if albedo_map is None:
+        albedo_map = accumulate(weights_det, torch.sigmoid(raw[..., 1:4]))
+    roughness_map = aux.get("roughness")
+    if roughness_map is None:
+        roughness_map = accumulate(weights_det, torch.sigmoid(raw[..., 4]))
+    irradiance_map = aux.get("irradiance")
+    if irradiance_map is None:
+        irradiance_map = accumulate(weights_det, rf(raw[..., 5]))
     radiance_map = accumulate(weights, rf(raw[..., 6:9]))
     coarse_radiance_maps = [
         accumulate(weights_det, rf(raw[..., 9 + 3 * k: 12 + 3 * k]))
@@ -339,7 +364,7 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
     target_irradiance_map = (gt["irradiance"] if rcfg.calculate_irradiance_from_gt
                              else irradiance_map)
 
-    # --- split-sum shading --------------------------------------------------
+    # --- shading --------------------------------------------------------------
     target_normal_map = approximated_radiance_map = None
     specular_map = diffuse_map = n_dot_v = None
     reflected_radiance_map = prefiltered_reflected_map = None
@@ -348,7 +373,7 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
     if rcfg.approximate_radiance:
         target_normal_map = _estimate_normal(query_sigma, query_sigma_ng, rays_o,
                                              rays_d, z_vals, pts, x_surface,
-                                             weights_det, gt, rcfg)
+                                             weights_det, inferred_normal_map, gt, rcfg)
         if edit is not None:
             (target_normal_map, target_albedo_map, target_roughness_map,
              target_irradiance_map) = _apply_edit_overrides(
@@ -356,7 +381,14 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
                 target_roughness_map, target_irradiance_map)
         n_dot_v = torch.clamp(torch.sum(-rays_d * target_normal_map, -1), 0.0, 1.0)
 
-        # BRDF LUT fetch
+    if rcfg.approximate_radiance and rcfg.shading_mode == "monte_carlo":
+        # no reflected or prefiltered maps in this mode
+        diffuse_map, specular_map = _monte_carlo_shading(
+            query_full_ng, rays_d, x_surface, z_vals_constant, target_normal_map,
+            target_albedo_map, target_roughness_map, rcfg)
+        approximated_radiance_map = diffuse_map + specular_map
+    elif rcfg.approximate_radiance:
+        # split sum: BRDF LUT fetch
         lut_uv = torch.stack(
             [2.0 * n_dot_v - 1.0, 2.0 * target_roughness_map - 1.0], dim=-1)
         env_brdf = grid_sample_2d(consts["brdf_lut"], lut_uv)
@@ -412,7 +444,7 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
         reflected_coarse_maps, target_irradiance_map, reflected_radiance_map,
         prefiltered_reflected_map, target_albedo_map, target_roughness_map, specular_map,
         diffuse_map, n_dot_v, target_normal_map, disp_map, acc_map, depth_map,
-        weights, target_depth_map)
+        weights, target_depth_map, inferred_normal_map)
 
 
 def _assemble_outputs(rcfg, approximated_radiance_map, radiance_map,
@@ -421,7 +453,8 @@ def _assemble_outputs(rcfg, approximated_radiance_map, radiance_map,
                       prefiltered_reflected_map, target_albedo_map,
                       target_roughness_map, specular_map, diffuse_map,
                       n_dot_v, target_normal_map, disp_map, acc_map,
-                      depth_map, weights, target_depth_map=None):
+                      depth_map, weights, target_depth_map=None,
+                      inferred_normal_map=None):
     """Output transforms + map dict, with the reference's key names;
     target_depth_map defaults to depth_map."""
     ldr = tonemap_reinhard if rcfg.use_radiance_linear else (lambda x: x)
@@ -448,6 +481,7 @@ def _assemble_outputs(rcfg, approximated_radiance_map, radiance_map,
     results["diffuse_map"] = out_f(diffuse_map)
     results["n_dot_v_map"] = n_dot_v
 
+    results["inferred_normal_map"] = inferred_normal_map
     results["target_normal_map"] = target_normal_map
     # the estimator's own key, for losses that name it (the normal_map_*
     # estimators only, as in the JAX renderer)
@@ -463,15 +497,22 @@ def _assemble_outputs(rcfg, approximated_radiance_map, radiance_map,
 
 
 def _estimate_normal(query_sigma, query_sigma_ng, rays_o, rays_d, z_vals,
-                     pts, x_surface, weights_det, gt, rcfg: RenderConfig):
-    """The shading normal, carrying no gradient: the gt normal map
-    (stored as (n + 1) / 2), the ε finite differences on the no-grad
-    query, or the depth gradient (forward mode) or density gradient of
-    the gradient-path query (bf16 under bf16_grad, as in the JAX
-    renderer). That query stays eager: K2/K3 have no forward mode."""
+                     pts, x_surface, weights_det, inferred_normal_map, gt,
+                     rcfg: RenderConfig):
+    """The shading normal: the gt normal map (stored as (n + 1) / 2), the
+    ε finite differences on the no-grad query, or the depth gradient
+    (forward mode) or density gradient of the gradient-path query (bf16
+    under bf16_grad, as in the JAX renderer), each carrying no gradient;
+    or the inferred normal map as it is, with its gradient to the normal
+    head. The gradient-path query stays eager: K2/K3 have no forward
+    mode."""
     nt = rcfg.normal_type
     if nt == "ground_truth":
         return _gt_normal(gt["normal"])
+    if nt == "inferred_normal_map":
+        if inferred_normal_map is None:
+            raise ValueError("normal_type inferred_normal_map needs infer_normal")
+        return inferred_normal_map
     if nt in _AUTOGRAD_NORMALS:
         fn = (normals_mod.normal_from_depth_gradient if nt == "normal_map_from_depth_gradient"
               else normals_mod.normal_from_depth_gradient_direction)
@@ -486,9 +527,56 @@ def _estimate_normal(query_sigma, query_sigma_ng, rays_o, rays_d, z_vals,
             return normals_mod.normal_from_depth_gradient_epsilon(
                 query_sigma_ng, rays_o, rays_d, z_vals, rcfg.epsilon,
                 scan=rcfg.sweep_scan)
-        return normals_mod.normal_from_depth_gradient_direction_epsilon(
-            query_sigma_ng, rays_o, rays_d, z_vals, rcfg.epsilon_direction,
-            scan=rcfg.sweep_scan)
+        if nt == "normal_map_from_depth_gradient_direction_epsilon":
+            return normals_mod.normal_from_depth_gradient_direction_epsilon(
+                query_sigma_ng, rays_o, rays_d, z_vals, rcfg.epsilon_direction,
+                scan=rcfg.sweep_scan)
+    raise ValueError(nt)
+
+
+@functools.cache
+def _hemisphere(n: int, device: torch.device) -> torch.Tensor:
+    """`hemisphere_samples(n)` on the device, copied there once."""
+    return torch.from_numpy(hemisphere_samples(n)).to(device)
+
+
+def _monte_carlo_shading(query_full_ng, rays_d, x_surface, z_vals_constant,
+                         normal_map, albedo_map, roughness_map, rcfg: RenderConfig):
+    """GGX microfacet Monte-Carlo shading: M = mc_samples_axis² fixed
+    low-discrepancy hemisphere directions about the shading normal, each
+    marched through the no-grad field (K1 full under use_pallas: B·M
+    rays of the constant coarse z) for its incident radiance, weighted by
+    the GGX glossy and Lambert diffuse BRDF and the uniform-hemisphere
+    weight 2π/M. The incident radiance and the directions carry no
+    gradient; the BRDF terms carry it to the normal, albedo and roughness
+    maps, as in the JAX renderer. Returns (diffuse (B, 3), specular (B, 3))."""
+    b, s = rays_d.shape[0], z_vals_constant.shape[-1]
+    local = _hemisphere(rcfg.mc_samples_axis, rays_d.device)   # (M, 3)
+    m = local.shape[0]
+
+    binormal, tangent = get_tbn(normal_map)
+    # world-space directions (B, M, 3) in the frame (tangent, binormal, normal)
+    wdirs = (local[None, :, 0, None] * tangent[:, None, :]
+             + local[None, :, 1, None] * binormal[:, None, :]
+             + local[None, :, 2, None] * normal_map[:, None, :])
+    wdirs = (wdirs / torch.clamp(torch.linalg.vector_norm(wdirs, dim=-1, keepdim=True),
+                                 min=1e-12)).detach()
+
+    with torch.no_grad():
+        z = z_vals_constant[:, None, :].expand(b, m, s).reshape(b * m, s)
+        flat_dirs = wdirs.reshape(b * m, 3)
+        pts = (x_surface[:, None, None, :] + wdirs[:, :, None, :]
+               * z.reshape(b, m, s)[..., None]).reshape(b * m, s, 3)
+        raw = query_full_ng(pts, flat_dirs)
+        incident, _ = _composite_radiance_stack(raw, z, flat_dirs, rcfg)
+        incident = incident.reshape(b, m, 3)
+
+    brdf_glossy, brdf_diffuse, l_dot_n = microfacet_brdf(
+        wdirs, -rays_d, normal_map, albedo_map, roughness_map[..., None])
+    w_mc = 2.0 * torch.pi / m   # the uniform hemisphere's pdf is 1/2π
+    specular = w_mc * torch.sum(brdf_glossy * incident * l_dot_n, dim=1)
+    diffuse = w_mc * torch.sum(brdf_diffuse * incident * l_dot_n, dim=1)
+    return diffuse, specular
 
 
 # ---------------------------------------------------------------------------
@@ -526,7 +614,9 @@ def render_rays(variables, consts, batch, rcfg: RenderConfig,
                 generator: torch.Generator | None = None, gt_values: dict | None = None):
     """Render a ray batch into all output maps.
 
-    variables: {'coarse': field params, 'fine': field params | absent}
+    variables: {'coarse': field params, 'fine': field params | absent,
+               and the aux heads the config turns on: 'normal_mlp',
+               'depth_mlp', '{albedo,roughness,irradiance}_mlp'}
     consts:    {'brdf_lut': (H, W, C)} non-trainable assets.
     batch:     make_ray_batch output.
     draws:     under perturb, the uniforms of `draw_render_uniforms`;
@@ -593,6 +683,12 @@ def render_rays(variables, consts, batch, rcfg: RenderConfig,
             result_fine[k + "0"] = v
         result = result_fine
         result["z_std"] = torch.std(z_samples, dim=-1, correction=0)
+
+    if rcfg.infer_depth:
+        pe = positional_encoding(rays_o[..., None, :], rcfg.field.multires)
+        de = positional_encoding(batch["viewdirs"][..., None, :], rcfg.field.multires_views)
+        out = apply_position_direction_mlp(variables["depth_mlp"], pe, de)
+        result["inferred_depth_map"] = torch.relu(out[..., 0]).squeeze(-1)
     return result
 
 

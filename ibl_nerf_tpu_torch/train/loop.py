@@ -13,9 +13,8 @@ of `i_video` the rgb stack as `video_{i:06d}.avi` (`utils/video.py`);
 the run.
 
 Flags the port does not cover raise NotImplementedError naming the
-flag before the scene loads: more than one device or process, the aux
-MLPs (`infer_*`), the environment map, `init_port_path`, patch
-sampling, and the renderer's unported modes.
+flag before the scene loads: more than one device or process,
+`init_port_path`, patch sampling, and the renderer's unported modes.
 """
 
 from __future__ import annotations
@@ -32,6 +31,8 @@ from ibl_nerf_tpu_torch.data.brdf_lut import load_brdf_lut
 from ibl_nerf_tpu_torch.data.dataset import load_scene
 from ibl_nerf_tpu_torch.data.sampler import device_arrays_from_scene
 from ibl_nerf_tpu_torch.eval.render_path import render_path
+from ibl_nerf_tpu_torch.models.aux_mlp import init_position_direction_mlp, init_position_mlp
+from ibl_nerf_tpu_torch.models.envmap import init_envmap
 from ibl_nerf_tpu_torch.models.field import FieldConfig, init_field_params
 from ibl_nerf_tpu_torch.render.config import RenderConfig
 from ibl_nerf_tpu_torch.render.renderer import _check_supported
@@ -42,11 +43,6 @@ from ibl_nerf_tpu_torch.train.step import build_optimizer, init_train_state, mak
 from ibl_nerf_tpu_torch.utils.device import resolve_device
 from ibl_nerf_tpu_torch.utils.logging import ScalarWriter, load_logger
 from ibl_nerf_tpu_torch.utils.video import export_stack_as_video
-
-_AUX_FLAGS = ("infer_normal", "infer_depth", "infer_visibility", "infer_albedo_separate",
-              "infer_roughness_separate", "infer_irradiance_separate",
-              "use_environment_map")
-
 
 def field_config_from_args(args) -> FieldConfig:
     # netdepth_fine/netwidth_fine are accepted but unread unless
@@ -138,13 +134,27 @@ def loss_config_from_args(args) -> LossConfig:
 
 
 def init_variables(seed: int, args, fcfg: FieldConfig, device) -> dict:
-    """The coarse and (with N_importance > 0) fine fields, drawn in that
-    order from a generator seeded with `seed`."""
+    """The coarse and (with N_importance > 0) fine fields, then the aux
+    heads and the environment map the flags turn on, in JAX's order, all
+    drawn from one generator seeded with `seed`."""
     rng = np.random.default_rng(seed)
     variables = {"coarse": init_field_params(rng, fcfg, device)}
     if args.N_importance > 0:
         fcfg_fine = fine_field_config_from_args(args, fcfg) or fcfg
         variables["fine"] = init_field_params(rng, fcfg_fine, device)
+    d, w, in_ch, in_ch_views = args.netdepth, args.netwidth, fcfg.input_ch, fcfg.input_ch_views
+    for name, flag in (("depth_mlp", "infer_depth"), ("visibility_mlp", "infer_visibility")):
+        if getattr(args, flag):
+            variables[name] = init_position_direction_mlp(rng, d, w, in_ch, in_ch_views, 1,
+                                                          device=device)
+    for name, flag, out_ch in (("normal_mlp", "infer_normal", 3),
+                               ("albedo_mlp", "infer_albedo_separate", 3),
+                               ("roughness_mlp", "infer_roughness_separate", 1),
+                               ("irradiance_mlp", "infer_irradiance_separate", 1)):
+        if getattr(args, flag):
+            variables[name] = init_position_mlp(rng, d, w, in_ch, out_ch, device=device)
+    if args.use_environment_map:
+        variables["env_map"] = init_envmap(rng, args.N_envmap_size, device)
     return variables
 
 
@@ -187,9 +197,6 @@ def check_supported_flags(args) -> None:
         missing("mesh_devices", " (the port trains on one device)")
     if args.num_processes > 1:
         missing("num_processes", " (the port trains in one process)")
-    for flag in _AUX_FLAGS:
-        if getattr(args, flag):
-            missing(flag)
     if args.init_port_path:
         missing("init_port_path")
     if args.ray_sample == "patch" and args.no_batching:
@@ -335,7 +342,8 @@ def train(args, device=None):
             rcfg, lcfg, phase, optimizer, consts, scene.height, scene.width, args.N_rand,
             prior_irradiance_mean=scene.prior_irradiance_mean, near=scene.near,
             far=scene.far, precrop=seg_start < args.precrop_iters,
-            precrop_frac=args.precrop_frac, merged_sampling=not args.no_batching)
+            precrop_frac=args.precrop_frac, merged_sampling=not args.no_batching,
+            n_depth_random_volume=args.N_depth_random_volume)
         logger.info("phase segment [%d, %d): %s", seg_start, seg_end, phase)
 
         for i in range(seg_start, seg_end):

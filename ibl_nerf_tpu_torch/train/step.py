@@ -9,11 +9,14 @@ params are updated in place: the step owns its `TrainState`, as the
 jitted JAX step owns the buffers it donates.
 
 Random draws (image and pixel indices, stratified jitter, importance
-uniforms) come from a `torch.Generator` on the data's device, or are
-passed in as a dict (`TrainStep.draw`) so that two steps can share
-them. Sampling is single-image or merged (an image per ray); the pixel
-batch doubles as the renderer's gt inputs. `patch` sampling and the
-depth-volume pass of the depth-distillation loss are not ported yet.
+uniforms, the depth-volume pass's directions and its own render draws)
+come from a `torch.Generator` on the data's device, or are passed in as
+a dict (`TrainStep.draw`) so that two steps can share them. Sampling is
+single-image or merged (an image per ray); the pixel batch doubles as
+the renderer's gt inputs. Once the depth loss is on (`infer_depth`) and
+the batch carries gt normals, the depth-volume pass renders random rays
+from the surface points for the depth distillation loss. `patch`
+sampling is not ported yet.
 """
 
 from __future__ import annotations
@@ -204,19 +207,61 @@ def phase_render_config(rcfg: RenderConfig, phase: Phase) -> RenderConfig:
     )
 
 
+def draw_volume_uniforms(n_vol: int, rcfg: RenderConfig, device,
+                         generator: torch.Generator | None = None,
+                         dtype: torch.dtype = torch.float32) -> dict:
+    """The draws of the depth-volume pass: "dirs" (n_vol, 3) uniforms of
+    its directions (JAX draws (B, 3) from k_vol and keeps the first
+    n_vol rows) and, under perturb, "render", its render_rays uniforms
+    (JAX's k_vol_render)."""
+    out = {"dirs": torch.rand((n_vol, 3), device=device, generator=generator, dtype=dtype)}
+    if rcfg.perturb:
+        out["render"] = draw_render_uniforms(n_vol, rcfg, device, generator, dtype)
+    return out
+
+
+def depth_volume_pass(variables, consts, normal, rays_o, rays_d, depth_map,
+                      rcfg: RenderConfig, near, far, n_vol: int, draws: dict) -> dict:
+    """The random-volume pass of the depth distillation loss (NeRV-style):
+    the first n_vol rays restart at their detached expected surface
+    points along random directions turned into the gt normal's
+    hemisphere (`normal` stored as (n + 1) / 2) and render depth-only,
+    with the inferred depth; their depth is detached."""
+    normal_map = 2.0 * normal[:n_vol] - 1.0
+    normal_map = normal_map / torch.clamp(
+        torch.linalg.vector_norm(normal_map, dim=-1, keepdim=True), min=1e-12)
+    x_surface = (rays_o[:n_vol] + rays_d[:n_vol] * depth_map[:n_vol, None]).detach()
+    rand_dir = 2.0 * draws["dirs"][:n_vol] - 1.0
+    rand_dir = torch.sign(torch.sum(rand_dir * normal_map, -1))[..., None] * rand_dir
+    rand_dir = rand_dir / torch.clamp(
+        torch.linalg.vector_norm(rand_dir, dim=-1, keepdim=True), min=1e-12)
+    result = render_rays(variables, consts, make_ray_batch(x_surface, rand_dir, near, far),
+                         rcfg, is_depth_only=True, draws=draws.get("render"))
+    result["depth_map"] = result["depth_map"].detach()
+    return result
+
+
 def loss_from_batch(variables, consts, pixel_info, rays_o, rays_d,
                     rcfg_phase: RenderConfig, lcfg: LossConfig, phase: Phase,
                     prior_irradiance_mean: float, near, far,
-                    draws: dict | None = None):
-    """Render + loss for an already-sampled pixel batch, which is also the
-    renderer's gt inputs; `draws` as `render_rays` takes them."""
-    if phase.depth_loss_on and "normal" in pixel_info:
-        raise NotImplementedError("the depth-volume pass of the depth loss is "
-                                  "not ported to ibl_nerf_tpu_torch yet")
+                    draws: dict | None = None, n_vol: int = 256,
+                    vol_draws: dict | None = None):
+    """Render, the depth-volume pass (when the depth loss is on and the
+    batch has gt normals) and the loss for an already-sampled pixel
+    batch, which is also the renderer's gt inputs. `draws` as
+    `render_rays` takes them; `vol_draws` as `draw_volume_uniforms` makes
+    them, for n_vol volume rays (drawn on the rays' device when absent)."""
     batch = make_ray_batch(rays_o, rays_d, near, far)
     result = render_rays(variables, consts, batch, rcfg_phase, draws=draws,
                          gt_values=pixel_info)
-    return compute_losses(result, pixel_info, lcfg, phase, prior_irradiance_mean, far)
+    depth_volume_result = None
+    if phase.depth_loss_on and "normal" in pixel_info:
+        depth_volume_result = depth_volume_pass(
+            variables, consts, pixel_info["normal"], rays_o, rays_d, result["depth_map"],
+            rcfg_phase, near, far, n_vol,
+            vol_draws or draw_volume_uniforms(n_vol, rcfg_phase, rays_o.device))
+    return compute_losses(result, pixel_info, lcfg, phase, prior_irradiance_mean, far,
+                          depth_volume_result=depth_volume_result)
 
 
 class TrainStep:
@@ -226,16 +271,18 @@ class TrainStep:
 
     def __init__(self, rcfg, lcfg, phase, optimizer, consts, H, W, batch_size,
                  prior_irradiance_mean, near, far, precrop, precrop_frac,
-                 merged_sampling=False):
+                 merged_sampling=False, n_depth_random_volume=256):
         self.rcfg = phase_render_config(rcfg, phase)
         self.lcfg, self.phase, self.optimizer, self.consts = lcfg, phase, optimizer, consts
         self.H, self.W, self.batch_size = H, W, batch_size
         self.prior_irradiance_mean, self.near, self.far = prior_irradiance_mean, near, far
         self.precrop, self.precrop_frac = precrop, precrop_frac
         self.merged_sampling = merged_sampling
+        self.n_vol = min(n_depth_random_volume, batch_size)
 
     def draw(self, arrays: dict, generator: torch.Generator | None = None) -> dict:
-        """Every random number of one step: {"pixels": ..., "render": ...}."""
+        """Every random number of one step: {"pixels": ..., "render": ...,
+        and "vol" when the depth-volume pass runs}."""
         images = arrays["images"]
         draws = {"pixels": draw_pixels(images.shape[0], self.batch_size, self.H, self.W,
                                        images.device, generator, self.precrop,
@@ -243,6 +290,9 @@ class TrainStep:
         if self.rcfg.perturb:
             draws["render"] = draw_render_uniforms(self.batch_size, self.rcfg,
                                                    images.device, generator)
+        if self.phase.depth_loss_on and "normal" in arrays:
+            draws["vol"] = draw_volume_uniforms(self.n_vol, self.rcfg, images.device,
+                                                generator)
         return draws
 
     def loss(self, variables: dict, arrays: dict, draws: dict):
@@ -253,7 +303,8 @@ class TrainStep:
         return loss_from_batch(variables, self.consts, pixel_info, rays_o, rays_d,
                                self.rcfg, self.lcfg, self.phase,
                                self.prior_irradiance_mean, self.near, self.far,
-                               draws=draws.get("render"))
+                               draws=draws.get("render"), n_vol=self.n_vol,
+                               vol_draws=draws.get("vol"))
 
     def loss_and_grads(self, variables: dict, arrays: dict, draws: dict):
         """(total, scalars, grads): grads mirror `variables`; a param the
@@ -291,13 +342,14 @@ def make_train_step(
     precrop: bool = False,
     precrop_frac: float = 0.5,
     merged_sampling: bool = False,
+    n_depth_random_volume: int = 256,
     patch: bool = False,
 ) -> TrainStep:
     """The train step of one phase; it updates its state in place.
-    merged_sampling draws an image per ray. The depth-volume pass is not
-    ported: the step raises when its loss is on."""
+    merged_sampling draws an image per ray; the depth-volume pass renders
+    min(n_depth_random_volume, batch_size) rays."""
     if patch:
         raise NotImplementedError("patch sampling is not ported to ibl_nerf_tpu_torch yet")
     return TrainStep(rcfg, lcfg, phase, optimizer, consts, H, W, batch_size,
                      prior_irradiance_mean, near, far, precrop, precrop_frac,
-                     merged_sampling)
+                     merged_sampling, n_depth_random_volume)

@@ -6,4 +6,6 @@ from ibl_nerf_tpu_torch.utils.port import (
     field_params_from_numpy,
     field_params_from_torch_state,
     load_reference_checkpoint,
+    position_direction_mlp_params_from_torch_state,
+    position_mlp_params_from_torch_state,
 )

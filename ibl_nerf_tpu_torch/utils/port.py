@@ -1,9 +1,10 @@
-"""Weight conversion into the port's field params.
+"""Weight conversion into the port's field and aux-head params.
 
-Two sources: a PyTorch reference IBL-NeRF state_dict or its `.tar`
-checkpoint (Linear weights (out, in), counterpart of
-ibl_nerf_tpu/utils/port.py), and a JAX field pytree already turned into
-numpy arrays (same (in, out) layout).
+Two sources: a PyTorch reference IBL-NeRF state_dict (the field's or an
+aux MLP's) or its `.tar` checkpoint (Linear weights (out, in),
+counterpart of ibl_nerf_tpu/utils/port.py), and a JAX param pytree
+already turned into numpy arrays (same (in, out) layout; any tree of
+dicts and lists, the aux heads' and the environment map's too).
 """
 
 from __future__ import annotations
@@ -26,10 +27,17 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(_np(a), dtype=np.float32)).to(device)
 
 
+def _lin(sd: dict, name: str, device: torch.device) -> dict:
+    """A Linear layer of a state_dict, transposed to (in, out)."""
+    return {"w": _tensor(_np(sd[f"{name}.weight"]).T, device),
+            "b": _tensor(sd[f"{name}.bias"], device)}
+
+
 def field_params_from_numpy(tree: Any,
                             device: str | torch.device | None = None) -> Any:
-    """A JAX field pytree (dicts/lists of numpy arrays) as the same
-    structure of f32 tensors on `device` (CUDA unless named)."""
+    """A JAX param pytree (dicts/lists of numpy arrays: the fields, the
+    aux heads, {"emission": ...}) as the same structure of f32 tensors
+    on `device` (CUDA unless named)."""
     device = resolve_device(device)
 
     def conv(x):
@@ -50,8 +58,7 @@ def field_params_from_torch_state(sd: dict, coarse_radiance_number: int = 3,
     device = resolve_device(device)
 
     def lin(name):
-        return {"w": _tensor(_np(sd[f"{name}.weight"]).T, device),
-                "b": _tensor(sd[f"{name}.bias"], device)}
+        return _lin(sd, name, device)
 
     return {
         "trunk": [lin(f"positions_linears.{i}") for i in range(depth)],
@@ -69,6 +76,24 @@ def field_params_from_torch_state(sd: dict, coarse_radiance_number: int = 3,
         "coarse": [lin(f"additional_radiance_linear.{i}")
                    for i in range(coarse_radiance_number)],
     }
+
+
+def position_mlp_params_from_torch_state(sd: dict, depth: int = 8,
+                                         device: str | torch.device | None = None):
+    """A reference PositionMLP state_dict as the port's params."""
+    device = resolve_device(device)
+    return {"trunk": [_lin(sd, f"positions_linears.{i}", device) for i in range(depth)],
+            "out": _lin(sd, "out_linears", device)}
+
+
+def position_direction_mlp_params_from_torch_state(
+        sd: dict, depth: int = 8, device: str | torch.device | None = None):
+    """A reference PositionDirectionMLP state_dict as the port's params."""
+    device = resolve_device(device)
+    return {"trunk": [_lin(sd, f"positions_linears.{i}", device) for i in range(depth)],
+            "feature": _lin(sd, "feature_linear", device),
+            "views": [_lin(sd, f"views_linears.{i}", device) for i in range(depth // 2)],
+            "out": _lin(sd, "final_linear", device)}
 
 
 def load_reference_checkpoint(path: str, coarse_radiance_number: int = 3,

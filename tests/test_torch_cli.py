@@ -7,7 +7,8 @@ normals, merged sampling, bf16_grad) writes the same files as JAX's
 `train` on the same scene and arguments: the checkpoint names, the keys
 of train_info_step_time.json and of metrics.jsonl, and the test-set
 PNG names. Flags the port does not cover are refused before anything
-runs, and the CLI refuses to run without a card.
+runs (the aux heads, Monte-Carlo shading and the inferred normal pass),
+and the CLI refuses to run without a card.
 """
 
 import json
@@ -22,6 +23,7 @@ from ibl_nerf_tpu.cli.config import parse_with_includes as j_parse
 from ibl_nerf_tpu.train.loop import train as j_train
 from ibl_nerf_tpu_torch.cli import train as cli_train
 from ibl_nerf_tpu_torch.cli.config import build_parser, parse_with_includes
+from ibl_nerf_tpu_torch.train import loop
 from ibl_nerf_tpu_torch.train.loop import train
 
 sys.path.insert(0, os.path.dirname(__file__))
@@ -95,16 +97,22 @@ def test_train_writes_the_files_jax_writes(scene_dir, tmp_path):
 
 def test_unported_flags_are_refused_before_anything_runs(scene_dir, tmp_path):
     logdir = str(tmp_path / "refused")
-    cases = [(["--infer_normal"], "infer_normal"),
+    cases = [(["--raw_noise_std", "1.0"], "raw_noise_std"),
              (["--mesh_devices", "2"], "mesh_devices"),
-             (["--use_environment_map"], "use_environment_map"),
+             (["--num_processes", "2"], "num_processes"),
              (["--init_port_path", "x.tar"], "init_port_path"),
-             (["--ray_sample", "patch", "--no_batching"], "ray_sample"),
-             (["--calculating_normal_type", "inferred_normal_map"], "normal_type")]
+             (["--ray_sample", "patch", "--no_batching"], "ray_sample")]
     for extra, flag in cases:
         with pytest.raises(NotImplementedError, match=flag):
             train(parse_with_includes(_argv(scene_dir, logdir, *extra)), device="cpu")
     assert not os.path.exists(logdir)
+    # the aux heads, the environment map, Monte-Carlo shading and the
+    # inferred normal pass the checks
+    loop.check_supported_flags(parse_with_includes(_argv(
+        scene_dir, logdir, "--infer_normal", "--infer_normal_at_surface", "--infer_depth",
+        "--infer_albedo_separate", "--infer_roughness_separate", "--infer_irradiance_separate",
+        "--infer_visibility", "--use_environment_map", "--shading_mode", "monte_carlo",
+        "--calculating_normal_type", "inferred_normal_map")))
 
 
 def test_cli_needs_a_card(scene_dir, tmp_path):

@@ -27,6 +27,7 @@ from ibl_nerf_tpu.render import render_image as j_render_image
 from ibl_nerf_tpu.render import render_rays as j_render_rays
 from ibl_nerf_tpu_torch.data.brdf_lut import load_brdf_lut
 from ibl_nerf_tpu_torch.eval.render_path import render_path
+from ibl_nerf_tpu_torch.models.aux_mlp import init_position_direction_mlp, init_position_mlp
 from ibl_nerf_tpu_torch.models.field import FieldConfig
 from ibl_nerf_tpu_torch.render import (RenderConfig, make_frame_render_fn,
                                        make_ray_batch, render_frame,
@@ -217,6 +218,13 @@ def test_render_path(setup):
         np.testing.assert_allclose(out[k], r, atol=atol, rtol=rtol, err_msg=k)
 
 
+# the modes refused until their slice, with a map each renders now
+PORTED_MODES = {"infer_normal": "inferred_normal_map", "monte_carlo": "specular_map",
+                "infer_depth": "inferred_depth_map", "infer_albedo_separate": "albedo_map",
+                "infer_roughness_separate": "roughness_map",
+                "infer_irradiance_separate": "irradiance_map"}
+
+
 @pytest.mark.parametrize("kw,mode", [
     (dict(normal_type="inferred_normal_map", infer_normal=True), "infer_normal"),
     (dict(normal_type="ground_truth", shading_mode="monte_carlo"), "monte_carlo"),
@@ -232,11 +240,30 @@ def test_render_path(setup):
     (dict(infer_irradiance_separate=True), "infer_irradiance_separate"),
 ])
 def test_uncovered_modes_raise(setup, kw, mode):
+    """Modes the port does not cover raise NotImplementedError naming the
+    mode. The aux heads and Monte-Carlo shading, refused here until they
+    were ported, now render their maps (tests/test_torch_aux.py and
+    tests/test_torch_mc_shading.py hold them against JAX); shading with
+    the inferred normal but no normal head is a ValueError."""
     _, tvars, _, tconsts, rays_o, rays_d = setup
     _, tr = _cfgs(**kw)
     batch = make_ray_batch(torch.from_numpy(rays_o), torch.from_numpy(rays_d), 2.0, 6.0)
-    with pytest.raises(NotImplementedError, match=mode):
-        render_rays(tvars, tconsts, batch, tr)
+    if mode in PORTED_MODES:
+        rng, in_ch = np.random.default_rng(0), tr.field.input_ch
+        aux = {name: init_position_mlp(rng, 8, 32, in_ch, out_ch, device="cpu")
+               for name, out_ch in (("normal_mlp", 3), ("albedo_mlp", 3),
+                                    ("roughness_mlp", 1), ("irradiance_mlp", 1))}
+        aux["depth_mlp"] = init_position_direction_mlp(rng, 8, 32, in_ch,
+                                                       tr.field.input_ch_views, 1, device="cpu")
+        gt = {"normal": torch.tensor([0.5, 0.5, 1.0]).expand(rays_o.shape[0], 3)}
+        out = render_rays({**tvars, **aux}, tconsts, batch, tr, gt_values=gt)
+        assert torch.isfinite(out[PORTED_MODES[mode]]).all()
+    elif mode == "normal_type":
+        with pytest.raises(ValueError, match="infer_normal"):
+            render_rays(tvars, tconsts, batch, tr)
+    else:
+        with pytest.raises(NotImplementedError, match=mode):
+            render_rays(tvars, tconsts, batch, tr)
 
 
 @pytest.mark.parametrize("normal_type,aliased", [

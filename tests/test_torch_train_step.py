@@ -261,7 +261,7 @@ def test_train_step_draws_from_a_generator(scene):
 
 
 def test_train_step_uncovered_modes_raise(scene):
-    _, _, _, tc = scene
+    _, tarr, _, tc = scene
     _, tr = _cfgs(4, normal_type=EPS)
     tl = tlosses.LossConfig(**LOSS)
     _, tv = _variables(4)
@@ -269,7 +269,7 @@ def test_train_step_uncovered_modes_raise(scene):
     phase = tlosses.resolve_phase(50000, tl)
     with pytest.raises(NotImplementedError, match="patch"):
         tstep.make_train_step(tr, tl, phase, opt, tc, H, W, B, 0.7, NEAR, FAR, patch=True)
-    depth = tlosses.LossConfig(**LOSS, infer_depth=True, n_iter_ignore_depth=0)
-    with pytest.raises(NotImplementedError, match="depth-volume"):
-        tstep.loss_from_batch(tv, tc, {"normal": None}, None, None, tr, depth,
-                              tlosses.resolve_phase(0, depth), 0.7, NEAR, FAR)
+    step = tstep.make_train_step(tr.replace(raw_noise_std=1.0), tl, phase, opt, tc, H, W, B,
+                                 0.7, NEAR, FAR)
+    with pytest.raises(NotImplementedError, match="raw_noise_std"):
+        step(tstep.init_train_state(tv, opt), tarr)
