@@ -105,6 +105,24 @@ Phases, one JSON line each; any failure exits non-zero:
           Monte-Carlo shading, peak memory, cli.test's seconds per image,
           and a profiler breakdown of update 20 and of a second cli.test
           call.
+  flags_dp  the trainer's last flags and data parallelism on train_cli's
+          scene, through `cli.train.main` with train_cli's flags and
+          --ray_sample patch --no_batching --raw_noise_std 1.0
+          --init_port_path (a reference-layout .tar this script writes)
+          --mesh_devices 2 at 4096 rays: 2 updates from an init whose fine
+          σ bias is -100 (it arrives bit for bit, is logged as dead and
+          stays below -99: never re-drawn), then 16 from a live init
+          (finite losses, patch_depth_smoothness above 0, 2 K2 and 2 K3
+          an update and 2 K1 full from the switch, the clamp of
+          --mesh_devices 2 to this card logged; ms per update). Then
+          make_sharded_train_step over two shards of cuda:0 against the
+          unsharded step on the same draws for 3 updates (the loss within
+          1e-4 and each group's move within 1e-2 relative). Then
+          `--num_processes 2` in two worker processes of this script on
+          the one card over gloo, and a 1-rank NCCL group: the replicas
+          bit-identical, only rank 0 writing the logdir, the last
+          checkpoint restoring the final params; each update and its
+          all_reduce timed. Each leg's processes have a 300 s timeout.
 Weights are random from a seed. Then the per-kernel JSON line, the card
 line, and the ok line last. Every number printed is measured in this
 run, on this card.
@@ -150,8 +168,11 @@ from ibl_nerf_tpu_torch.train import (
     make_train_step,
     resolve_phase,
 )
+from ibl_nerf_tpu_torch.parallel.mesh import make_sharded_train_step
+from ibl_nerf_tpu_torch.train import checkpoint as ckpt_lib
 from ibl_nerf_tpu_torch.train import loop as loop_mod
-from ibl_nerf_tpu_torch.train.step import _leaves
+from ibl_nerf_tpu_torch.train.step import TrainState, _leaves
+from ibl_nerf_tpu_torch.utils.logging import load_logger
 from ibl_nerf_tpu_torch.utils.device import resolve_device
 from ibl_nerf_tpu_torch.utils import mesh_extract
 from ibl_nerf_tpu_torch.utils.png import write_png
@@ -1260,12 +1281,12 @@ def _launch_counts() -> dict:
 
 
 @contextlib.contextmanager
-def cli_probes(record: dict, snapshot_at: tuple = ()):
+def cli_probes(record: dict, snapshot_at: tuple = (), profiled: int = CLI_PROFILED):
     """Within the block, the trainer's PNG decodes, pyramid builds, train
     steps and test-set renders are timed (steps and renders synchronised
     on the device first), and each step's update index and kernel
     launches, and each render's launches, are recorded into `record`.
-    The step of update CLI_PROFILED runs under torch.profiler instead of
+    The step of update `profiled` runs under torch.profiler instead of
     being timed: its breakdown goes to record["profile"]. Before the step
     of each update in `snapshot_at`, a copy of the params goes to
     record["params_before"][update]."""
@@ -1299,7 +1320,7 @@ def cli_probes(record: dict, snapshot_at: tuple = ()):
                 record.setdefault("params_before", {})[record["updates"][-1]] = {
                     name: [p.detach().clone() for p in _leaves(v)]
                     for name, v in a[0].variables.items()}
-            if record["updates"][-1] != CLI_PROFILED:
+            if record["updates"][-1] != profiled:
                 return timed_step(*a, **kw)
             out = []
             before = _launch_counts()
@@ -1804,6 +1825,403 @@ def aux_cli_phase(kernels, card: str) -> dict:
     return report
 
 
+# The flags_dp phase: the trainer's last flags and data parallelism on
+# train_cli's scene. (1) cli.train with patch sampling, raw-σ noise, a
+# ported init (a reference-layout .tar) and --mesh_devices 2 (one card:
+# clamped, unsharded) at the CLI's 4096 rays: FLAGS_DEAD_N_ITER + 1
+# updates from an init whose fine σ bias is -100, then FLAGS_N_ITER + 1
+# from a live one (`patch_leg`). (2) make_sharded_train_step over two
+# shards of cuda:0 against the unsharded step on the same draws for
+# MESH_UPDATES updates: the loss of each within MESH_LOSS_REL, and each
+# param group's move from the start within MESH_PARAM_REL of the
+# unsharded one's (same kernels; the shards sum the loss's means and
+# K3's dW in another order, and Adam turns that into up to lr on
+# elements whose gradient is near 0). (3) `--num_processes 2` through
+# cli.train in two processes on the one card over gloo (NCCL takes one
+# rank per GPU), and a 1-rank NCCL group; each leg in processes of its
+# own with a timeout of its own.
+FLAGS_N_ITER, FLAGS_DEAD_N_ITER, FLAGS_DEAD_BIAS = 15, 1, -100.0
+FLAGS_PROFILED = 13  # the live run's update under torch.profiler
+MESH_UPDATES, MESH_LOSS_REL, MESH_PARAM_REL = 3, 1e-4, 1e-2
+DP_N_ITER, DP_SWITCH, DP_TIMEOUT = 5, 2, 300
+DP_LEGS = (("dp_gloo", "gloo", 2), ("dp_nccl", "nccl", 1))  # (name, backend, processes)
+
+
+def reference_state_dict(params: dict) -> dict:
+    """A port field's params under the reference's key names, Linear
+    weights (out, in), on the CPU."""
+    names = {"sigma": "sigma_linear", "albedo_feat": "albedo_feature_linear",
+             "albedo": "albedo_linear", "roughness": "roughness_linear",
+             "irradiance_feat": "irradiance_feature_linear", "irradiance": "irradiance_linear",
+             "feature": "feature_linear", "radiance": "radiance_linear"}
+    lin = {f"positions_linears.{i}": q for i, q in enumerate(params["trunk"])}
+    lin.update({v: params[k] for k, v in names.items()})
+    lin["views_linears.0"] = params["views"][0]
+    for i in range(len(params["coarse"])):
+        lin[f"additional_radiance_feature_linear.{i}"] = params["coarse_feat"][i]
+        lin[f"additional_radiance_linear.{i}"] = params["coarse"][i]
+    sd = {}
+    for name, q in lin.items():
+        sd[f"{name}.weight"] = q["w"].detach().T.contiguous().cpu()
+        sd[f"{name}.bias"] = q["b"].detach().cpu().clone()
+    return sd
+
+
+def write_port_init(path: Path, cfg: FieldConfig, fine_bias: float) -> dict:
+    """A reference .tar from a seed: the coarse field alive (σ bias +0.5),
+    the fine one's σ bias shifted by `fine_bias`. Returns the fields."""
+    rng = np.random.default_rng(SEED + 7)
+    fields = {"coarse": init_field_params(rng, cfg, "cpu"), "fine": init_field_params(rng, cfg, "cpu")}
+    fields["coarse"]["sigma"]["b"] += 0.5
+    fields["fine"]["sigma"]["b"] += fine_bias
+    torch.save({"network_fn_state_dict": reference_state_dict(fields["coarse"]),
+                "network_fine_state_dict": reference_state_dict(fields["fine"]),
+                "global_step": 0}, path)
+    return fields
+
+
+@contextlib.contextmanager
+def captured_log(name: str, records: list):
+    """Within the block, the messages of logger `name` go to `records`."""
+    import logging
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append((record.levelname, record.getMessage()))
+
+    handler = Keep()
+    logger = load_logger(name)
+    logger.addHandler(handler)
+    try:
+        yield
+    finally:
+        logger.removeHandler(handler)
+
+
+def flags_argv(expname: str, tar: Path, n_iter: int) -> list[str]:
+    return cli_argv(n_iter) + [
+        "--expname", expname, "--ray_sample", "patch", "--no_batching",
+        "--raw_noise_std", "1.0", "--init_port_path", str(tar), "--mesh_devices", "2",
+        "--i_weights", str(n_iter), "--i_testset", "1000000", "--summary_step", "1"]
+
+
+def patch_leg(cfg: FieldConfig, dead: bool) -> dict:
+    """(1) cli.train with patch sampling, noise, a ported init and
+    --mesh_devices 2. `dead`: the ported fine field is dead (σ bias
+    FLAGS_DEAD_BIAS) for FLAGS_DEAD_N_ITER + 1 updates: it must arrive
+    bit for bit, be logged as dead and stay below FLAGS_DEAD_BIAS + 1
+    (never re-drawn); a dead fine field gives every ray depth 0, so the
+    neighbour depths' smoothness is 0. Otherwise both fields are alive,
+    for FLAGS_N_ITER + 1 updates: the smoothness must be above 0, the
+    kernels launch as in train_cli, and the update is timed."""
+    phase = "flags_dp"
+    name = "flags_dead" if dead else "flags_dp"
+    n_iter = FLAGS_DEAD_N_ITER if dead else FLAGS_N_ITER
+    logdir = CLI_DIR / "logs" / name
+    shutil.rmtree(logdir, ignore_errors=True)
+    tar = CLI_DIR / f"{name}_init.tar"
+    fields = write_port_init(tar, cfg, FLAGS_DEAD_BIAS if dead else 0.5)
+    zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    record, logs = {}, []
+    t0 = time.perf_counter()
+    with (cli_probes(record, snapshot_at=(0, 1), profiled=-1 if dead else FLAGS_PROFILED),
+          captured_log("train", logs)):
+        state = cli_train.main(flags_argv(name, tar, n_iter))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = _launch_counts()
+    steps, updates = record["steps"], record["updates"]
+    if updates != list(range(n_iter + 1)) or state.step != n_iter + 1:
+        fail(phase, f"{name}: updates {updates[:3]}...{updates[-3:]}, step {state.step}")
+    before = {i: {g: dict(zip([n for n, _ in _named(state.variables[g])], leaves))
+                  for g, leaves in by_group.items()}
+              for i, by_group in record["params_before"].items()}
+    for g in ("coarse", "fine"):
+        want = dict(_named(fields[g]))
+        if set(want) != set(before[0][g]) or not all(
+                torch.equal(before[0][g][n].cpu(), t) for n, t in want.items()):
+            fail(phase, f"{name}: the ported {g} field did not arrive bit for bit")
+    dead_log = [m for level, m in logs if level == "ERROR" and "field init is DEAD" in m]
+    records = [json.loads(line) for line in open(logdir / "metrics.jsonl")]
+    losses = [r["loss_total"] for r in records]
+    smooth = [r["patch_depth_smoothness"] for r in records]
+    if len(records) != n_iter + 1 or not np.all(np.isfinite(losses + smooth)):
+        fail(phase, f"{name}: losses {losses}, patch_depth_smoothness {smooth}")
+    if dead:
+        # after the first update, and after the last
+        fine_bias = [float(before[1]["fine"]["sigma.b"].max()),
+                     float(state.variables["fine"]["sigma"]["b"].detach().max())]
+        if max(fine_bias) >= FLAGS_DEAD_BIAS + 1 or len(dead_log) != 1 or "fine" not in dead_log[0]:
+            fail(phase, f"{name}: fine σ bias {fine_bias}, dead-init log {dead_log}: the "
+                 f"dead init was re-drawn or not reported")
+        return dict(updates=n_iter + 1, run_s=run_s, fine_sigma_bias_max=fine_bias,
+                    dead_init_log=dead_log[0], losses=losses, patch_depth_smoothness=smooth)
+    for e, i in zip(steps, updates):
+        want = {"fused_field_train_fwd": 2, "fused_field_train_bwd": 2,
+                "fused_field_apply": 2 if i >= CLI_SWITCH else 0}
+        if {k: v for k, v in e["launches"].items() if v} != {k: v for k, v in want.items() if v}:
+            fail(phase, f"{name}: update {i} launched {e['launches']}, expected {want}")
+    clamp = [m for _, m in logs if m.startswith("--mesh_devices 2")]
+    if dead_log or not clamp or not all(v > 0 for v in smooth):
+        fail(phase, f"{name}: dead-init log {dead_log}, mesh clamp log {clamp}, "
+             f"patch_depth_smoothness {smooth}")
+    return dict(
+        updates=n_iter + 1, rays=CLI_RAYS, neighbour_rays=8 * CLI_RAYS, run_s=run_s,
+        before_switch=_per_step(steps, updates, 2, CLI_SWITCH),
+        after_switch=_per_step(steps, updates, CLI_SWITCH + 2, n_iter + 1),
+        peak_memory_bytes=peak, launches=launches, losses=losses,
+        patch_depth_smoothness=smooth, mesh_clamp_log=clamp[0],
+        profile={"update": FLAGS_PROFILED, **record.get("profile", {})})
+
+
+def _named(tree, prefix=""):
+    """(dotted name, leaf) pairs of a param tree, in _leaves order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _named(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _named(v, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)]
+
+
+def mesh_leg(cfg: FieldConfig, consts: dict, device) -> dict:
+    """(2) make_sharded_train_step over two shards of cuda:0 against the
+    unsharded step, the CLI's update (4096 rays, gt normals, merged
+    sampling, bf16_grad, K2/K3 and K1 full)."""
+    phase = "flags_dp"
+    rcfg, lcfg, tphase = train_config(cfg, normal_type="ground_truth")
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    arrays = train_scene(device, gen)
+    arrays["normal"] = torch.rand(arrays["images"].shape, device=device, generator=gen)
+    rng = np.random.default_rng(SEED + 11)
+    start = {"coarse": init_field_params(rng, cfg, device), "fine": init_field_params(rng, cfg, device)}
+    for v in start.values():
+        v["sigma"]["b"] += 0.5
+    runs = {}
+    for name in ("unsharded", "mesh"):
+        optimizer = build_optimizer(start, lrate=5e-4, lrate_decay=250, lcfg=lcfg)
+        state = init_train_state(start, optimizer)
+        kw = dict(merged_sampling=True)
+        if name == "mesh":
+            step, place_state, _ = make_sharded_train_step(
+                rcfg, lcfg, tphase, optimizer, consts, TRAIN_H, TRAIN_W, CLI_RAYS, 0.7, 2.0,
+                6.0, [device, device], **kw)
+            state = place_state(state)
+        else:
+            step = make_train_step(rcfg, lcfg, tphase, optimizer, consts, TRAIN_H, TRAIN_W,
+                                   CLI_RAYS, 0.7, 2.0, 6.0, **kw)
+        runs[name] = {"step": step, "state": state, "losses": [], "ms": []}
+    zero_launch_counts()
+    for i in range(MESH_UPDATES):
+        draws = runs["unsharded"]["step"].draw(
+            arrays, torch.Generator(device=device).manual_seed(100 + i))
+        for run in runs.values():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run["state"], sc = run["step"](run["state"], arrays, draws=draws)
+            torch.cuda.synchronize()
+            run["ms"].append((time.perf_counter() - t0) * 1e3)
+            run["losses"].append(float(sc["loss_total"]))
+    launches = _launch_counts()
+    ref, got = runs["unsharded"], runs["mesh"]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"])]
+    param_rel = {}
+    for group in start:
+        s0 = flat_grads(start[group])
+        moved_ref = flat_grads(ref["state"].variables[group]).detach() - s0
+        moved = flat_grads(got["state"].variables[group]).detach() - s0
+        param_rel[group] = float(torch.linalg.vector_norm(moved - moved_ref)
+                                 / torch.linalg.vector_norm(moved_ref))
+    if (not np.all(np.isfinite(got["losses"])) or max(loss_rel) > MESH_LOSS_REL
+            or max(param_rel.values()) > MESH_PARAM_REL):
+        fail(phase, f"mesh against unsharded: loss rel {loss_rel}, params rel {param_rel}")
+    # per update: each shard runs both passes' K2/K3 and K1 full
+    want = {"fused_field_train_fwd": 6 * MESH_UPDATES, "fused_field_train_bwd": 6 * MESH_UPDATES,
+            "fused_field_apply": 6 * MESH_UPDATES}
+    if {k: v for k, v in launches.items() if v} != want:
+        fail(phase, f"mesh leg launched {launches}, expected {want}")
+    return dict(shards=2, rays=CLI_RAYS, updates=MESH_UPDATES, losses=ref["losses"],
+                mesh_losses=got["losses"], loss_rel=loss_rel, param_rel=param_rel,
+                ms_unsharded=ref["ms"], ms_mesh=got["ms"], launches=launches,
+                bounds={"loss_rel": MESH_LOSS_REL, "param_rel": MESH_PARAM_REL})
+
+
+def dp_command(spec: dict) -> list[str]:
+    """The command line of one data-parallel worker process."""
+    return [sys.executable, str(Path(__file__).resolve()), "dp_worker", json.dumps(spec)]
+
+
+def dp_argv(expname: str, world: int, rank: int, port: int) -> list[str]:
+    return cli_argv(DP_N_ITER) + [
+        "--expname", expname, "--N_iter_ignore_approximated_radiance", str(DP_SWITCH),
+        "--i_weights", str(DP_N_ITER), "--i_testset", "1000000", "--summary_step", "1",
+        "--num_processes", str(world), "--coordinator_address", f"localhost:{port}",
+        "--process_id", str(rank)]
+
+
+def dp_worker(spec: dict) -> int:
+    """One rank of a data-parallel leg: cli.train.main over gloo (2
+    ranks) or inside a 1-rank NCCL group, every file this process opens
+    for writing recorded, each update and its all_reduce timed; the
+    final params, the writes and the times go to spec["out"]."""
+    import builtins
+
+    import torch.distributed as dist
+
+    from ibl_nerf_tpu_torch.parallel import distributed
+    from ibl_nerf_tpu_torch.train import checkpoint
+
+    writes, update_ms, reduce_ms = [], [], []
+    real_open, real_makedirs, real_write = builtins.open, os.makedirs, checkpoint._write
+    real_call, real_reduce = distributed.GlobalTrainStep.__call__, distributed.GlobalTrainStep.all_reduce
+
+    def spy_open(file, mode="r", *a, **kw):
+        if any(c in mode for c in "wax+"):
+            writes.append(str(file))
+        return real_open(file, mode, *a, **kw)
+
+    def spy_makedirs(name, *a, **kw):
+        writes.append(str(name))
+        return real_makedirs(name, *a, **kw)
+
+    def spy_write(path, *a, **kw):
+        writes.append(str(path))
+        return real_write(path, *a, **kw)
+
+    def timed(fn, out):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(*a, **kw)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+            return result
+        return run
+
+    builtins.open, os.makedirs, checkpoint._write = spy_open, spy_makedirs, spy_write
+    distributed.GlobalTrainStep.__call__ = timed(real_call, update_ms)
+    distributed.GlobalTrainStep.all_reduce = timed(real_reduce, reduce_ms)
+    if spec["world"] == 1:  # cli.train joins no group for one process: join it here
+        dist.init_process_group(spec["backend"], init_method=f"tcp://localhost:{spec['port']}",
+                                world_size=1, rank=0)
+    state = cli_train.main(spec["argv"], backend=spec["backend"])
+    backend = dist.get_backend()
+    builtins.open, os.makedirs, checkpoint._write = real_open, real_makedirs, real_write
+    torch.save({"variables": {k: _map_tree(lambda p: p.detach().cpu(), v)
+                              for k, v in state.variables.items()},
+                "step": state.step, "backend": backend, "update_ms": update_ms,
+                "reduce_ms": reduce_ms, "launches": _launch_counts(),
+                "writes": [w for w in writes if str(CLI_DIR / "logs") in os.path.abspath(w)]},
+               spec["out"])
+    dist.destroy_process_group()
+    return 0
+
+
+def run_dp_leg(name: str, backend: str, world: int) -> list[dict]:
+    """Start `world` worker processes of one leg, wait for each within
+    DP_TIMEOUT (killing all on a timeout or a failure), return their
+    results in rank order."""
+    shutil.rmtree(CLI_DIR / "logs" / name, ignore_errors=True)
+    port = _free_port()
+    outs = [CLI_DIR / f"{name}_{r}.pt" for r in range(world)]
+    procs = [subprocess.Popen(dp_command({"backend": backend, "world": world, "port": port,
+                                          "out": str(outs[r]),
+                                          "argv": dp_argv(name, world, r, port)}),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    deadline = time.monotonic() + DP_TIMEOUT
+    try:
+        for r, p in enumerate(procs):
+            try:
+                out, _ = p.communicate(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                fail("flags_dp", f"{name}: rank {r} did not finish in {DP_TIMEOUT} s")
+            if p.returncode != 0:
+                fail("flags_dp", f"{name}: rank {r} exited {p.returncode}:\n{out[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_legs() -> dict:
+    """(3) --num_processes 2 over gloo on one card, and a 1-rank NCCL
+    group; gates: every loss finite, the replicas bit-identical, only
+    rank 0 wrote the logdir, the last checkpoint restores to the final
+    params."""
+    phase = "flags_dp"
+    report = {}
+    for name, backend, world in DP_LEGS:
+        t0 = time.perf_counter()
+        results = run_dp_leg(name, backend, world)
+        seconds = time.perf_counter() - t0
+        logdir = CLI_DIR / "logs" / name
+        r0 = results[0]
+        if any(r["backend"] != backend or r["step"] != DP_N_ITER + 1 for r in results):
+            fail(phase, f"{name}: backends {[r['backend'] for r in results]}, steps "
+                 f"{[r['step'] for r in results]}")
+        for r in results[1:]:
+            for group, tree in r["variables"].items():
+                if not _same(_leaves(tree), _leaves(r0["variables"][group])):
+                    fail(phase, f"{name}: the {group} params differ between ranks")
+            if r["writes"]:
+                fail(phase, f"{name}: a rank other than 0 wrote {r['writes'][:5]}")
+        losses = [json.loads(line)["loss_total"] for line in open(logdir / "metrics.jsonl")]
+        if len(losses) != DP_N_ITER + 1 or not np.all(np.isfinite(losses)):
+            fail(phase, f"{name}: losses {losses}")
+        template = TrainState(variables=r0["variables"], opt_state={}, step=0)
+        restored, _, found = ckpt_lib.restore_checkpoint(str(logdir), template)
+        if not found or restored.step != DP_N_ITER + 1 or not all(
+                _same([p.detach() for p in _leaves(restored.variables[g])], _leaves(tree))
+                for g, tree in r0["variables"].items()):
+            fail(phase, f"{name}: ckpt_{DP_N_ITER:06d} does not restore the final params")
+        report[name] = dict(
+            backend=backend, processes=world, rays=CLI_RAYS, rays_per_process=CLI_RAYS // world,
+            updates=DP_N_ITER + 1, seconds=seconds, losses=losses,
+            update_ms=[r["update_ms"] for r in results], reduce_ms=[r["reduce_ms"] for r in results],
+            launches=[r["launches"] for r in results],
+            rank0_files=sorted({os.path.relpath(w, logdir) for w in r0["writes"]
+                                if os.path.abspath(w).startswith(str(logdir))}))
+    return report
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def flags_dp_phase(kernels, cfg: FieldConfig, consts: dict, device, card: str) -> dict:
+    """The trainer's last flags and data parallelism; see the comment
+    above FLAGS_N_ITER and each leg for the gates."""
+    phase = "flags_dp"
+    report = dict(card=card, dead_port_init=patch_leg(cfg, dead=True),
+                  patch_noise_port_init=patch_leg(cfg, dead=False))
+    patch_launches = report["patch_noise_port_init"]["launches"]
+    torch.cuda.empty_cache()
+    report["mesh"] = mesh_leg(cfg, consts, device)
+    torch.cuda.empty_cache()
+    report.update(dp_legs())
+    for row in kernels:
+        row.setdefault("launches_by_phase", {})[phase] = (
+            patch_launches.get(row["name"], 0) + report["mesh"]["launches"].get(row["name"], 0))
+    emit(phase, **report)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1850,6 +2268,8 @@ def main() -> int:
     train_cli_phase(kernels, card)
     eval_cli_phase(kernels, card)
     aux_cli_phase(kernels, card)
+    torch.cuda.empty_cache()
+    flags_dp_phase(kernels, cfg, consts, device, card)
 
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1860,4 +2280,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["dp_worker"]:
+        sys.exit(dp_worker(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -11,8 +11,10 @@ files win; command-line flags win over all).
 Where a flag's help speaks of Pallas or of JAX's multi-host runtime,
 the port reads it as follows: `--use_pallas` runs the no-grad sweeps on
 the CUDA kernel K1, `--use_pallas_train` the gradient-path field query
-on K2/K3; `--mesh_devices`, `--num_processes`, `--coordinator_address`
-and `--process_id` are refused by the port's trainer (one device only).
+on K2/K3; `--mesh_devices` splits the ray batch over the first N CUDA
+devices of the process, and `--num_processes`, `--coordinator_address`
+and `--process_id` join a `torch.distributed` process group
+(`parallel/distributed.py`).
 """
 
 from __future__ import annotations
@@ -320,13 +322,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="the fused train kernels K2/K3 (CUDA) on the bf16 "
              "gradient-path field query")
     add("--mesh_devices", type=int, default=0,
-        help="0 = all local devices; N = first N (the port trains on "
-             "one device and refuses N > 1)")
+        help="0 = all local devices; N = first N")
     add("--coordinator_address", type=str, default=None,
-        help="coordinator host:port of a multi-process run (refused by "
-             "the port)")
+        help="coordinator host:port of a multi-process run")
     add("--num_processes", type=int, default=0,
-        help=">1 joins a multi-process run (refused by the port)")
+        help=">1 joins a multi-process run (requires --process_id; "
+             "data is sharded by process, rays by device)")
     add("--process_id", type=int, default=-1,
         help="this process's index in a multi-process run")
     add("--debug_nans", action="store_true",
@@ -334,8 +335,7 @@ def build_parser() -> argparse.ArgumentParser:
              "backward pass")
     add("--init_port_path", type=str, default=None,
         help="torch reference .tar checkpoint whose coarse/fine state "
-             "dicts become this run's initial weights (not ported: the "
-             "port's trainer refuses it)")
+             "dicts become this run's initial weights (never re-drawn)")
     add("--no_init_rejection", action="store_true",
         help="disable dead-init rejection (train/health.py): by default "
              "a density field whose init has raw sigma < 0 over the "

@@ -6,16 +6,18 @@ and `batch_size` pixel columns and rows, gathers their colours, K
 prefiltered targets and gt buffers, and builds their rays. Where the JAX
 sampler derives the indices from a PRNG key, this one takes them from a
 `torch.Generator` or as a `draws` dict, so a test can hand both sides
-the same indices. `patch` sampling is not ported yet.
+the same indices. `patch` sampling draws from [1, H-1) x [1, W-1) and
+also returns the 8 neighbours' colours (and normals) and rays.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
-from ibl_nerf_tpu_torch.ops.rays import get_rays_for_pixels
+from ibl_nerf_tpu_torch.ops.rays import get_rays_for_patches, get_rays_for_pixels, neighbor_coords
 from ibl_nerf_tpu_torch.utils.device import resolve_device
 
 _GT_BUFFERS = ("normal", "albedo", "roughness", "depth", "irradiance", "prior_albedo")
@@ -27,10 +29,18 @@ def device_arrays_from_scene(scene, include: tuple[str, ...] = (),
     (CUDA unless named). include: extra gt buffer names from
     scene.gt_buffers()."""
     device = resolve_device(device)
+    return _collect_scene_arrays(
+        scene, include, lambda a: torch.as_tensor(a, dtype=torch.float32).to(device))
 
-    def conv(a):
-        return torch.as_tensor(a, dtype=torch.float32).to(device)
 
+def host_arrays_from_scene(scene, include: tuple[str, ...] = ()) -> dict[str, Any]:
+    """The same buffers as f32 numpy arrays: the multi-process path keeps
+    the dataset on the host and moves only its process's image shard
+    (parallel/distributed.HostShardedSampler)."""
+    return _collect_scene_arrays(scene, include, lambda a: np.asarray(a, dtype=np.float32))
+
+
+def _collect_scene_arrays(scene, include, conv) -> dict[str, Any]:
     arrays = {"images": conv(scene.images), "poses": conv(scene.poses),
               "K": conv(scene.focal_matrix())}
     if scene.prefiltered_images is not None:
@@ -40,24 +50,27 @@ def device_arrays_from_scene(scene, include: tuple[str, ...] = (),
     return arrays
 
 
-def pixel_bounds(H: int, W: int, precrop: bool = False,
-                 precrop_frac: float = 0.5) -> tuple[int, int, int, int]:
-    """(sH, eH, sW, eW): the rows and columns pixels are drawn from."""
-    if not precrop:
-        return 0, H, 0, W
-    dH, dW = int(H // 2 * precrop_frac), int(W // 2 * precrop_frac)
-    return (max(H // 2 - dH, 0), min(H // 2 + dH, H),
-            max(W // 2 - dW, 0), min(W // 2 + dW, W))
+def pixel_bounds(H: int, W: int, precrop: bool = False, precrop_frac: float = 0.5,
+                 patch: bool = False) -> tuple[int, int, int, int]:
+    """(sH, eH, sW, eW): the rows and columns pixels are drawn from.
+    Precrop wins over patch, whose pixels keep a neighbour on every side."""
+    if precrop:
+        dH, dW = int(H // 2 * precrop_frac), int(W // 2 * precrop_frac)
+        return (max(H // 2 - dH, 0), min(H // 2 + dH, H),
+                max(W // 2 - dW, 0), min(W // 2 + dW, W))
+    if patch:
+        return 1, H - 1, 1, W - 1
+    return 0, H, 0, W
 
 
 def draw_pixels(n_images: int, batch_size: int, H: int, W: int, device,
                 generator: torch.Generator | None = None,
                 precrop: bool = False, precrop_frac: float = 0.5,
-                merged: bool = False) -> dict:
+                merged: bool = False, patch: bool = False) -> dict:
     """One batch's indices: "img" (an int64 scalar, or (batch_size,) when
     merged: an image per ray), "u" (columns) and "v" (rows),
     (batch_size,) int64 each."""
-    sH, eH, sW, eW = pixel_bounds(H, W, precrop, precrop_frac)
+    sH, eH, sW, eW = pixel_bounds(H, W, precrop, precrop_frac, patch)
 
     def randint(lo, hi, shape):
         return torch.randint(lo, hi, shape, device=device, generator=generator)
@@ -76,14 +89,17 @@ def sample_pixel_batch(arrays: dict, batch_size: int, H: int, W: int,
     their rays and per-pixel gt dict.
 
     draws: `draw_pixels` output; drawn from `generator` when absent.
-    Returns (pixel_info, rays_o, rays_d).
+    Returns (pixel_info, rays_o, rays_d), and with `patch` also
+    (neigh_info, rays_o_n, rays_d_n): the 8 neighbours' "rgb" (and
+    "normal" when the arrays hold it), (B, 8, C), and their rays,
+    (B, 8, 3) each. Patch sampling is single-image: merged raises.
     """
-    if patch:
-        raise NotImplementedError("patch sampling is not ported to ibl_nerf_tpu_torch yet")
+    if patch and merged:
+        raise ValueError("patch sampling draws one image per batch; it cannot be merged")
     images = arrays["images"]
     if draws is None:
         draws = draw_pixels(images.shape[0], batch_size, H, W, images.device,
-                            generator, precrop, precrop_frac, merged)
+                            generator, precrop, precrop_frac, merged, patch)
     img, u, v = draws["img"], draws["u"], draws["v"]
 
     def gather(buf):  # (N, H, W, C) -> (B, C)
@@ -103,6 +119,16 @@ def sample_pixel_batch(arrays: dict, batch_size: int, H: int, W: int,
 
     uv = torch.stack([u, v], dim=1).float()
     # merged: (B, 3, 4), one pose per ray, which get_rays_for_pixels broadcasts
-    c2w = arrays["poses"][img][..., :3, :4]
+    pose = arrays["poses"][img]
+    c2w = pose[..., :3, :4]
     rays_o, rays_d = get_rays_for_pixels(uv, arrays["K"], c2w)
-    return pixel_info, rays_o, rays_d
+    if not patch:
+        return pixel_info, rays_o, rays_d
+
+    uv_n = neighbor_coords(torch.stack([u, v], dim=1))  # (B, 8, 2) int64
+    un, vn = uv_n[..., 0], uv_n[..., 1]
+    neigh_info = {"rgb": images[img, vn, un]}
+    if "normal" in arrays:
+        neigh_info["normal"] = arrays["normal"][img, vn, un]
+    rays_o_n, rays_d_n = get_rays_for_patches(uv_n.float(), arrays["K"], pose[:3, :4])
+    return pixel_info, rays_o, rays_d, neigh_info, rays_o_n, rays_d_n

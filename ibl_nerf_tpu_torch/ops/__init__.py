@@ -2,7 +2,13 @@
 sampling, shading (split-sum and GGX), geometry, color."""
 
 from ibl_nerf_tpu_torch.ops.embedding import positional_encoding, embedding_dim
-from ibl_nerf_tpu_torch.ops.rays import get_rays_full_image, get_rays_for_pixels
+from ibl_nerf_tpu_torch.ops.rays import (
+    get_rays_full_image,
+    get_rays_for_pixels,
+    get_rays_for_patches,
+    neighbor_coords,
+    ndc_rays,
+)
 from ibl_nerf_tpu_torch.ops.compositing import (
     dists_from_z_vals,
     alpha_from_sigma,

@@ -27,9 +27,10 @@ kernel K1
 (`kernels/fused_field.py`); with `use_pallas_train` and bf16 gradients
 the gradient-path full query goes through K2/K3
 (`kernels/fused_field_train.py`), as the JAX renderer routes them
-through its Pallas kernels. Random draws (`perturb`) come from a
-`torch.Generator` or are passed in. Modes not ported yet raise
-NotImplementedError naming the mode.
+through its Pallas kernels. Random draws (the `perturb` jitter and
+importance uniforms, the `raw_noise_std` noise on raw σ) come from a
+`torch.Generator` or are passed in. `compute_dtype=float64` with
+`use_pallas` raises NotImplementedError: K1 has no float64 kernel.
 """
 
 from __future__ import annotations
@@ -82,8 +83,6 @@ def _check_supported(rcfg: RenderConfig) -> None:
         # the JAX package runs this only in Pallas's interpret mode
         raise NotImplementedError("compute_dtype=float64 with use_pallas: K1 has no "
                                   "float64 kernel on any platform")
-    if rcfg.raw_noise_std > 0.0:
-        raise NotImplementedError("raw_noise_std is not ported to ibl_nerf_tpu_torch yet")
     if rcfg.approximate_radiance and rcfg.normal_type not in NORMAL_TYPES:
         raise ValueError(f"unknown normal_type {rcfg.normal_type!r}")
 
@@ -205,10 +204,17 @@ def _composite_radiance_stack(raw, z_vals, rays_d, rcfg: RenderConfig):
     return radiance_map, coarse_maps
 
 
-def _render_depth_only(query_sigma, rays_o, rays_d, z_vals):
-    """Depth/visibility-only pass."""
+def _raw_sigma_with_noise(raw_sigma, noise, rcfg: RenderConfig):
+    """raw σ plus `raw_noise_std` times the pass's standard normals."""
+    if rcfg.raw_noise_std > 0.0:
+        return raw_sigma + noise * rcfg.raw_noise_std
+    return raw_sigma
+
+
+def _render_depth_only(query_sigma, rays_o, rays_d, z_vals, rcfg: RenderConfig, noise=None):
+    """Depth/visibility-only pass; `noise` as _raw_sigma_with_noise takes it."""
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
-    raw = query_sigma(pts)[..., 0]
+    raw = _raw_sigma_with_noise(query_sigma(pts)[..., 0], noise, rcfg)
     alpha = alpha_from_sigma(raw, dists_from_z_vals(z_vals, rays_d))
     weights, visibility = transmittance_and_weights(alpha)
     depth_map = torch.sum(weights * z_vals, dim=-1)
@@ -306,11 +312,13 @@ def _aux_maps(variables, pts, x_surface, weights_det, rcfg: RenderConfig) -> dic
 
 
 def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
-                 near, far, rcfg: RenderConfig, gt_values=None):
+                 near, far, rcfg: RenderConfig, gt_values=None, noise=None):
     """Full compositing + shading (split-sum or Monte-Carlo) for one
     sample set. gt_values: per-ray gt buffers ("normal", "depth",
     "albedo", "roughness", "irradiance", and the edit and insert
-    buffers), read by the modes that substitute them."""
+    buffers), read by the modes that substitute them. noise: the
+    standard normals added to the primary march's raw σ under
+    `raw_noise_std`."""
     rf = _radiance_f(rcfg)
     gt = gt_values or {}
     edit = rcfg.edit
@@ -320,7 +328,8 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
     # --- primary march -----------------------------------------------------
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
     raw = query_full(pts, rays_d)
-    alpha = alpha_from_sigma(raw[..., 0], dists_from_z_vals(z_vals, rays_d))
+    sigma_raw = _raw_sigma_with_noise(raw[..., 0], noise, rcfg)
+    alpha = alpha_from_sigma(sigma_raw, dists_from_z_vals(z_vals, rays_d))
     weights = weights_from_alpha(alpha)
     weights_det = weights.detach()
     depth_map, disp_map, acc_map = composite_depth_disp_acc(weights, z_vals)
@@ -597,16 +606,32 @@ def make_ray_batch(rays_o, rays_d, near, far):
             "near": per_ray(near), "far": per_ray(far)}
 
 
+def render_draws_needed(rcfg: RenderConfig) -> bool:
+    """Whether render_rays under `rcfg` takes random draws."""
+    return rcfg.perturb or rcfg.raw_noise_std > 0.0
+
+
 def draw_render_uniforms(n_rays: int, rcfg: RenderConfig, device,
                          generator: torch.Generator | None = None,
                          dtype: torch.dtype = torch.float32) -> dict:
-    """The uniform draws of one render_rays call under perturb: "strat"
-    (B, n_samples) jitters the stratified z, "pdf" (B, n_importance)
-    drives sample_pdf. JAX draws them from k_strat and k_pdf, in the
-    dtype of the rays."""
-    def u(n):
-        return torch.rand((n_rays, n), device=device, generator=generator, dtype=dtype)
-    return {"strat": u(rcfg.n_samples), "pdf": u(rcfg.n_importance)}
+    """The draws of one render_rays call. Under perturb, uniforms:
+    "strat" (B, n_samples) jitters the stratified z, "pdf" (B,
+    n_importance) drives sample_pdf (JAX's k_strat and k_pdf, in the
+    dtype of the rays). Under raw_noise_std, also with perturb off,
+    standard normals for raw σ: "noise_coarse" (B, n_samples) and, with
+    a fine pass, "noise_fine" (B, n_samples + n_importance) (JAX's
+    k_coarse and k_fine, split once more in a shading pass)."""
+    out = {}
+    if rcfg.perturb:
+        for name, n in (("strat", rcfg.n_samples), ("pdf", rcfg.n_importance)):
+            out[name] = torch.rand((n_rays, n), device=device, generator=generator, dtype=dtype)
+    if rcfg.raw_noise_std > 0.0:
+        shapes = [("noise_coarse", rcfg.n_samples)]
+        if rcfg.n_importance > 0:
+            shapes.append(("noise_fine", rcfg.n_samples + rcfg.n_importance))
+        for name, n in shapes:
+            out[name] = torch.randn((n_rays, n), device=device, generator=generator, dtype=dtype)
+    return out
 
 
 def render_rays(variables, consts, batch, rcfg: RenderConfig,
@@ -619,8 +644,8 @@ def render_rays(variables, consts, batch, rcfg: RenderConfig,
                'depth_mlp', '{albedo,roughness,irradiance}_mlp'}
     consts:    {'brdf_lut': (H, W, C)} non-trainable assets.
     batch:     make_ray_batch output.
-    draws:     under perturb, the uniforms of `draw_render_uniforms`;
-               drawn from `generator` on the rays' device when absent.
+    draws:     under perturb or raw_noise_std, `draw_render_uniforms`'s
+               draws; drawn from `generator` on the rays' device when absent.
     gt_values: per-ray gt buffers, (B, C) each (the train step passes its
                pixel batch), for the gt normal and the gt substitutions.
     Returns a dict of maps; coarse-pass results are suffixed '0' when a
@@ -631,31 +656,33 @@ def render_rays(variables, consts, batch, rcfg: RenderConfig,
     pin_f32_matmul()
     rays_o, rays_d = batch["rays_o"], batch["rays_d"]
     near, far = batch["near"], batch["far"]
-    if rcfg.perturb and draws is None:
+    if render_draws_needed(rcfg) and draws is None:
         draws = draw_render_uniforms(rays_o.shape[0], rcfg, rays_o.device, generator,
                                      dtype=rays_o.dtype)
+    draws = draws or {}
 
     z_vals = stratified_z_vals(near, far, rcfg.n_samples, lindisp=rcfg.lindisp,
                                perturb=rcfg.perturb,
                                u=draws["strat"] if rcfg.perturb else None)
     z_vals_constant = z_vals
 
-    def depth_only(field_params, rc, z):
+    def depth_only(field_params, rc, z, noise):
         # the gradient-path density query, as the full coarse pass's
         query_sigma = _make_query_pair(field_params, rc, _query_dtypes(rc)[0],
                                        amp=rc.compute_dtype == "amp")[1]
-        return _render_depth_only(query_sigma, rays_o, rays_d, z)
+        return _render_depth_only(query_sigma, rays_o, rays_d, z, rc, noise)
 
     if is_depth_only or (not rcfg.coarse_shading and rcfg.n_importance > 0):
         # Inference fast path: the coarse pass only has to produce the
         # importance-resampling weights (+ depth); the density query
         # shares trunk+sigma with the full one, so every fine buffer is
         # unchanged.
-        result = depth_only(variables["coarse"], rcfg, z_vals)
+        result = depth_only(variables["coarse"], rcfg, z_vals, draws.get("noise_coarse"))
     else:
         coarse_vars = dict(variables, coarse_or_fine=variables["coarse"])
         result = _raw2outputs(coarse_vars, consts, rays_o, rays_d, z_vals,
-                              z_vals_constant, near, far, rcfg, gt_values)
+                              z_vals_constant, near, far, rcfg, gt_values,
+                              draws.get("noise_coarse"))
 
     if rcfg.n_importance > 0:
         z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
@@ -673,12 +700,12 @@ def render_rays(variables, consts, batch, rcfg: RenderConfig,
             rcfg_f = rcfg.replace(field=rcfg.field_fine, field_fine=None)
 
         if is_depth_only:
-            result_fine = depth_only(fine_params, rcfg_f, z_all)
+            result_fine = depth_only(fine_params, rcfg_f, z_all, draws.get("noise_fine"))
         else:
             fine_vars = dict(variables, coarse_or_fine=fine_params)
             result_fine = _raw2outputs(fine_vars, consts, rays_o, rays_d,
                                        z_all, z_vals_constant, near, far,
-                                       rcfg_f, gt_values)
+                                       rcfg_f, gt_values, draws.get("noise_fine"))
         for k, v in result.items():
             result_fine[k + "0"] = v
         result = result_fine
@@ -757,11 +784,13 @@ def render_frame(fn, rays_o, rays_d, near, far, chunk: int, gt_values: dict | No
 @torch.no_grad()
 def render_image(variables, consts, H, W, K, c2w, near, far,
                  rcfg: RenderConfig, gt_values: dict | None = None, chunk: int = 2048,
-                 c2w_staticcam: torch.Tensor | None = None):
+                 c2w_staticcam: torch.Tensor | None = None, render_fn=None):
     """Render a full image chunk by chunk; gt_values entries are flat
     (H*W, C). Every per-ray map comes back as (H, W, C?). With
     c2w_staticcam the rays come from that camera while the viewdirs
-    keep c2w's, which shows the view dependence."""
+    keep c2w's, which shows the view dependence. `render_fn(batch, gt)`
+    renders a chunk in place of render_rays (e.g.
+    parallel.mesh.make_sharded_render_fn)."""
     rays_o, rays_d = get_rays_full_image(H, W, K, c2w)
     viewdirs = rays_d.reshape(-1, 3)
     if c2w_staticcam is not None:
@@ -775,8 +804,11 @@ def render_image(variables, consts, H, W, K, c2w, near, far,
         batch = make_ray_batch(ro, rd, near, far)
         if c2w_staticcam is not None:
             batch = _static_viewdirs(batch, vd)
-        outs.append(render_rays(variables, consts, batch, rcfg,
-                                gt_values={k: v[i] for k, v in gt_t.items()} or None))
+        gt_i = {k: v[i] for k, v in gt_t.items()} or None
+        if render_fn is not None:
+            outs.append(render_fn(batch, gt_i))
+        else:
+            outs.append(render_rays(variables, consts, batch, rcfg, gt_values=gt_i))
     merged = {}
     for k in outs[0]:
         v = torch.cat([o[k] for o in outs], dim=0)[:n]

@@ -9,7 +9,9 @@ and the learning-rate schedules continue from the restored Adam counts.
 Each directory holds one `torch.save` file, written to a temporary name
 and renamed, so a run killed mid-write leaves no half checkpoint. The
 saved step is the state's count of completed updates, so a restored run
-resumes at the first update the checkpoint does not contain.
+resumes at the first update the checkpoint does not contain. Under a
+`torch.distributed` process group every process calls save: rank 0
+writes, and all of them wait at a barrier until it has.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import os
 import re
 
 import torch
+import torch.distributed as dist
 
 from ibl_nerf_tpu_torch.train.step import GroupState, TrainState, _leaves, _unflatten
 
@@ -42,8 +45,19 @@ def list_checkpoints(logdir: str) -> list[tuple[int, str]]:
 
 
 def save_checkpoint(logdir: str, step: int, state: TrainState, elapsed_time: float) -> str:
-    """Write `state` to `{logdir}/ckpt_{step:06d}`; returns that path."""
+    """Write `state` to `{logdir}/ckpt_{step:06d}`; returns that path.
+    Under a process group only rank 0 writes, and every rank returns
+    once it has."""
     path = _ckpt_dir(logdir, step)
+    group = dist.is_available() and dist.is_initialized()
+    if not group or dist.get_rank() == 0:
+        _write(path, state, elapsed_time)
+    if group:
+        dist.barrier()
+    return path
+
+
+def _write(path: str, state: TrainState, elapsed_time: float) -> None:
     os.makedirs(path, exist_ok=True)
     payload = {
         "variables": _unflatten(state.variables,
@@ -56,7 +70,6 @@ def save_checkpoint(logdir: str, step: int, state: TrainState, elapsed_time: flo
     tmp = os.path.join(path, f".{STATE_FILE}.{os.getpid()}.tmp")
     torch.save(payload, tmp)
     os.replace(tmp, os.path.join(path, STATE_FILE))
-    return path
 
 
 def find_checkpoint(logdir: str, ft_path: str | None = None,

@@ -1,7 +1,7 @@
 """The training driver.
 
-Counterpart of ibl_nerf_tpu/train/loop.py on one device: the scene
-loads once and moves to the device; the update indices 0..N_iter
+Counterpart of ibl_nerf_tpu/train/loop.py: the scene loads once and
+moves to the device; the update indices 0..N_iter
 (inclusive, N_iter + 1 updates on a fresh run) are cut into phase
 segments at the staged-loss boundaries and the precrop end, with one
 train step per segment; every step draws from a generator seeded with
@@ -12,9 +12,17 @@ of `i_video` the rgb stack as `video_{i:06d}.avi` (`utils/video.py`);
 `time_limit_in_minute` stops early; `train_info_step_time.json` closes
 the run.
 
-Flags the port does not cover raise NotImplementedError naming the
-flag before the scene loads: more than one device or process,
-`init_port_path`, patch sampling, and the renderer's unported modes.
+`--init_port_path` starts from a reference checkpoint's coarse and fine
+fields, which are never re-drawn (a dead one is logged and kept);
+`--ray_sample patch --no_batching` logs the neighbour depths'
+smoothness; `--mesh_devices N` shards the rays over the process's first
+N CUDA devices (`parallel/mesh.py`) when N divides N_rand; under a
+process group (`--num_processes`, joined by cli/train.py) the data is
+sharded by process and the gradients all-reduced
+(`parallel/distributed.py`), and only rank 0 writes the logdir, the
+scalars, the logs, the test-set renders and the train info. The one
+refusal left is the renderer's (`compute_dtype=float64` with
+`use_pallas`), raised before the scene loads.
 """
 
 from __future__ import annotations
@@ -29,11 +37,13 @@ import torch
 
 from ibl_nerf_tpu_torch.data.brdf_lut import load_brdf_lut
 from ibl_nerf_tpu_torch.data.dataset import load_scene
-from ibl_nerf_tpu_torch.data.sampler import device_arrays_from_scene
+from ibl_nerf_tpu_torch.data.sampler import device_arrays_from_scene, host_arrays_from_scene
 from ibl_nerf_tpu_torch.eval.render_path import render_path
 from ibl_nerf_tpu_torch.models.aux_mlp import init_position_direction_mlp, init_position_mlp
 from ibl_nerf_tpu_torch.models.envmap import init_envmap
 from ibl_nerf_tpu_torch.models.field import FieldConfig, init_field_params
+from ibl_nerf_tpu_torch.parallel import distributed as dist_lib
+from ibl_nerf_tpu_torch.parallel.mesh import make_mesh, make_sharded_train_step
 from ibl_nerf_tpu_torch.render.config import RenderConfig
 from ibl_nerf_tpu_torch.render.renderer import _check_supported
 from ibl_nerf_tpu_torch.train import checkpoint as ckpt_lib
@@ -42,6 +52,7 @@ from ibl_nerf_tpu_torch.train.losses import LossConfig, resolve_phase
 from ibl_nerf_tpu_torch.train.step import build_optimizer, init_train_state, make_train_step
 from ibl_nerf_tpu_torch.utils.device import resolve_device
 from ibl_nerf_tpu_torch.utils.logging import ScalarWriter, load_logger
+from ibl_nerf_tpu_torch.utils.port import load_reference_checkpoint
 from ibl_nerf_tpu_torch.utils.video import export_stack_as_video
 
 def field_config_from_args(args) -> FieldConfig:
@@ -188,19 +199,9 @@ def n_updates(args) -> int:
 
 
 def check_supported_flags(args) -> None:
-    """Raise NotImplementedError naming the first flag the port's
-    trainer does not cover."""
-    def missing(flag, why=""):
-        raise NotImplementedError(f"--{flag} is not ported to ibl_nerf_tpu_torch yet{why}")
-
-    if args.mesh_devices > 1:
-        missing("mesh_devices", " (the port trains on one device)")
-    if args.num_processes > 1:
-        missing("num_processes", " (the port trains in one process)")
-    if args.init_port_path:
-        missing("init_port_path")
-    if args.ray_sample == "patch" and args.no_batching:
-        missing("ray_sample patch")
+    """Raise, before anything runs, for the renderer's one refusal
+    (`compute_dtype=float64` with `use_pallas`: K1 has no float64
+    kernel) and for an unknown mode."""
     rcfg = render_config_from_args(args, field_config_from_args(args))
     _check_supported(rcfg.replace(approximate_radiance=True))
 
@@ -211,18 +212,46 @@ def _step_generator(seed: int, i: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state) >> 1)
 
 
+def _init_from_port(args, variables, fcfg, scene, logger) -> dict:
+    """The coarse and fine fields of the reference checkpoint at
+    `--init_port_path`, in place of the drawn ones. Never re-drawn: a
+    dead one (max raw sigma <= 0 over the scene probe points) is logged
+    as an error and kept."""
+    device = variables["coarse"]["sigma"]["w"].device
+    p_coarse, p_fine, _, _ = load_reference_checkpoint(
+        args.init_port_path, fcfg.coarse_radiance_number, fcfg.depth, device=device)
+    variables = dict(variables, coarse=p_coarse)
+    if p_fine is not None and "fine" in variables:
+        variables["fine"] = p_fine
+    logger.info("ported initial coarse/fine weights from %s", args.init_port_path)
+    probe = health.probe_points_from_scene(scene)
+    ffine = fine_field_config_from_args(args, fcfg)
+    for name in ("coarse", "fine"):
+        if name not in variables:
+            continue
+        cfg = ffine if (name == "fine" and ffine is not None) else fcfg
+        _, mx = health.field_density_stats(variables[name], cfg, probe)
+        if mx <= 0.0:
+            logger.error(
+                "ported %s field init is DEAD (max raw sigma %.3f <= 0 over %d scene "
+                "probe points) -- training it cannot learn geometry. Keeping it anyway "
+                "because --init_port_path pins the exact weights.", name, mx, len(probe))
+    return variables
+
+
 def train(args, device=None):
     """Train from `args` (the CLI's namespace) on `device`, CUDA unless
-    the caller names another. Returns the final TrainState."""
+    the caller names another. Under a live process group every process
+    calls this with its own device. Returns the final TrainState."""
     device = resolve_device(device)
     check_supported_flags(args)
     logger = load_logger("train")
     if getattr(args, "debug_nans", False):
         torch.autograd.set_detect_anomaly(True)
         logger.info("autograd anomaly detection enabled")
-    if args.ray_sample == "patch":  # without --no_batching (refused with it)
-        logger.warning("--ray_sample patch requires --no_batching (single-image "
-                       "sampling); ignoring patch mode")
+    pid, pcount = dist_lib.process_index_and_count()
+    is_main = pid == 0
+    use_dist = dist_lib.process_group_active()
 
     # (1) data
     t0 = time.time()
@@ -250,7 +279,9 @@ def train(args, device=None):
     lcfg = loss_config_from_args(args)
     seed = int(getattr(args, "seed", 0) or 0)
     variables = init_variables(seed, args, fcfg, device)
-    if not args.no_init_rejection:
+    if args.init_port_path:
+        variables = _init_from_port(args, variables, fcfg, scene, logger)
+    elif not args.no_init_rejection:
         variables = health.reject_dead_inits(
             seed, variables, fcfg, health.probe_points_from_scene(scene),
             fcfg_fine=fine_field_config_from_args(args, fcfg),
@@ -273,13 +304,18 @@ def train(args, device=None):
     # update the checkpoint does not contain
     start = int(state.step)
 
-    # (3) logdir
-    os.makedirs(logdir, exist_ok=True)
-    writer = ScalarWriter(logdir)
+    # (3) logdir, on the main process only
+    if is_main:
+        os.makedirs(logdir, exist_ok=True)
+    writer = ScalarWriter(logdir) if is_main else None
 
-    # (4) the dataset on the device
+    # (4) the dataset: on the device; on the host, sharded by image,
+    # under a process group
     include = ("normal", "albedo", "roughness", "depth", "prior_albedo", "prior_irradiance")
-    arrays = device_arrays_from_scene(scene, include=include, device=device)
+    if use_dist:
+        arrays = host_arrays_from_scene(scene, include=include)
+    else:
+        arrays = device_arrays_from_scene(scene, include=include, device=device)
 
     # (5) phase segmentation over update indices start..N_iter inclusive
     n_iters = n_updates(args)
@@ -300,10 +336,14 @@ def train(args, device=None):
         boundaries.append(n_iters)
 
     def save_ckpt(i):
+        # every process calls save: rank 0 writes, the others wait for it
         path = ckpt_lib.save_checkpoint(logdir, i, state, elapsed_time)
-        logger.info("saved checkpoint %s", path)
+        if is_main:
+            logger.info("saved checkpoint %s", path)
 
     def run_testset(i, export_video=False):
+        if not is_main:
+            return
         testdir = os.path.join(logdir, f"testset_{i:06d}")
         results = render_path(state.variables, consts, scene_val,
                               rcfg.replace(approximate_radiance=True), savedir=testdir,
@@ -322,7 +362,25 @@ def train(args, device=None):
                                          os.path.join(logdir, f"video_{i:06d}.avi"))
             logger.info("saved video %s", path)
 
-    if start <= 1:
+    # --mesh_devices N > 1 shards the rays over the first N devices of
+    # this process, clamped to what it has; under a process group the
+    # data is sharded by process and each samples its shard of the rays
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    mesh_n = min(args.mesh_devices, n_dev)
+    use_mesh = mesh_n > 1 and args.N_rand % mesh_n == 0
+    if use_dist:
+        use_mesh = False
+        logger.info("multi-process: %d processes, %d devices; rays sharded over the "
+                    "processes, images sharded by process", pcount,
+                    len(dist_lib.global_mesh(device.type)))
+    elif use_mesh:
+        mesh = make_mesh([torch.device(device.type, i) for i in range(mesh_n)])
+        logger.info("sharding rays over %d devices", mesh_n)
+    elif args.mesh_devices > 1:
+        logger.info("--mesh_devices %d: %d device(s) here and N_rand %d; training "
+                    "unsharded", args.mesh_devices, n_dev, args.N_rand)
+
+    if writer is not None and start <= 1:
         writer.write_images("gt/rgb", _panelize(scene.images), 0)
         if scene.prefiltered_images is not None:
             for lv in range(scene.prefiltered_images.shape[0]):
@@ -331,6 +389,13 @@ def train(args, device=None):
         for name, buf in scene.gt_buffers().items():
             writer.write_images(f"gt/{name}", _panelize(buf), 0)
 
+    # --ray_sample patch: the neighbour depths feed a logged smoothness
+    # scalar; single-image sampling only
+    use_patch = args.ray_sample == "patch" and args.no_batching
+    if args.ray_sample == "patch" and not args.no_batching:
+        logger.warning("--ray_sample patch requires --no_batching (single-image "
+                       "sampling); ignoring patch mode")
+
     stop_training = False
     collapse_warned = False  # warn loudly once, keep logging the scalar
     global_step = start
@@ -338,27 +403,52 @@ def train(args, device=None):
         if stop_training or seg_start >= seg_end:
             continue
         phase = resolve_phase(seg_start, lcfg)
-        step_fn = make_train_step(
-            rcfg, lcfg, phase, optimizer, consts, scene.height, scene.width, args.N_rand,
-            prior_irradiance_mean=scene.prior_irradiance_mean, near=scene.near,
-            far=scene.far, precrop=seg_start < args.precrop_iters,
-            precrop_frac=args.precrop_frac, merged_sampling=not args.no_batching,
-            n_depth_random_volume=args.N_depth_random_volume)
+        precrop = seg_start < args.precrop_iters
+        common = dict(prior_irradiance_mean=scene.prior_irradiance_mean, near=scene.near,
+                      far=scene.far, n_depth_random_volume=args.N_depth_random_volume)
+        if use_dist:
+            sampler = dist_lib.HostShardedSampler(
+                arrays, args.N_rand, scene.height, scene.width, precrop=precrop,
+                precrop_frac=args.precrop_frac, merged=not args.no_batching, device=device)
+            gstep_fn, place_state = dist_lib.make_global_train_step(
+                rcfg, lcfg, phase, optimizer, consts, args.N_rand, **common)
+            state = place_state(state)
+
+            def step_call(state, i, _fn=gstep_fn, _s=sampler):
+                draws = _fn.draw(device, _step_generator(seed, i, device),
+                                 volume="normal" in arrays)
+                return _fn(state, draws, *_s.sample(i))
+        else:
+            kwargs = dict(precrop=precrop, precrop_frac=args.precrop_frac,
+                          merged_sampling=not args.no_batching, patch=use_patch, **common)
+            if use_mesh:
+                step_fn, place_state, place_arrays = make_sharded_train_step(
+                    rcfg, lcfg, phase, optimizer, consts, scene.height, scene.width,
+                    args.N_rand, mesh=mesh, **kwargs)
+                state = place_state(state)
+                arrays = place_arrays(arrays)
+            else:
+                step_fn = make_train_step(rcfg, lcfg, phase, optimizer, consts, scene.height,
+                                          scene.width, args.N_rand, **kwargs)
+
+            def step_call(state, i, _fn=step_fn):
+                return _fn(state, arrays, generator=_step_generator(seed, i, device))
         logger.info("phase segment [%d, %d): %s", seg_start, seg_end, phase)
 
         for i in range(seg_start, seg_end):
             it_t0 = time.time()
-            state, scalars = step_fn(state, arrays,
-                                     generator=_step_generator(seed, i, device))
+            state, scalars = step_call(state, i)
 
             if i % args.summary_step == 0:
                 scalars = {k: float(v) for k, v in scalars.items()}
-                writer.write(i, {**scalars, "elapsed_time": elapsed_time})
-                logger.info("iter %d loss %.5f", i, scalars["loss_total"])
-                if "acc_mean" in scalars and i > 0:
-                    hit = health.check_collapse(scalars["acc_mean"], i,
-                                                logger if not collapse_warned else None)
-                    collapse_warned |= hit
+                if writer is not None:
+                    writer.write(i, {**scalars, "elapsed_time": elapsed_time})
+                if is_main:
+                    logger.info("iter %d loss %.5f", i, scalars["loss_total"])
+                    if "acc_mean" in scalars and i > 0:
+                        hit = health.check_collapse(scalars["acc_mean"], i,
+                                                    logger if not collapse_warned else None)
+                        collapse_warned |= hit
 
             elapsed_time += time.time() - it_t0
             global_step = i + 1
@@ -375,7 +465,10 @@ def train(args, device=None):
             if i % args.i_testset == 0 and i > 0:
                 run_testset(i, export_video=i % args.i_video == 0)
 
-    with open(os.path.join(logdir, "train_info_step_time.json"), "w") as f:
-        json.dump({"training_time": elapsed_time, "global_step": global_step}, f, indent=4)
-    writer.close()
+    if is_main:
+        with open(os.path.join(logdir, "train_info_step_time.json"), "w") as f:
+            json.dump({"training_time": elapsed_time, "global_step": global_step}, f,
+                      indent=4)
+    if writer is not None:
+        writer.close()
     return state

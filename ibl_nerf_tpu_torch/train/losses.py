@@ -123,9 +123,12 @@ def _key_loss(result, key, target_key, fallback_key=None):
 
 def compute_losses(result: dict, pixel_info: dict, cfg: LossConfig,
                    phase: Phase, prior_irradiance_mean: float,
-                   far: float, depth_volume_result: dict | None = None):
+                   far: float, depth_volume_result: dict | None = None,
+                   depth_volume_weight: float = 1.0):
     """Returns (total_loss, scalars dict). `result` is the render output,
-    `pixel_info` the sampled gt pixel dict."""
+    `pixel_info` the sampled gt pixel dict. `depth_volume_weight` scales
+    the depth-volume term: a shard of a data-parallel batch weighs its
+    share of the volume rays against its share of the batch."""
     scalars = {}
     target_rgb = pixel_info["rgb"]
     target_chrom = (pixel_info["albedo"] if cfg.learn_albedo_from_oracle
@@ -171,8 +174,8 @@ def compute_losses(result: dict, pixel_info: dict, cfg: LossConfig,
     if phase.depth_loss_on and "inferred_depth_map" in result:
         loss_depth = _mse(result["inferred_depth_map"], result["depth_map"].detach())
         if depth_volume_result is not None:
-            loss_depth = loss_depth + _mse(depth_volume_result["inferred_depth_map"],
-                                           depth_volume_result["depth_map"])
+            loss_depth = loss_depth + depth_volume_weight * _mse(
+                depth_volume_result["inferred_depth_map"], depth_volume_result["depth_map"])
         total = total + cfg.beta_inferred_depth * loss_depth
 
     loss_prior_albedo = loss_prior_irr = loss_irr_reg = 0.0

@@ -15,8 +15,13 @@ a dict (`TrainStep.draw`) so that two steps can share them. Sampling is
 single-image or merged (an image per ray); the pixel batch doubles as
 the renderer's gt inputs. Once the depth loss is on (`infer_depth`) and
 the batch carries gt normals, the depth-volume pass renders random rays
-from the surface points for the depth distillation loss. `patch`
-sampling is not ported yet.
+from the surface points for the depth distillation loss. Under `patch`
+sampling the 8 neighbours of every pixel render depth-only without a
+graph, with draws of their own, for the logged
+`patch_depth_smoothness` (the mean over pixels of their depths'
+population std); the loss and its gradients are those of the pixel
+step. `make_optimizer_step` turns a loss into the in-place Adam step
+that this step and the data-parallel steps of `parallel/` share.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from ibl_nerf_tpu_torch.render.config import RenderConfig
 from ibl_nerf_tpu_torch.render.renderer import (
     draw_render_uniforms,
     make_ray_batch,
+    render_draws_needed,
     render_rays,
 )
 from ibl_nerf_tpu_torch.train.losses import LossConfig, Phase, compute_losses
@@ -212,10 +218,10 @@ def draw_volume_uniforms(n_vol: int, rcfg: RenderConfig, device,
                          dtype: torch.dtype = torch.float32) -> dict:
     """The draws of the depth-volume pass: "dirs" (n_vol, 3) uniforms of
     its directions (JAX draws (B, 3) from k_vol and keeps the first
-    n_vol rows) and, under perturb, "render", its render_rays uniforms
-    (JAX's k_vol_render)."""
+    n_vol rows) and, under perturb or raw_noise_std, "render", its
+    render_rays draws (JAX's k_vol_render)."""
     out = {"dirs": torch.rand((n_vol, 3), device=device, generator=generator, dtype=dtype)}
-    if rcfg.perturb:
+    if render_draws_needed(rcfg):
         out["render"] = draw_render_uniforms(n_vol, rcfg, device, generator, dtype)
     return out
 
@@ -245,23 +251,72 @@ def loss_from_batch(variables, consts, pixel_info, rays_o, rays_d,
                     rcfg_phase: RenderConfig, lcfg: LossConfig, phase: Phase,
                     prior_irradiance_mean: float, near, far,
                     draws: dict | None = None, n_vol: int = 256,
-                    vol_draws: dict | None = None):
-    """Render, the depth-volume pass (when the depth loss is on and the
-    batch has gt normals) and the loss for an already-sampled pixel
-    batch, which is also the renderer's gt inputs. `draws` as
-    `render_rays` takes them; `vol_draws` as `draw_volume_uniforms` makes
-    them, for n_vol volume rays (drawn on the rays' device when absent)."""
+                    vol_draws: dict | None = None, vol_weight: float = 1.0):
+    """Render, the depth-volume pass (when the depth loss is on, the
+    batch has gt normals and n_vol > 0) and the loss for an
+    already-sampled pixel batch, which is also the renderer's gt inputs.
+    `draws` as `render_rays` takes them; `vol_draws` as
+    `draw_volume_uniforms` makes them, for the batch's first n_vol rays
+    (drawn on the rays' device when absent); `vol_weight` as
+    compute_losses' depth_volume_weight."""
     batch = make_ray_batch(rays_o, rays_d, near, far)
     result = render_rays(variables, consts, batch, rcfg_phase, draws=draws,
                          gt_values=pixel_info)
     depth_volume_result = None
-    if phase.depth_loss_on and "normal" in pixel_info:
+    if phase.depth_loss_on and "normal" in pixel_info and n_vol > 0:
         depth_volume_result = depth_volume_pass(
             variables, consts, pixel_info["normal"], rays_o, rays_d, result["depth_map"],
             rcfg_phase, near, far, n_vol,
             vol_draws or draw_volume_uniforms(n_vol, rcfg_phase, rays_o.device))
     return compute_losses(result, pixel_info, lcfg, phase, prior_irradiance_mean, far,
-                          depth_volume_result=depth_volume_result)
+                          depth_volume_result=depth_volume_result,
+                          depth_volume_weight=vol_weight)
+
+
+@torch.no_grad()
+def patch_depth_smoothness(variables, consts, rays_o_n, rays_d_n, rcfg: RenderConfig,
+                           near, far, draws: dict | None = None) -> torch.Tensor:
+    """The mean over pixels of the population std of their 8 neighbours'
+    depths, rendered depth-only without a graph from (B, 8, 3) rays."""
+    b = rays_o_n.shape[0]
+    nres = render_rays(variables, consts,
+                       make_ray_batch(rays_o_n.reshape(-1, 3), rays_d_n.reshape(-1, 3),
+                                      near, far),
+                       rcfg, is_depth_only=True, draws=draws)
+    return torch.mean(torch.std(nres["depth_map"].reshape(b, 8), dim=-1, correction=0))
+
+
+def value_and_grads(loss_fn, variables, *args):
+    """(total, scalars, grads) of `loss_fn(variables, *args)`: grads as a
+    list over `_leaves(variables)`, zeros for a param the loss does not
+    reach (as jax.grad gives), and the scalars detached."""
+    total, scalars = loss_fn(variables, *args)
+    leaves = _leaves(variables)
+    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    scalars = {k: v.detach() if isinstance(v, torch.Tensor) else v
+               for k, v in scalars.items()}
+    return total.detach(), scalars, grads
+
+
+def make_optimizer_step(optimizer: NamedAdam, reduce=None):
+    """Wrap a `loss_fn(variables, draws, *batch) -> (total, scalars)` into
+    `train_step(state, draws, *batch) -> (state, scalars)`: the gradients
+    of the total, then one Adam update of the state in place.
+    `reduce(grads, scalars) -> (grads, scalars)`, when given, combines
+    the gradients (a list over the params' leaves) and the scalars across
+    processes before the update."""
+    def build(loss_fn):
+        def train_step(state: TrainState, draws: dict, *batch):
+            _, scalars, grads = value_and_grads(loss_fn, state.variables, draws, *batch)
+            if reduce is not None:
+                grads, scalars = reduce(grads, scalars)
+            optimizer.update_(state.variables, _unflatten(state.variables, grads),
+                              state.opt_state)
+            state.step += 1
+            return state, scalars
+        return train_step
+    return build
 
 
 class TrainStep:
@@ -271,60 +326,86 @@ class TrainStep:
 
     def __init__(self, rcfg, lcfg, phase, optimizer, consts, H, W, batch_size,
                  prior_irradiance_mean, near, far, precrop, precrop_frac,
-                 merged_sampling=False, n_depth_random_volume=256):
+                 merged_sampling=False, n_depth_random_volume=256, patch=False):
         self.rcfg = phase_render_config(rcfg, phase)
         self.lcfg, self.phase, self.optimizer, self.consts = lcfg, phase, optimizer, consts
         self.H, self.W, self.batch_size = H, W, batch_size
         self.prior_irradiance_mean, self.near, self.far = prior_irradiance_mean, near, far
         self.precrop, self.precrop_frac = precrop, precrop_frac
-        self.merged_sampling = merged_sampling
+        self.merged_sampling, self.patch = merged_sampling, patch
         self.n_vol = min(n_depth_random_volume, batch_size)
+        self._update = make_optimizer_step(optimizer)(
+            lambda variables, draws, arrays: self.loss(variables, arrays, draws))
+
+    def draw_render(self, device, generator: torch.Generator | None = None,
+                    volume: bool = True) -> dict:
+        """The step's draws past the pixels: "render" (under perturb or
+        raw_noise_std), "vol" when `volume` and the phase runs the
+        depth-volume pass, and "patch" (the neighbour pass's render draws,
+        JAX's k_patch) under patch sampling."""
+        draws = {}
+        if render_draws_needed(self.rcfg):
+            draws["render"] = draw_render_uniforms(self.batch_size, self.rcfg, device,
+                                                   generator)
+        if self.phase.depth_loss_on and volume:
+            draws["vol"] = draw_volume_uniforms(self.n_vol, self.rcfg, device, generator)
+        if self.patch and render_draws_needed(self.rcfg):
+            draws["patch"] = draw_render_uniforms(8 * self.batch_size, self.rcfg, device,
+                                                  generator)
+        return draws
 
     def draw(self, arrays: dict, generator: torch.Generator | None = None) -> dict:
-        """Every random number of one step: {"pixels": ..., "render": ...,
-        and "vol" when the depth-volume pass runs}."""
+        """Every random number of one step: {"pixels": ...} and
+        `draw_render`'s (the volume pass's when the arrays hold normals)."""
         images = arrays["images"]
         draws = {"pixels": draw_pixels(images.shape[0], self.batch_size, self.H, self.W,
                                        images.device, generator, self.precrop,
-                                       self.precrop_frac, self.merged_sampling)}
-        if self.rcfg.perturb:
-            draws["render"] = draw_render_uniforms(self.batch_size, self.rcfg,
-                                                   images.device, generator)
-        if self.phase.depth_loss_on and "normal" in arrays:
-            draws["vol"] = draw_volume_uniforms(self.n_vol, self.rcfg, images.device,
-                                                generator)
+                                       self.precrop_frac, self.merged_sampling, self.patch)}
+        draws.update(self.draw_render(images.device, generator, volume="normal" in arrays))
         return draws
+
+    def sample(self, arrays: dict, pixels: dict) -> tuple:
+        """The pixel batch of `pixels` draws: (pixel_info, rays_o,
+        rays_d), and the neighbours' (neigh_info, rays_o_n, rays_d_n)
+        under patch sampling."""
+        return sample_pixel_batch(arrays, self.batch_size, self.H, self.W, self.precrop,
+                                  self.precrop_frac, patch=self.patch,
+                                  merged=self.merged_sampling, draws=pixels)
+
+    def batch_loss(self, variables: dict, consts: dict, batch: tuple, draws: dict,
+                   n_vol: int | None = None, vol_weight: float = 1.0):
+        """(total, scalars) of a sampled batch (`sample`'s tuple) with a
+        graph to the params; the depth-volume pass takes the batch's first
+        n_vol rays (the step's n_vol when None)."""
+        pixel_info, rays_o, rays_d = batch[:3]
+        total, scalars = loss_from_batch(
+            variables, consts, pixel_info, rays_o, rays_d, self.rcfg, self.lcfg, self.phase,
+            self.prior_irradiance_mean, self.near, self.far, draws=draws.get("render"),
+            n_vol=self.n_vol if n_vol is None else n_vol, vol_draws=draws.get("vol"),
+            vol_weight=vol_weight)
+        if self.patch:
+            scalars = dict(scalars, patch_depth_smoothness=patch_depth_smoothness(
+                variables, consts, batch[4], batch[5], self.rcfg, self.near, self.far,
+                draws.get("patch")))
+        return total, scalars
 
     def loss(self, variables: dict, arrays: dict, draws: dict):
         """(total, scalars) of one batch, with a graph to the params."""
-        pixel_info, rays_o, rays_d = sample_pixel_batch(
-            arrays, self.batch_size, self.H, self.W, self.precrop,
-            self.precrop_frac, merged=self.merged_sampling, draws=draws["pixels"])
-        return loss_from_batch(variables, self.consts, pixel_info, rays_o, rays_d,
-                               self.rcfg, self.lcfg, self.phase,
-                               self.prior_irradiance_mean, self.near, self.far,
-                               draws=draws.get("render"), n_vol=self.n_vol,
-                               vol_draws=draws.get("vol"))
+        return self.batch_loss(variables, self.consts, self.sample(arrays, draws["pixels"]),
+                               draws)
 
     def loss_and_grads(self, variables: dict, arrays: dict, draws: dict):
         """(total, scalars, grads): grads mirror `variables`; a param the
         loss does not reach gets zeros, as jax.grad gives."""
-        total, scalars = self.loss(variables, arrays, draws)
-        leaves = _leaves(variables)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        scalars = {k: v.detach() if isinstance(v, torch.Tensor) else v
-                   for k, v in scalars.items()}
-        return total.detach(), scalars, _unflatten(variables, grads)
+        total, scalars, grads = value_and_grads(
+            lambda v: self.loss(v, arrays, draws), variables)
+        return total, scalars, _unflatten(variables, grads)
 
     def __call__(self, state: TrainState, arrays: dict, draws: dict | None = None,
                  generator: torch.Generator | None = None):
         if draws is None:
             draws = self.draw(arrays, generator)
-        _, scalars, grads = self.loss_and_grads(state.variables, arrays, draws)
-        self.optimizer.update_(state.variables, grads, state.opt_state)
-        state.step += 1
-        return state, scalars
+        return self._update(state, draws, arrays)
 
 
 def make_train_step(
@@ -347,9 +428,9 @@ def make_train_step(
 ) -> TrainStep:
     """The train step of one phase; it updates its state in place.
     merged_sampling draws an image per ray; the depth-volume pass renders
-    min(n_depth_random_volume, batch_size) rays."""
-    if patch:
-        raise NotImplementedError("patch sampling is not ported to ibl_nerf_tpu_torch yet")
+    min(n_depth_random_volume, batch_size) rays; patch samples pixels
+    with their 8 neighbours (single-image) and logs
+    patch_depth_smoothness."""
     return TrainStep(rcfg, lcfg, phase, optimizer, consts, H, W, batch_size,
                      prior_irradiance_mean, near, far, precrop, precrop_frac,
-                     merged_sampling, n_depth_random_volume)
+                     merged_sampling, n_depth_random_volume, patch)

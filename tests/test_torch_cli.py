@@ -6,9 +6,9 @@ A port `train` run on the CPU (N_iter 6 with the phase switch at 3,
 normals, merged sampling, bf16_grad) writes the same files as JAX's
 `train` on the same scene and arguments: the checkpoint names, the keys
 of train_info_step_time.json and of metrics.jsonl, and the test-set
-PNG names. Flags the port does not cover are refused before anything
-runs (the aux heads, Monte-Carlo shading and the inferred normal pass),
-and the CLI refuses to run without a card.
+PNG names. The renderer's one refusal (float64 with use_pallas) stops a
+run before anything runs, every trainer flag of JAX's passes, and the
+CLI refuses to run without a card.
 """
 
 import json
@@ -96,18 +96,20 @@ def test_train_writes_the_files_jax_writes(scene_dir, tmp_path):
 
 
 def test_unported_flags_are_refused_before_anything_runs(scene_dir, tmp_path):
+    """The flags refused until this slice ported them (raw_noise_std,
+    mesh_devices, num_processes, init_port_path, patch sampling) pass the
+    check, as do the aux heads, the environment map, Monte-Carlo shading
+    and the inferred normal; the renderer's one refusal left, float64
+    with use_pallas, still stops train before anything runs."""
     logdir = str(tmp_path / "refused")
-    cases = [(["--raw_noise_std", "1.0"], "raw_noise_std"),
-             (["--mesh_devices", "2"], "mesh_devices"),
-             (["--num_processes", "2"], "num_processes"),
-             (["--init_port_path", "x.tar"], "init_port_path"),
-             (["--ray_sample", "patch", "--no_batching"], "ray_sample")]
-    for extra, flag in cases:
-        with pytest.raises(NotImplementedError, match=flag):
-            train(parse_with_includes(_argv(scene_dir, logdir, *extra)), device="cpu")
+    for extra in (["--raw_noise_std", "1.0"], ["--mesh_devices", "2"],
+                  ["--num_processes", "2"], ["--init_port_path", "x.tar"],
+                  ["--ray_sample", "patch", "--no_batching"]):
+        loop.check_supported_flags(parse_with_includes(_argv(scene_dir, logdir, *extra)))
+    with pytest.raises(NotImplementedError, match="float64"):
+        train(parse_with_includes(_argv(scene_dir, logdir, "--compute_dtype", "float64",
+                                        "--use_pallas")), device="cpu")
     assert not os.path.exists(logdir)
-    # the aux heads, the environment map, Monte-Carlo shading and the
-    # inferred normal pass the checks
     loop.check_supported_flags(parse_with_includes(_argv(
         scene_dir, logdir, "--infer_normal", "--infer_normal_at_surface", "--infer_depth",
         "--infer_albedo_separate", "--infer_roughness_separate", "--infer_irradiance_separate",

@@ -46,7 +46,8 @@ def test_port_imports_nothing_of_jax():
     for name in ("kernels.fused_field", "kernels.fused_field_train", "eval.render_path",
                  "train.step", "train.losses", "data.sampler", "cli.test", "cli.render",
                  "cli.port_checkpoint", "cli.preprocess", "utils.video",
-                 "utils.mesh_extract", "eval.metrics"):
+                 "utils.mesh_extract", "eval.metrics", "parallel", "parallel.mesh",
+                 "parallel.distributed"):
         assert f"ibl_nerf_tpu_torch.{name}" in report["modules"]
     assert not set(report["loaded"]) & set(FORBIDDEN), report["loaded"]
 

@@ -86,6 +86,22 @@ def _render_both(setup, is_depth_only=False, **kw):
     return {k: np.asarray(v) for k, v in ref.items()}, {k: v.numpy() for k, v in out.items()}
 
 
+def noise_draws(key, n, rcfg, is_depth_only=False):
+    """JAX's raw-noise draws of render_rays(key) for n rays under `rcfg`
+    (perturb off): standard normals from k_coarse and k_fine, split once
+    more in a shading pass, none in a depth-only one."""
+    _, k_coarse, _, k_fine = jax.random.split(key, 4)
+    coarse_depth_only = is_depth_only or not rcfg.coarse_shading
+
+    def normals(k, depth_only, m):
+        k = k if depth_only else jax.random.split(k)[0]
+        return torch.from_numpy(np.array(jax.random.normal(k, (n, m))))
+
+    return {"noise_coarse": normals(k_coarse, coarse_depth_only, rcfg.n_samples),
+            "noise_fine": normals(k_fine, is_depth_only,
+                                  rcfg.n_samples + rcfg.n_importance)}
+
+
 def _assert_maps(ref, out, basic_tol=(5e-4, 1e-3), shaded_tol=(2e-3, 5e-3)):
     assert set(out) == set(ref)
     for k, r in ref.items():
@@ -243,12 +259,24 @@ def test_uncovered_modes_raise(setup, kw, mode):
     """Modes the port does not cover raise NotImplementedError naming the
     mode. The aux heads and Monte-Carlo shading, refused here until they
     were ported, now render their maps (tests/test_torch_aux.py and
-    tests/test_torch_mc_shading.py hold them against JAX); shading with
-    the inferred normal but no normal head is a ValueError."""
-    _, tvars, _, tconsts, rays_o, rays_d = setup
-    _, tr = _cfgs(**kw)
+    tests/test_torch_mc_shading.py hold them against JAX); so does
+    raw_noise_std, refused until it was ported, held here to JAX's render
+    with JAX's noise (alone and under an edit); shading with the inferred
+    normal but no normal head is a ValueError."""
+    jvars, tvars, jconsts, tconsts, rays_o, rays_d = setup
+    jr, tr = _cfgs(**kw)
     batch = make_ray_batch(torch.from_numpy(rays_o), torch.from_numpy(rays_d), 2.0, 6.0)
-    if mode in PORTED_MODES:
+    if mode == "raw_noise_std":
+        n = rays_o.shape[0]
+        gt = {"edit_intrinsic_mask": np.full((n, 3), 10 / 255, np.float32)} if tr.edit else {}
+        ref = j_render_rays(jax.random.key(0), jvars, jconsts,
+                            j_batch(jnp.asarray(rays_o), jnp.asarray(rays_d), 2.0, 6.0), jr,
+                            gt_values={k: jnp.asarray(v) for k, v in gt.items()} or None)
+        out = render_rays(tvars, tconsts, batch, tr, draws=noise_draws(jax.random.key(0), n, tr),
+                          gt_values={k: torch.from_numpy(v) for k, v in gt.items()} or None)
+        _assert_maps({k: np.asarray(v) for k, v in ref.items()},
+                     {k: v.numpy() for k, v in out.items()})
+    elif mode in PORTED_MODES:
         rng, in_ch = np.random.default_rng(0), tr.field.input_ch
         aux = {name: init_position_mlp(rng, 8, 32, in_ch, out_ch, device="cpu")
                for name, out_ch in (("normal_mlp", 3), ("albedo_mlp", 3),

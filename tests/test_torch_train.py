@@ -246,9 +246,17 @@ def test_device_arrays_from_scene_matches_jax():
 
 
 def test_uncovered_sampling_modes_raise():
-    arrays = {"images": torch.zeros(1, 4, 4, 3)}
-    with pytest.raises(NotImplementedError, match="patch"):
-        sample_pixel_batch(arrays, 2, 4, 4, patch=True)
+    """Patch sampling, refused until it was ported, now draws a batch
+    with its neighbours (tests/test_torch_patch_noise.py holds it to
+    JAX's); only patch with merged sampling raises, since the neighbour
+    rays take the batch's one pose (JAX's fails on the shapes)."""
+    arrays = {"images": torch.rand(2, 4, 5, 3), "poses": torch.eye(4).expand(2, 4, 4),
+              "K": torch.tensor([[3.0, 0, 2.5], [0, 3.0, 2.0], [0, 0, 1]])}
+    pixel, rays_o, rays_d, neigh, rays_o_n, rays_d_n = sample_pixel_batch(
+        arrays, 6, 4, 5, patch=True, generator=torch.Generator().manual_seed(0))
+    assert neigh["rgb"].shape == (6, 8, 3) and rays_o_n.shape == rays_d_n.shape == (6, 8, 3)
+    with pytest.raises(ValueError, match="merged"):
+        sample_pixel_batch(arrays, 2, 4, 5, patch=True, merged=True)
 
 
 # --- sgs normals and the freeze gradients -------------------------------------

@@ -261,15 +261,23 @@ def test_train_step_draws_from_a_generator(scene):
 
 
 def test_train_step_uncovered_modes_raise(scene):
+    """Patch sampling and raw_noise_std, refused until they were ported,
+    now step (tests/test_torch_patch_noise.py holds them to JAX); the one
+    mode left that raises is float64 with use_pallas, at the first step."""
     _, tarr, _, tc = scene
     _, tr = _cfgs(4, normal_type=EPS)
     tl = tlosses.LossConfig(**LOSS)
     _, tv = _variables(4)
     opt = tstep.build_optimizer(tv, lcfg=tl)
     phase = tlosses.resolve_phase(50000, tl)
-    with pytest.raises(NotImplementedError, match="patch"):
-        tstep.make_train_step(tr, tl, phase, opt, tc, H, W, B, 0.7, NEAR, FAR, patch=True)
     step = tstep.make_train_step(tr.replace(raw_noise_std=1.0), tl, phase, opt, tc, H, W, B,
-                                 0.7, NEAR, FAR)
-    with pytest.raises(NotImplementedError, match="raw_noise_std"):
+                                 0.7, NEAR, FAR, patch=True)
+    state, scalars = step(tstep.init_train_state(tv, opt), tarr,
+                          generator=torch.Generator().manual_seed(0))
+    assert state.step == 1
+    assert np.isfinite(float(scalars["loss_total"]))
+    assert float(scalars["patch_depth_smoothness"]) > 0
+    step = tstep.make_train_step(tr.replace(compute_dtype="float64", use_pallas=True), tl,
+                                 phase, opt, tc, H, W, B, 0.7, NEAR, FAR)
+    with pytest.raises(NotImplementedError, match="float64"):
         step(tstep.init_train_state(tv, opt), tarr)
