@@ -82,6 +82,20 @@ Phases, one JSON line each; any failure exits non-zero:
           rgb.avi, parsed here, holds the rgb stack). Prints the seconds
           per 480x640 image, of the edit and the insert, per orbit frame
           and of the mesh.
+  tools   the eval/utils layer on eval_cli's outputs: compare.calculate_
+          metrics on the card equal (within 1e-6) to batch_metrics on the
+          same decoded PNG pairs, its CSV and LaTeX rows, the train run's
+          time row; visualize_comparison (1 page) and comparison_report
+          (2 pages) with one embedded image per existing tile, the first
+          equal to its PNG; profile_trace around cli.test at render
+          factor 16 (one chunk per rendered test image): one K1 full and
+          one K2 launch a chunk, and the trace's kernel events name
+          fused_field_kernel and k2_forward as often; the orbit's frames
+          as .mp4 and, cycled to 5,000 frames, as an OpenDML AVI of two
+          or more RIFFs, both read back frame for frame; the 30-update
+          fine field's 48^3 density grid on the card against the CPU's
+          (rtol 1e-3, atol 5e-4) and a non-empty mesh at its 90th
+          percentile. Prints each step's seconds and the files' sizes.
   aux_cli  the aux heads and Monte-Carlo shading through the CLIs' `main`s
           on train_cli's scene: `cli.train` with every aux head
           (--infer_normal --infer_depth --infer_{albedo,roughness,
@@ -147,9 +161,11 @@ import torch
 from ibl_nerf_tpu_torch.cli import render as cli_render
 from ibl_nerf_tpu_torch.cli import test as cli_test
 from ibl_nerf_tpu_torch.cli import train as cli_train
+from ibl_nerf_tpu_torch.cli.config import parse_with_includes
 from ibl_nerf_tpu_torch.data import dataset as dataset_mod
 from ibl_nerf_tpu_torch.data import native_loader
 from ibl_nerf_tpu_torch.data.brdf_lut import load_brdf_lut
+from ibl_nerf_tpu_torch.eval import compare, visualize
 from ibl_nerf_tpu_torch.eval.metrics import batch_metrics
 from ibl_nerf_tpu_torch.eval.render_path import render_path
 from ibl_nerf_tpu_torch.kernels import build as kernel_build
@@ -174,7 +190,8 @@ from ibl_nerf_tpu_torch.train import loop as loop_mod
 from ibl_nerf_tpu_torch.train.step import TrainState, _leaves
 from ibl_nerf_tpu_torch.utils.logging import load_logger
 from ibl_nerf_tpu_torch.utils.device import resolve_device
-from ibl_nerf_tpu_torch.utils import mesh_extract
+from ibl_nerf_tpu_torch.utils import mesh_extract, timing
+from ibl_nerf_tpu_torch.utils import video as video_mod
 from ibl_nerf_tpu_torch.utils.png import write_png
 
 # H100 SXM data-sheet rates at the full 700 W: f32 outside the tensor
@@ -1496,24 +1513,62 @@ def eval_probes(record: dict):
             setattr(mod, name, fn)
 
 
-def read_avi(path: Path) -> tuple[np.ndarray, float]:
-    """(frames (N, H, W, 3) RGB uint8, fps) of an uncompressed 24-bit AVI."""
+def read_avi(path: Path) -> tuple[np.ndarray, float, dict]:
+    """(frames (N, H, W, 3) RGB uint8, fps, counts) of an uncompressed
+    24-bit AVI: the `00db` chunks of every RIFF list's `movi`, in file
+    order (AVI 1.0 or OpenDML). counts: the RIFF forms, and the frame
+    counts of avih (the first RIFF's), strh and dmlh (all; None without
+    OpenDML)."""
     data = path.read_bytes()
     if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
         raise ValueError(f"{path} is not an AVI file")
     i = data.index(b"strh")
     scale, rate = struct.unpack("<II", data[i + 28:i + 36])
-    fps = rate / scale
+    strh_frames = struct.unpack("<I", data[i + 40:i + 44])[0]
     i = data.index(b"strf")
     _, w, h = struct.unpack("<Iii", data[i + 8:i + 20])
-    row, frames, pos = (3 * w + 3) // 4 * 4, [], data.index(b"movi") + 4
-    while data[pos:pos + 4] == b"00db":
-        n = struct.unpack("<I", data[pos + 4:pos + 8])[0]
-        img = np.frombuffer(data, np.uint8, n, pos + 8).reshape(abs(h), row)[:, :3 * w]
-        img = img.reshape(abs(h), w, 3)[..., ::-1]
-        frames.append(img if h < 0 else img[::-1])
-        pos += 8 + n + n % 2
-    return np.stack(frames), fps
+    i = data.index(b"avih")
+    avih_frames = struct.unpack("<I", data[i + 24:i + 28])[0]
+    dmlh = data.find(b"dmlh")
+    row, frames, forms, pos = (3 * w + 3) // 4 * 4, [], [], 0
+    while pos < len(data):
+        riff_end = pos + 8 + struct.unpack("<I", data[pos + 4:pos + 8])[0]
+        forms.append(data[pos + 8:pos + 12].decode())
+        q = pos + 12
+        while q < riff_end:
+            kind, size = data[q:q + 4], struct.unpack("<I", data[q + 4:q + 8])[0]
+            if kind == b"LIST" and data[q + 8:q + 12] == b"movi":
+                c = q + 12
+                while c < q + 8 + size:
+                    n = struct.unpack("<I", data[c + 4:c + 8])[0]
+                    if data[c:c + 4] == b"00db":
+                        img = np.frombuffer(data, np.uint8, n, c + 8).reshape(abs(h), row)
+                        img = img[:, :3 * w].reshape(abs(h), w, 3)[..., ::-1]
+                        frames.append(img if h < 0 else img[::-1])
+                    c += 8 + n + n % 2
+            q += 8 + size + size % 2
+        pos = riff_end
+    counts = {"riffs": forms, "avih": avih_frames, "strh": strh_frames,
+              "dmlh": struct.unpack("<I", data[dmlh + 8:dmlh + 12])[0] if dmlh >= 0 else None}
+    return np.stack(frames), rate / scale, counts
+
+
+def read_mp4(path: Path) -> tuple[np.ndarray, float]:
+    """(frames (N, H, W, 3) RGB uint8, fps) of utils/video.write_mp4's
+    file: raw 24-bit samples of one size at the co64 offsets."""
+    data = path.read_bytes()
+    i = data.index(b"raw ")
+    w, h = struct.unpack(">HH", data[i + 28:i + 32])
+    timescale = struct.unpack(">I", data[data.index(b"mdhd") + 16:data.index(b"mdhd") + 20])[0]
+    delta = struct.unpack(">I", data[data.index(b"stts") + 16:data.index(b"stts") + 20])[0]
+    i = data.index(b"stsz")
+    size, n = struct.unpack(">II", data[i + 8:i + 16])
+    i = data.index(b"co64")
+    offsets = np.frombuffer(data, ">u8", n, i + 12)
+    if size != 3 * w * h:
+        raise ValueError(f"{path}: {size}-byte samples for {w}x{h} frames")
+    return np.stack([np.frombuffer(data, np.uint8, size, int(o)).reshape(h, w, 3)
+                     for o in offsets]), timescale / delta
 
 
 def eval_cli_phase(kernels, card: str) -> dict:
@@ -1614,7 +1669,7 @@ def eval_cli_phase(kernels, card: str) -> dict:
         "--orbit_frames", str(ORBIT_FRAMES), "--render_factor", str(ORBIT_FACTOR)),
         {**primary, "fused_field_density": 1}, ORBIT_FRAMES * -(-h2 * w2 // CLI_CHUNK))
     orbit_dir = CLI_DIR / "logs" / "train_cli" / f"orbit_{CLI_N_ITER:06d}"
-    frames, fps = read_avi(orbit_dir / "rgb.avi")
+    frames, fps, _ = read_avi(orbit_dir / "rgb.avi")
     want = (np.clip(orbit["rgb"], 0, 1) * 255).astype(np.uint8)
     if fps != 30.0 or frames.shape != (ORBIT_FRAMES, h2, w2, 3) or not np.array_equal(
             frames, want):
@@ -1635,6 +1690,215 @@ def eval_cli_phase(kernels, card: str) -> dict:
         orbit_s_per_frame=runs["render"]["render_s"] / ORBIT_FRAMES,
         orbit_size=[h2, w2], orbit_run_s=runs["render"]["s"], avi_frames=len(frames),
         runs=runs, launches=totals)
+    emit(phase, **report)
+    return report
+
+
+# The tools phase: the eval/utils layer on eval_cli's outputs.
+TOOLS_DIR = CLI_DIR / "tools"
+TOOLS_GRID_N = 48          # the density grid of the card-against-CPU check
+TOOLS_GRID_TOL = (1e-3, 5e-4)  # rtol, atol: the port-against-JAX test's on the CPU
+TOOLS_ISO_PERCENTILE = 90  # of the card's grid: a level set inside the box
+TOOLS_PROFILE_FACTOR = 16  # cli.test at 30x40: one chunk per rendered test image
+TOOLS_AVI_FRAMES = 5000    # orbit frames cycled past one 1 GiB RIFF at 240x320
+TOOLS_METRIC_TOL = 1e-6
+
+
+def trace_kernels(path: Path) -> list[str]:
+    """The names of the device kernels in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e["name"] for e in events if e.get("cat") == "kernel"]
+
+
+def pdf_counts(path: Path) -> tuple[int, list[np.ndarray]]:
+    """(pages, the embedded images in file order) of a utils/pdf file."""
+    import zlib
+
+    data = path.read_bytes()
+    pages = int(re.search(rb"/Type /Pages /Kids \[[^\]]*\] /Count (\d+)", data).group(1))
+    images = []
+    for m in re.finditer(rb"/Subtype /Image /Width (\d+) /Height (\d+) .*?/Length (\d+) "
+                         rb">>\nstream\n", data):
+        w, h, n = (int(g) for g in m.groups())
+        images.append(np.frombuffer(zlib.decompress(data[m.end():m.end() + n]),
+                                    np.uint8).reshape(h, w, 3))
+    return pages, images
+
+
+def tools_phase(kernels, card: str, eval_report: dict, device="cuda") -> dict:
+    """The eval/utils layer on eval_cli's outputs; see the module
+    docstring for its gates."""
+    phase = "tools"
+    device = torch.device(device)
+    phase_t0 = time.perf_counter()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    TOOLS_DIR.mkdir(parents=True)
+    testdir = CLI_DIR / "logs_eval" / "train_cli" / f"testset_{CLI_N_ITER:06d}"
+    gtdir = CLI_DIR / "scene" / "test"
+    seconds, report = {}, {"card": card}
+
+    def timed(name, fn, *args, **kwargs):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    # compare: calculate_metrics on the card against batch_metrics on the
+    # same decoded PNG pairs, and against the CPU's
+    metrics = timed("calculate_metrics", compare.calculate_metrics, str(testdir), str(gtdir),
+                    CLI_TEST_IMAGES, device=device)
+    # the test CLI renders every testskip-th test image: the pairs that exist
+    names = [(testdir / f"rgb_{i:03d}.png", gtdir / f"{i + 1}.png")
+             for i in range(CLI_TEST_IMAGES) if (testdir / f"rgb_{i:03d}.png").exists()]
+    pairs = [native_loader.batch_load_png_rgb([str(p) for p in col], TRAIN_H, TRAIN_W)
+             for col in zip(*names)]
+    direct = batch_metrics(*pairs, device=device)
+    on_cpu = compare.calculate_metrics(str(testdir), str(gtdir), CLI_TEST_IMAGES, device="cpu")
+    for k in ("psnr", "ssim", "mse"):
+        if not abs(metrics[k] - direct[k]) <= TOOLS_METRIC_TOL:
+            fail(phase, f"calculate_metrics {k} {metrics[k]} against batch_metrics' "
+                 f"{direct[k]} on the same PNGs")
+    report["metrics"] = metrics
+    report["metrics_minus_cpu"] = {k: metrics[k] - on_cpu[k] for k in metrics}
+    # eval_cli scores the float render of image 0; the PNGs hold its 8-bit truncation
+    report["eval_cli_float_render"] = {k: eval_report[k] for k in ("psnr", "ssim")}
+    results = TOOLS_DIR / "results" / "scene"
+    results.mkdir(parents=True)
+    (results / "eval").symlink_to(testdir)
+    rows = timed("error_calculator", compare.error_calculator, ["scene"], ["eval"],
+                 str(TOOLS_DIR / "results"), str(CLI_DIR), n_images=CLI_TEST_IMAGES,
+                 out_csv=str(TOOLS_DIR / "errors.csv"), device=device)
+    image_row = next(r for r in rows if r["target"] == "image")
+    if any(image_row[k] != metrics[k] for k in ("psnr", "ssim", "mse")):
+        fail(phase, f"error_calculator's image row {image_row} against {metrics}")
+    report["latex_psnr"] = compare.pprint_latex(rows)
+    report["time_rows"] = compare.time_calculator([str(CLI_DIR / "logs" / "train_cli")],
+                                                  str(TOOLS_DIR / "times.csv"))
+    csv_lines = (TOOLS_DIR / "errors.csv").read_text().splitlines()
+    if len(csv_lines) != 1 + len(rows) or len(report["time_rows"]) != 1:
+        fail(phase, f"errors.csv holds {len(csv_lines)} lines for {len(rows)} rows, "
+             f"{len(report['time_rows'])} time rows")
+
+    # visualize: two experiments (the eval and the training run's test-set
+    # renders) and the ground truth; one scene, then a report of two
+    figs = TOOLS_DIR / "figs"
+    for scene in ("scene", "scene2"):
+        (figs / scene).mkdir(parents=True)
+        (figs / scene / "eval").symlink_to(CLI_DIR / "logs_eval" / "train_cli")
+        (figs / scene / "train").symlink_to(CLI_DIR / "logs" / "train_cli")
+    targets = list(visualize.DEFAULT_COMPARE_TARGETS)
+    want = []
+    for exp in ("gt", "eval", "train"):
+        for t in targets:
+            if exp == "gt":
+                path = gtdir / f"1{'' if t == 'rgb' else '_' + t}.png"
+            else:
+                path = figs / "scene" / exp / f"testset_{CLI_N_ITER:06d}" / f"{t}_000.png"
+            if path.exists():
+                want.append(path)
+    pdf = Path(timed("visualize_comparison", visualize.visualize_comparison, str(figs), "scene",
+                     index=0, exp_names=["eval", "train"], gt_dir=str(gtdir),
+                     out_dir=str(TOOLS_DIR)))
+    pages, images = pdf_counts(pdf)
+    first = native_loader.batch_load_png_rgb([str(want[0])], TRAIN_H, TRAIN_W)[0]
+    if pages != 1 or len(images) != len(want) or not np.array_equal(
+            images[0], np.rint(first * 255).astype(np.uint8)):
+        fail(phase, f"{pdf.name}: {pages} pages, {len(images)} images; expected 1 page and "
+             f"{len(want)} images, the first {want[0].name}'s pixels")
+    merged = Path(timed("comparison_report", visualize.comparison_report, str(figs),
+                        ["scene", "scene2"], str(TOOLS_DIR / "report.pdf"), index=0,
+                        exp_names=["eval", "train"], gt_dir=str(gtdir)))
+    r_pages, r_images = pdf_counts(merged)
+    if r_pages != 2 or len(r_images) != 2 * len(want):
+        fail(phase, f"report.pdf: {r_pages} pages, {len(r_images)} images; expected 2 and "
+             f"{2 * len(want)}")
+    report["pdf"] = {"pages": pages, "images": len(images), "bytes": pdf.stat().st_size,
+                     "report_pages": r_pages, "report_images": len(r_images),
+                     "report_bytes": merged.stat().st_size}
+
+    # profile_trace around cli.test at 30x40: the trace names K1's and K2's symbols
+    zero_launch_counts()
+    with timing.profile_trace(str(TOOLS_DIR / "trace"), device=device):
+        t0 = time.perf_counter()
+        cli_test.main(eval_argv("--render_factor", str(TOOLS_PROFILE_FACTOR),
+                                "--export_basedir", str(TOOLS_DIR / "profiled")),
+                      device=device)
+        seconds["profiled_test"] = time.perf_counter() - t0
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    want_launches = {"fused_field_apply": len(names), "fused_field_train_fwd": len(names)}
+    names_in_trace = trace_kernels(TOOLS_DIR / "trace" / timing.TRACE_NAME)
+    seen = {sym: sum(sym in n for n in names_in_trace)
+            for sym in ("fused_field_kernel", "k2_forward")}
+    if launches != want_launches or list(seen.values()) != [len(names)] * 2:
+        fail(phase, f"profiled cli.test launched {launches} (expected {want_launches}); "
+             f"the trace names {seen}")
+    for row in kernels:
+        row.setdefault("launches_by_phase", {})[phase] = launches.get(row["name"], 0)
+    report["trace"] = {"kernel_events": len(names_in_trace), "own_kernels": seen,
+                       "bytes": (TOOLS_DIR / "trace" / timing.TRACE_NAME).stat().st_size}
+
+    # video: the orbit's frames as .mp4, and cycled past one 1 GiB RIFF as AVI
+    orbit, _, _ = read_avi(CLI_DIR / "logs" / "train_cli" / f"orbit_{CLI_N_ITER:06d}" / "rgb.avi")
+    mp4 = Path(timed("mp4_write", video_mod.write_mp4, str(TOOLS_DIR / "orbit.mp4"), orbit))
+    got, fps = read_mp4(mp4)
+    if fps != 30.0 or not np.array_equal(got, orbit):
+        fail(phase, f"orbit.mp4 at {fps} fps does not hold the orbit's {len(orbit)} frames")
+    n_avi = TOOLS_AVI_FRAMES
+    long = np.resize(orbit, (n_avi,) + orbit.shape[1:])  # the orbit's frames, cycled
+    avi = TOOLS_DIR / "long.avi"
+    report["avi_limit"] = video_mod.AVI_LIMIT
+    timed("avi_write", video_mod.write_avi, str(avi), long)
+    avi_bytes = avi.stat().st_size
+    t0 = time.perf_counter()
+    got, fps, counts = read_avi(avi)
+    read_s = time.perf_counter() - t0
+    first_riff = counts["avih"]
+    if (fps != 30.0 or len(counts["riffs"]) < 2 or counts["riffs"][0] != "AVI "
+            or counts["strh"] != n_avi or counts["dmlh"] != n_avi or not 0 < first_riff < n_avi
+            or not np.array_equal(got, long)):
+        fail(phase, f"long.avi: {got.shape} at {fps} fps, counts {counts}")
+    avi.unlink()
+    report["video"] = {"mp4_frames": len(orbit), "mp4_bytes": mp4.stat().st_size,
+                       "avi_frames": n_avi, "avi_bytes": avi_bytes, "avi_riffs": counts["riffs"],
+                       "avi_first_riff_frames": first_riff, "avi_read_s": read_s,
+                       "frame_size": list(orbit.shape[1:3])}
+
+    # a non-empty mesh: the card's density grid of the 30-update field
+    # against the CPU's, then marching cubes at a level the field crosses
+    args = parse_with_includes(eval_argv())
+    fcfg = loop_mod.field_config_from_args(args)
+    fine = {}
+    for d in (device, torch.device("cpu")):
+        state, _, _ = cli_test.restore_for_eval(args, fcfg, d, loop_mod.loss_config_from_args(args))
+        fine[d.type] = state.variables["fine"]
+    radius = 1.5
+    grid = timed("density_grid", mesh_extract.query_density_grid, fine[device.type], fcfg,
+                 n=TOOLS_GRID_N, radius=radius)
+    grid_cpu = mesh_extract.query_density_grid(fine["cpu"], fcfg, n=TOOLS_GRID_N, radius=radius)
+    rtol, atol = TOOLS_GRID_TOL
+    grid_err = float(np.abs(grid - grid_cpu).max())
+    if not np.allclose(grid, grid_cpu, rtol=rtol, atol=atol):
+        fail(phase, f"density grid: card against CPU up to {grid_err}")
+    iso = float(np.percentile(grid, TOOLS_ISO_PERCENTILE))
+    obj = TOOLS_DIR / "mesh.obj"
+    timed("extract_mesh", mesh_extract.extract_mesh, fine[device.type], fcfg, str(obj),
+          n=TOOLS_GRID_N, radius=radius, iso=iso)
+    lines = obj.read_text().splitlines()
+    n_verts = sum(ln.startswith("v ") for ln in lines)
+    n_faces = sum(ln.startswith("f ") for ln in lines)
+    cpu_verts, _ = mesh_extract.marching_cubes(grid_cpu, iso)
+    if n_verts == 0 or n_faces == 0:
+        fail(phase, f"the mesh at iso {iso} is empty")
+    report["mesh"] = {"n": TOOLS_GRID_N, "radius": radius, "grid_max_abs_err": grid_err,
+                      "grid_range": [float(grid.min()), float(grid.max())], "iso": iso,
+                      "vertices": n_verts, "faces": n_faces, "cpu_vertices": len(cpu_verts)}
+    report["seconds"] = seconds
+    report["phase_s"] = time.perf_counter() - phase_t0
     emit(phase, **report)
     return report
 
@@ -2266,7 +2530,8 @@ def main() -> int:
     train_mixed_phase(cfg, consts, card)
     torch.cuda.empty_cache()
     train_cli_phase(kernels, card)
-    eval_cli_phase(kernels, card)
+    eval_report = eval_cli_phase(kernels, card)
+    tools_phase(kernels, card, eval_report)
     aux_cli_phase(kernels, card)
     torch.cuda.empty_cache()
     flags_dp_phase(kernels, cfg, consts, device, card)

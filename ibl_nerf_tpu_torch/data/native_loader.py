@@ -36,6 +36,16 @@ def _get_lib() -> ctypes.CDLL:
     return _lib
 
 
+def native_available() -> bool:
+    """True once the decoder has built and loaded; False, without
+    raising, when g++, zlib's header or the library is missing."""
+    try:
+        _get_lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def probe_png(path: str) -> tuple[int, int, int]:
     """(height, width, channels) of a PNG file."""
     h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()

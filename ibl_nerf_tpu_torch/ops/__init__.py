@@ -18,7 +18,15 @@ from ibl_nerf_tpu_torch.ops.compositing import (
 )
 from ibl_nerf_tpu_torch.ops.sampling import sample_pdf, stratified_z_vals
 from ibl_nerf_tpu_torch.ops.texture import grid_sample_2d, mip_interp
-from ibl_nerf_tpu_torch.ops.color import rgb_to_srgb, tonemap_reinhard, to8b
+from ibl_nerf_tpu_torch.ops.color import (
+    rgb_to_srgb,
+    srgb_to_linear_np,
+    linear_to_srgb_np,
+    tonemap_reinhard,
+    to8b,
+    img2mse,
+    mse2psnr,
+)
 from ibl_nerf_tpu_torch.ops.shading import (
     fresnel_schlick_roughness,
     ggx_distribution,

@@ -101,6 +101,28 @@ def _query_dtypes(rcfg: RenderConfig) -> tuple[torch.dtype, torch.dtype]:
     return dt_grad, dt_ng
 
 
+def pallas_train_refusal(rcfg: RenderConfig) -> str | None:
+    """Why K2/K3 cannot take the gradient path's full query of
+    `rcfg.field` (use_pallas_train then runs the eager query), or None
+    when they can: they hold bf16 queries of the default 8-layer field
+    with its skip at layer 4 and view-dependent colour, with nothing
+    frozen."""
+    fcfg = rcfg.field
+    dt_grad, _ = _query_dtypes(rcfg)
+    if dt_grad != torch.bfloat16:
+        return (f"dtype: compute_dtype {rcfg.compute_dtype} runs the gradient path in "
+                f"{str(dt_grad).removeprefix('torch.')}, K2/K3 in bfloat16")
+    if rcfg.freeze_radiance:
+        return "freeze: the radiance heads are frozen in this phase"
+    if fcfg.depth != 8:
+        return f"depth: netdepth {fcfg.depth}, K2/K3 hold 8 layers"
+    if fcfg.skips != (4,):
+        return f"skips: {fcfg.skips}, K2/K3 hold one skip at layer 4"
+    if fcfg.color_independent_to_direction:
+        return "view dependence: color_independent_to_direction, K2/K3 read view directions"
+    return None
+
+
 def _make_queries(field_params, rcfg: RenderConfig):
     """(query_full, query_sigma, query_full_ng, query_sigma_ng).
 
@@ -122,10 +144,7 @@ def _make_queries(field_params, rcfg: RenderConfig):
     dt_grad, dt_ng = _query_dtypes(rcfg)
     query_full, query_sigma = _make_query_pair(field_params, rcfg, dt_grad, amp=amp)
 
-    if (rcfg.use_pallas_train and dt_grad == torch.bfloat16
-            and not rcfg.freeze_radiance
-            and fcfg.depth == 8 and fcfg.skips == (4,)
-            and not fcfg.color_independent_to_direction):
+    if rcfg.use_pallas_train and pallas_train_refusal(rcfg) is None:
         packed32 = pack_field_weights(field_params, fcfg)
 
         def query_full(pts, viewdirs):  # noqa: F811

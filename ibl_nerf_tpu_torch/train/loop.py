@@ -22,7 +22,10 @@ sharded by process and the gradients all-reduced
 (`parallel/distributed.py`), and only rank 0 writes the logdir, the
 scalars, the logs, the test-set renders and the train info. The one
 refusal left is the renderer's (`compute_dtype=float64` with
-`use_pallas`), raised before the scene loads.
+`use_pallas`), raised before the scene loads. Where `--use_pallas_train`
+is set and the K2/K3 gate refuses a phase's configuration
+(`render/renderer.pallas_train_refusal`), the eager query runs and one
+warning names the reason.
 """
 
 from __future__ import annotations
@@ -45,11 +48,16 @@ from ibl_nerf_tpu_torch.models.field import FieldConfig, init_field_params
 from ibl_nerf_tpu_torch.parallel import distributed as dist_lib
 from ibl_nerf_tpu_torch.parallel.mesh import make_mesh, make_sharded_train_step
 from ibl_nerf_tpu_torch.render.config import RenderConfig
-from ibl_nerf_tpu_torch.render.renderer import _check_supported
+from ibl_nerf_tpu_torch.render.renderer import _check_supported, pallas_train_refusal
 from ibl_nerf_tpu_torch.train import checkpoint as ckpt_lib
 from ibl_nerf_tpu_torch.train import health
 from ibl_nerf_tpu_torch.train.losses import LossConfig, resolve_phase
-from ibl_nerf_tpu_torch.train.step import build_optimizer, init_train_state, make_train_step
+from ibl_nerf_tpu_torch.train.step import (
+    build_optimizer,
+    init_train_state,
+    make_train_step,
+    phase_render_config,
+)
 from ibl_nerf_tpu_torch.utils.device import resolve_device
 from ibl_nerf_tpu_torch.utils.logging import ScalarWriter, load_logger
 from ibl_nerf_tpu_torch.utils.port import load_reference_checkpoint
@@ -398,11 +406,21 @@ def train(args, device=None):
 
     stop_training = False
     collapse_warned = False  # warn loudly once, keep logging the scalar
+    refusals_warned = set()  # each reason --use_pallas_train falls back for, once
     global_step = start
     for seg_start, seg_end in zip(boundaries[:-1], boundaries[1:]):
         if stop_training or seg_start >= seg_end:
             continue
         phase = resolve_phase(seg_start, lcfg)
+        if args.use_pallas_train and is_main:
+            prcfg = phase_render_config(rcfg, phase)
+            for f in filter(None, (prcfg.field, prcfg.field_fine)):
+                reason = pallas_train_refusal(prcfg.replace(field=f))
+                if reason and reason not in refusals_warned:
+                    refusals_warned.add(reason)
+                    logger.warning("--use_pallas_train: from update %d the gradient path "
+                                   "runs the eager field query, not K2/K3 (%s)", seg_start,
+                                   reason)
         precrop = seg_start < args.precrop_iters
         common = dict(prior_irradiance_mean=scene.prior_irradiance_mean, near=scene.near,
                       far=scene.far, n_depth_random_volume=args.N_depth_random_volume)

@@ -7,8 +7,9 @@
   cancels); the port takes the variances about the image means.
 - `utils/video`: the AVI that `export_stack_as_video` and
   `export_as_video` write, read back by `cv2.VideoCapture`, holds the
-  truncated stack bit for bit at 30 fps; `.mp4` and a stack past 1 GiB
-  raise.
+  truncated stack bit for bit at 30 fps; an unknown file type, frames
+  that are not uint8 RGB and a frame past one RIFF raise (`.mp4` and
+  AVIs of many RIFFs: tests/test_torch_video.py).
 - `utils/mesh_extract`: the generated marching-cubes table, and
   `marching_cubes` / `marching_tetrahedra` on one grid, bit for bit;
   the density grid within 5e-4 / 1e-3 of JAX's; `extract_mesh` end to
@@ -50,6 +51,7 @@ from ibl_nerf_tpu_torch.train.step import _leaves, _unflatten, build_optimizer, 
 from ibl_nerf_tpu_torch.utils import mesh_extract
 from ibl_nerf_tpu_torch.utils.port import field_params_from_numpy, load_reference_checkpoint
 from ibl_nerf_tpu_torch.utils.png import write_png
+from ibl_nerf_tpu_torch.utils import video
 from ibl_nerf_tpu_torch.utils.video import export_as_video, export_stack_as_video, write_avi
 
 sys.path.insert(0, os.path.dirname(__file__))
@@ -140,16 +142,20 @@ def test_png_sequence_video(tmp_path):
         export_as_video(str(tmp_path), "none_*.png", str(tmp_path / "x.avi"))
 
 
-def test_video_refusals_name_the_reason(tmp_path):
+def test_video_refusals_name_the_reason(tmp_path, monkeypatch):
+    """.mp4 and AVIs past 1 GiB are written now (tests/test_torch_video.py);
+    what is left to refuse is a file type, frames that are not uint8
+    RGB, and a frame larger than one RIFF may hold."""
     frames = np.zeros((2, 4, 4, 3), np.uint8)
-    with pytest.raises(ValueError, match="mp4.*codec"):
-        write_avi(str(tmp_path / "v.mp4"), frames)
-    # 200 frames of 1920x1080 (a view, nothing allocated): past 1 GiB
-    big = np.broadcast_to(np.zeros((1, 1080, 1920, 3), np.uint8), (200, 1080, 1920, 3))
-    with pytest.raises(ValueError, match="1 GiB"):
-        write_avi(str(tmp_path / "big.avi"), big)
+    with pytest.raises(ValueError, match=r"\.avi, \.mp4"):
+        export_stack_as_video(frames, str(tmp_path / "v.mkv"))
     with pytest.raises(ValueError, match="uint8"):
         write_avi(str(tmp_path / "f.avi"), frames.astype(np.float32))
+    with pytest.raises(ValueError, match="uint8"):
+        write_avi(str(tmp_path / "g.avi"), frames[..., :2])
+    monkeypatch.setattr(video, "AVI_LIMIT", 40)
+    with pytest.raises(ValueError, match="does not fit"):
+        write_avi(str(tmp_path / "big.avi"), frames)
     assert not os.listdir(tmp_path)
 
 

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of ibl_nerf_tpu_torch
-and chip_smoke.py loads no jax, no ibl_nerf_tpu and no cv2; its LUT
+and chip_smoke.py loads no jax, no ibl_nerf_tpu, no cv2, no pandas and
+no matplotlib (the card's machine has none of the last three); its LUT
 asset is the JAX package's LUT; and chip_smoke.py refuses to run without
 a card.
 """
@@ -18,7 +19,7 @@ from ibl_nerf_tpu_torch.data.brdf_lut import _DEFAULT_PATH, load_brdf_lut
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "ibl_nerf_tpu", "cv2")
+FORBIDDEN = ("jax", "jaxlib", "ibl_nerf_tpu", "cv2", "pandas", "matplotlib")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -47,7 +48,8 @@ def test_port_imports_nothing_of_jax():
                  "train.step", "train.losses", "data.sampler", "cli.test", "cli.render",
                  "cli.port_checkpoint", "cli.preprocess", "utils.video",
                  "utils.mesh_extract", "eval.metrics", "parallel", "parallel.mesh",
-                 "parallel.distributed"):
+                 "parallel.distributed", "eval.compare", "eval.visualize", "utils.timing",
+                 "utils.labels", "utils.pdf", "utils.raster", "data.native_loader"):
         assert f"ibl_nerf_tpu_torch.{name}" in report["modules"]
     assert not set(report["loaded"]) & set(FORBIDDEN), report["loaded"]
 
