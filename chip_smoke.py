@@ -14,7 +14,10 @@ Phases, one JSON line each; any failure exits non-zero:
           also at the train step's 512 x 64 points and with 0, 1 and 2
           coarse heads, and as a row of its own at the Monte-Carlo
           incident march of a chunk, 18,432 rays x 64 samples with a view
-          direction per ray; K1 at bf16 weights also against K2's raw), K2
+          direction per ray; K1 at bf16 weights also against K2's raw;
+          K1 at f64 weights, `fused_field_*_f64`, within 1e-7 (full) and
+          2e-7 (density) relative norm of its plain version, also at
+          K = 0, 1 and 4, two runs bit-identical), K2
           (raw and the 11 residuals) and K3 (the 24 weight gradients), the
           bf16 ones each with two runs bit-identical;
           errors against the stated tolerance, kernel and plain times (CUDA
@@ -137,6 +140,15 @@ Phases, one JSON line each; any failure exits non-zero:
           bit-identical, only rank 0 writing the logdir, the last
           checkpoint restoring the final params; each update and its
           all_reduce timed. Each leg's processes have a 300 s timeout.
+  f64     compute_dtype float64 with --use_pallas: the serving path as in
+          slice (one K1-f64 density and one K1-f64 full launch per chunk,
+          no other kernel), one chunk within the f32 bounds (atol/rtol
+          5e-4/1e-3 basic, 2e-3/5e-3 shaded) of the eager f64 render, its
+          gap printed; `cli.train` on train_cli's scene at 1024 rays for
+          12 updates across the phase switch at 10 (finite losses, 2 K1-f64
+          full launches an update from the switch and none before, nothing
+          else; peak memory); `cli.test` on its last checkpoint at render
+          factor 4 (one K1-f64 full launch per chunk and nothing else).
 Weights are random from a seed. Then the per-kernel JSON line, the card
 line, and the ok line last. Every number printed is measured in this
 run, on this card.
@@ -171,6 +183,7 @@ from ibl_nerf_tpu_torch.eval.render_path import render_path
 from ibl_nerf_tpu_torch.kernels import build as kernel_build
 from ibl_nerf_tpu_torch.kernels import fused_field as ff
 from ibl_nerf_tpu_torch.kernels import fused_field_bf16 as k1b
+from ibl_nerf_tpu_torch.kernels import fused_field_f64 as k1d
 from ibl_nerf_tpu_torch.kernels import fused_field_train as fft
 from ibl_nerf_tpu_torch.models.field import FieldConfig, init_field_params
 from ibl_nerf_tpu_torch.ops.rays import get_rays_full_image
@@ -195,9 +208,10 @@ from ibl_nerf_tpu_torch.utils import video as video_mod
 from ibl_nerf_tpu_torch.utils.png import write_png
 
 # H100 SXM data-sheet rates at the full 700 W: f32 outside the tensor
-# cores, bf16 on the tensor cores (dense), and HBM3.
+# cores, bf16 and f64 on the tensor cores (dense), and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_F64_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 # K1 against its plain version: both sum f32 products, in other orders
@@ -211,6 +225,13 @@ SLICE_ATOL, SLICE_RTOL = 2e-3, 5e-3
 # keep ~3 decimal digits; depth scales with the far plane).
 BF16_ATOL = 0.1
 BF16_MAPS = ("color_map", "radiance_map", "albedo_map", "depth_map")
+# K1 at f64 weights against its plain version, per output in relative
+# norm (full, density): both round every product to f32 at the same
+# points and differ only in the order of the f64 sums (mma.sync against
+# cuBLAS), which flips an f32 rounding rarely; the bounds of
+# tests/test_torch_fused_field_f64.py, which the same math on f32 operands
+# fails.
+K1_F64_REL = {True: 1e-7, False: 2e-7}
 
 # K2/K3 against their plain versions, per output block: ||kernel - plain||
 # / ||plain||. Both round every activation and delta to bf16 after an f32
@@ -349,6 +370,7 @@ K1_VARIANTS = [
 ]
 K1_SOURCE = "ibl_nerf_tpu/kernels/fused_field.py:206"
 K1_BF16_SOURCE = "ibl_nerf_tpu_torch/csrc/fused_field_bf16.cu"
+K1_F64_SOURCE = "ibl_nerf_tpu_torch/csrc/fused_field_f64.cu"
 # K1 full's launch on the training step's reflected march: 512 rays x 64
 # coarse samples.
 K1_TRAIN_SHAPE = (N_RAND, 64)
@@ -429,18 +451,18 @@ def k1_head_counts(cfg, gen) -> dict:
     return errs
 
 
-def k1_bound(cfg, packed, with_dirs: bool, points: int):
-    """(FLOPs, bytes, ms at the f32 peak, ms at the memory rate) of one K1
-    launch at f32 weights on `points` points: each input row, weight it
-    reads and output row once."""
+def k1_bound(cfg, packed, with_dirs: bool, points: int, peak: float = PEAK_F32_FLOPS):
+    """(FLOPs, bytes, ms at the `peak` rate, ms at the memory rate) of one
+    K1 launch on `points` points: each input row, weight it reads (in the
+    pack's dtype) and output row once."""
     n_cols = 9 + 3 * cfg.coarse_radiance_number if with_dirs else 1
     read = (ff._WEIGHT_ORDER if with_dirs else
             ["emb_E", "emb_phase", "emb_id", "w0", "w1", "w2", "w3", "w4",
              "w5x", "w5h", "w6", "w7", "tb", "A", "bias"])
-    weight_bytes = sum(packed[k].numel() * 4 for k in read)
+    weight_bytes = sum(packed[k].numel() * packed[k].element_size() for k in read)
     flops = 2 * field_macs(cfg, density_only=not with_dirs) * points
     nbytes = points * (ff.IN_COLS + n_cols) * 4 + weight_bytes
-    return flops, nbytes, flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return flops, nbytes, flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
 def k1_mc_row(cfg, packed, gen) -> dict:
@@ -628,6 +650,90 @@ def k1_bf16_kernel_phase(cfg, params, gen) -> list[dict]:
              ptxas=ptxas.get("full" if with_dirs else "density", "not built in this run"),
              stage_ms=stage_ms(kern, "k1_bf16_"),
              other_head_counts_rel_err=k1_bf16_head_counts(cfg, gen, with_dirs))
+    return report
+
+
+def k1_f64_head_counts(cfg, gen, with_dirs: bool) -> dict:
+    """K1 at f64 weights with 0, 1 and 4 coarse heads (no view_feat tile,
+    a lone 128-column tile, two 256-column tiles; the main path has 3)
+    against its plain version on a ragged count, in relative norm under
+    K1_F64_REL, twice bit-identical: the error at each K."""
+    errs = {}
+    for k in (0, 1, 4):
+        kcfg = FieldConfig(depth=cfg.depth, width=cfg.width, coarse_radiance_number=k)
+        params = init_field_params(np.random.default_rng(SEED + k), kcfg, "cuda")
+        params["sigma"]["b"] += 0.5
+        packed = ff.pack_field_weights(params, kcfg, dtype=torch.float64)
+        kern, plain = k1_calls(packed, kcfg, *k1_inputs((4097, 1), gen), with_dirs)
+        out, again, ref = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        errs[k] = rel_err(out, ref)
+        if not (torch.isfinite(out).all() and torch.equal(out, again)
+                and errs[k] <= K1_F64_REL[with_dirs]):
+            fail("kernel", f"K1-f64 ({'full' if with_dirs else 'density'}) at K={k}: "
+                 f"{errs[k]:.3e} relative from its plain version (bound "
+                 f"{K1_F64_REL[with_dirs]}), finite and rerun-identical required")
+    return errs
+
+
+def k1_f64_kernel_phase(cfg, params, gen) -> list[dict]:
+    """K1's f64-weight variant (compute_dtype float64), both modes, at the
+    serving path's shapes and at ragged counts (+37): against its plain
+    version in relative norm under K1_F64_REL, twice bit-identical, and at
+    K = 0, 1 and 4 (`k1_f64_head_counts`); with
+    its shared memory per block, blocks per SM and ptxas registers and
+    spills, and its times in turns with the plain version's."""
+    packed = ff.pack_field_weights(params, cfg, dtype=torch.float64)
+    ptxas = k1_ptxas(kernel_build.build_logs.get("fused_field_f64", ""),
+                     "fused_field_f64_kernel")
+    report = []
+    for name, shape, with_dirs in K1_VARIANTS:
+        name = name + "_f64"
+        n_pts = shape[0] * shape[1]
+        occupancy = k1d.occupancy(cfg, density_only=not with_dirs)
+        if occupancy["blocks_per_sm"] < 1:
+            fail("kernel", f"{name}: {occupancy}, no block fits an SM")
+        errs, max_abs = {}, 0.0
+        for lead in ((n_pts + 37, 1), shape):
+            kern, plain = k1_calls(packed, cfg, *k1_inputs(lead, gen), with_dirs)
+            out, again, ref = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            n_lead = lead[0] * lead[1]
+            if not torch.isfinite(out).all():
+                fail("kernel", f"{name}: non-finite output at {lead}")
+            if not torch.equal(out, again):
+                fail("kernel", f"{name}: two runs on the same inputs differ at {lead}")
+            errs[n_lead] = rel_err(out, ref)
+            if not errs[n_lead] <= K1_F64_REL[with_dirs]:
+                fail("kernel", f"{name} at {lead}: off its plain version by "
+                     f"{errs[n_lead]:.3e} relative (bound {K1_F64_REL[with_dirs]})")
+            max_abs = max(max_abs, (out - ref).abs().max().item())
+            del out, again, ref
+        torch.cuda.empty_cache()
+
+        iters = 3
+        kern(), plain()
+        p1, k1, k2, p2 = (time_ms(plain, iters), time_ms(kern, iters),
+                          time_ms(kern, iters), time_ms(plain, iters))
+        flops, nbytes, t_ops, t_bytes = k1_bound(cfg, packed, with_dirs, n_pts,
+                                                 PEAK_F64_FLOPS)
+        report.append({
+            "name": name, "route": "cuda", "source": K1_F64_SOURCE,
+            "replaces": K1_SOURCE,
+            "launches": None, "max_abs_err": max_abs,
+            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,
+        })
+        emit("kernel", name=name, points=n_pts, flops=flops, bytes=nbytes,
+             rel_err_by_points=errs, rel_bound=K1_F64_REL[with_dirs], max_abs_err=max_abs,
+             rerun_identical=True, ms=[k1, k2], plain_ms=[p1, p2], bound_ops_ms=t_ops,
+             bound_bytes_ms=t_bytes, tflops=flops / ((k1 + k2) / 2) / 1e9, **occupancy,
+             ptxas=ptxas.get("full" if with_dirs else "density", "not built in this run"),
+             other_head_counts_rel_err=k1_f64_head_counts(cfg, gen, with_dirs))
+        del kern, plain
+        torch.cuda.empty_cache()
     return report
 
 
@@ -1912,7 +2018,7 @@ def zero_launch_counts() -> None:
 @contextlib.contextmanager
 def k1_full_points(points: list):
     """Within the block, the point count of every K1 full launch at f32
-    weights is appended to `points`."""
+    (or f64) weights is appended to `points`."""
     original = ff._launch
 
     def launch(packed, x, cfg, density_only):
@@ -2486,6 +2592,132 @@ def flags_dp_phase(kernels, cfg: FieldConfig, consts: dict, device, card: str) -
     return report
 
 
+# The f64 phase: compute_dtype float64 (the strict-parity mode) with K1 at
+# f64 weights on the no-grad sweeps. Serving as in the slice phase; one
+# chunk held to the eager f64 render (use_pallas off) within the repo's
+# f32 bounds (tests/test_torch_renderer.py: atol / rtol on the basic and
+# the shaded maps). Then cli.train at F64_RAYS rays for F64_N_ITER + 1
+# updates across the phase switch (at 4096 rays the eager f64 gradient
+# path's stored activations would near the card's memory), and cli.test
+# on its last checkpoint at render factor F64_FACTOR.
+F64_BASIC_TOL, F64_SHADED_TOL = (5e-4, 1e-3), (2e-3, 5e-3)
+F64_SHADED = {"color_map", "specular_map", "diffuse_map", "n_dot_v_map", "target_normal_map",
+              "normal_map_from_depth_gradient_epsilon",
+              "normal_map_from_depth_gradient_direction_epsilon",
+              "reflected_radiance_map", "prefiltered_reflected_map"}
+F64_RAYS, F64_N_ITER, F64_FACTOR = 1024, 11, 4
+
+
+def f64_phase(cfg, variables, consts, kernels, card: str) -> dict:
+    """compute_dtype float64 with use_pallas through serving, cli.train
+    and cli.test; see the module docstring for its gates."""
+    phase = "f64"
+    phase_t0 = time.perf_counter()
+    totals = {k: 0 for k in _launch_counts()}
+
+    def add_totals():
+        for k, v in _launch_counts().items():
+            totals[k] += v
+
+    # 1. serving: one chunk against the eager f64 render, then render_path
+    rcfg = serving_config(cfg, compute_dtype="float64")
+    scene = Scene()
+    batch = first_chunk(scene)
+    out = render_rays(variables, consts, batch, rcfg)
+    ref = render_rays(variables, consts, batch, rcfg.replace(use_pallas=False))
+    gap = {}
+    for k, r in ref.items():
+        atol, rtol = F64_SHADED_TOL if k in F64_SHADED else F64_BASIC_TOL
+        err = (out[k].double() - r.double()).abs()
+        gap[k] = err.max().item()
+        if not torch.isfinite(out[k]).all() or (err > atol + rtol * r.double().abs()).any():
+            fail(phase, f"{k}: the K1-f64 render is {gap[k]:.3e} from the eager f64 render "
+                 f"(atol {atol}, rtol {rtol})")
+    del out, ref
+    torch.cuda.empty_cache()
+    events_ms = chunk_ms_events(variables, consts, batch, rcfg)
+    served = serve(phase, variables, consts, scene, rcfg, kernels,
+                   {"fused_field_density_f64": 1, "fused_field_apply_f64": 1})
+    add_totals()
+    torch.cuda.empty_cache()
+
+    # 2. cli.train at F64_RAYS rays across the phase switch
+    logdir = CLI_DIR / "logs" / "f64_cli"
+    shutil.rmtree(logdir, ignore_errors=True)
+    argv = [a for a in cli_argv(F64_N_ITER) if a != "--use_pallas_train"] + [
+        "--expname", "f64_cli", "--compute_dtype", "float64", "--N_rand", str(F64_RAYS),
+        "--i_weights", str(F64_N_ITER), "--i_testset", "1000000", "--summary_step", "1"]
+    zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {}
+    t0 = time.perf_counter()
+    with cli_probes(rec, profiled=-1):
+        state = cli_train.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    add_totals()
+    steps, updates = rec["steps"], rec["updates"]
+    if updates != list(range(F64_N_ITER + 1)) or state.step != F64_N_ITER + 1:
+        fail(phase, f"updates {updates}, step {state.step}: expected 0..{F64_N_ITER}")
+    for e, i in zip(steps, updates):
+        # past the switch K1-f64 full on both passes' reflected march; the
+        # gradient path eager f64, no ε sweep under gt normals
+        want = {"fused_field_apply_f64": 2} if i >= CLI_SWITCH else {}
+        got = {k: v for k, v in e["launches"].items() if v}
+        if got != want:
+            fail(phase, f"update {i} launched {got}, expected {want}")
+    losses = [r["loss_total"] for r in map(json.loads, open(logdir / "metrics.jsonl"))
+              if "loss_total" in r]
+    if len(losses) != F64_N_ITER + 1 or not np.all(np.isfinite(losses)):
+        fail(phase, f"losses {losses}")
+    if not (logdir / f"ckpt_{F64_N_ITER:06d}").exists():
+        fail(phase, f"no ckpt_{F64_N_ITER:06d}")
+    torch.cuda.empty_cache()
+
+    # 3. cli.test on that checkpoint at render factor F64_FACTOR
+    zero_launch_counts()
+    h, w = TRAIN_H // F64_FACTOR, TRAIN_W // F64_FACTOR
+    timed = {}
+    test_argv = [a for a in eval_argv() if a != "--use_pallas_train"] + [
+        "--expname", "f64_cli", "--compute_dtype", "float64",
+        "--render_factor", str(F64_FACTOR), "--export_basedir", str(CLI_DIR / "eval_f64")]
+    t0 = time.perf_counter()
+    with eval_probes(timed):
+        results = cli_test.main(test_argv)
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = {k: v for k, v in _launch_counts().items() if v}
+    add_totals()
+    n_images = next(iter(results.values())).shape[0]
+    n_chunks = n_images * -(-h * w // CLI_CHUNK)
+    # per chunk: the fine pass's primary march eager f64, its reflected
+    # march on K1-f64 full; the coarse pass density-only and eager
+    if test_launches != {"fused_field_apply_f64": n_chunks}:
+        fail(phase, f"cli.test launched {test_launches}, expected {n_chunks} K1-f64 full "
+             f"(one a chunk) and nothing else")
+    for k, v in results.items():
+        if v.shape[1:3] != (h, w) or not np.isfinite(v).all():
+            fail(phase, f"cli.test buffer {k}: shape {v.shape} or non-finite values")
+
+    for row in kernels:
+        row.setdefault("launches_by_phase", {})[phase] = totals.get(row["name"], 0)
+    report = dict(
+        card=card, compute_dtype="float64", **served, chunk_ms_cuda_events=events_ms,
+        chunk_vs_eager_f64_max_abs_err=gap, basic_tol=F64_BASIC_TOL,
+        shaded_tol=F64_SHADED_TOL,
+        train=dict(rays=F64_RAYS, updates=F64_N_ITER + 1, run_s=run_s,
+                   before_switch=_per_step(steps, updates, 2, CLI_SWITCH, F64_RAYS),
+                   after_switch=_per_step(steps, updates, CLI_SWITCH, F64_N_ITER + 1,
+                                          F64_RAYS),
+                   peak_memory_bytes=peak, losses=losses),
+        test=dict(size=[h, w], images=n_images, chunks=n_chunks, seconds=test_s,
+                  s_per_image=timed["render"], launches=test_launches),
+        phase_s=time.perf_counter() - phase_t0)
+    emit(phase, **report)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2517,6 +2749,7 @@ def main() -> int:
 
     kernels = kernel_phase(cfg, ff.pack_field_weights(variables["fine"], cfg), gen)
     kernels += k1_bf16_kernel_phase(cfg, variables["fine"], gen)
+    kernels += k1_f64_kernel_phase(cfg, variables["fine"], gen)
     train_vars = {"coarse": init_field_params(rng, cfg, device),
                   "fine": init_field_params(rng, cfg, device)}
     for v in _leaves(train_vars):
@@ -2535,6 +2768,8 @@ def main() -> int:
     aux_cli_phase(kernels, card)
     torch.cuda.empty_cache()
     flags_dp_phase(kernels, cfg, consts, device, card)
+    torch.cuda.empty_cache()
+    f64_phase(cfg, variables, consts, kernels, card)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -22,10 +22,9 @@ train step (`train.make_train_step`: single-image or merged pixel
 sampling, the gradient path with random draws, the staged losses,
 named-group Adam). The no-grad sweeps run on the hand-written CUDA
 kernel K1 (`kernels/fused_field.py`; f32 weights in
-`csrc/fused_field.cu`, bf16 weights in `csrc/fused_field_bf16.cu`), the
-gradient-path field query on K2/K3 (`kernels/fused_field_train.py`,
-`csrc/fused_field_train.cu`). Modes outside that raise
-NotImplementedError with the mode's name.
+`csrc/fused_field.cu`, bf16 weights in `csrc/fused_field_bf16.cu`, f64
+weights in `csrc/fused_field_f64.cu`), the gradient-path field query on
+K2/K3 (`kernels/fused_field_train.py`, `csrc/fused_field_train.cu`).
 """
 
 __version__ = "0.1.0"

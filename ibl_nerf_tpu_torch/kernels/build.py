@@ -28,7 +28,7 @@ NATIVE_SOURCE = Path(__file__).resolve().parents[2] / "native" / "ibl_data.cc"
 NATIVE_DIR = BUILD_DIR.parent / "native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 CXX_LIBS = ("-lz", "-pthread")
-SOURCES = ("fused_field", "fused_field_train", "fused_field_bf16")
+SOURCES = ("fused_field", "fused_field_train", "fused_field_bf16", "fused_field_f64")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

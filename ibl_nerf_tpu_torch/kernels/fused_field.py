@@ -17,14 +17,21 @@ Like the JAX kernel, it computes in the dtype of the packed weights
   "mixed"): the embedding rounded to bf16, bf16 products summed in f32,
   every layer rounded to bf16 after its bias and relu, raw in f32, where
   K2 rounds: `csrc/fused_field_bf16.cu`, wgmma over 128-point tiles with
-  the weights streamed by TMA, launched by `fused_field_bf16.launch`.
+  the weights streamed by TMA, launched by `fused_field_bf16.launch`;
+- f64 (the no-grad dtype under compute_dtype "float64", the strict-parity
+  mode): the embedding in f32 (sinf) widened to f64, each product summed
+  in f64 and rounded to f32 before its f64 bias (the skip's and the view
+  layer's two products summed in f32), relu in f64, the heads' products
+  and the raw output in f32, where the JAX kernel rounds at f64 weights:
+  `csrc/fused_field_f64.cu`, double-precision mma.sync on the FP64 tensor
+  cores, loaded by `fused_field_f64._entries`.
 
 Beside the kernels live their plain PyTorch versions
 (`fused_field_apply_plain` / `fused_field_density_plain`, for bf16 packs
-`fused_field_train.field_bf16_plain`): the same math from the same
-packed weights and the same sin(t + phase) embedding. The wrappers
-`fused_field_apply` / `fused_field_density` take the plain version for
-CPU tensors only; for CUDA tensors they launch the kernel of the packed
+`fused_field_train.field_bf16_plain`, for f64 packs `_field_plain_f64`):
+the same math from the same packed weights and the same sin(t + phase)
+embedding. The wrappers `fused_field_apply` / `fused_field_density`
+take the plain version for CPU tensors only; for CUDA tensors they launch the kernel of the packed
 dtype or raise.
 """
 
@@ -55,8 +62,9 @@ _WEIGHT_ORDER = ["emb_E", "emb_phase", "emb_id",
 # Launches of the kernel per wrapper and packed dtype; the plain versions
 # never count.
 LAUNCHES = {"fused_field_apply": 0, "fused_field_density": 0,
-            "fused_field_apply_bf16": 0, "fused_field_density_bf16": 0}
-_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+            "fused_field_apply_bf16": 0, "fused_field_density_bf16": 0,
+            "fused_field_apply_f64": 0, "fused_field_density_f64": 0}
+_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float64: "f64"}
 MAX_COARSE = 39   # n_out = 9 + 3K <= 128 output lanes, as in the JAX kernel
 
 
@@ -122,9 +130,10 @@ def pack_field_weights(params: dict, cfg: FieldConfig,
     10/4). The skip input rows of layer 5 ([:in_ch], `pts_emb`) and the
     view layer's direction rows (input lanes [in_ch, in_ch+27)) sit at
     their embedding lanes; heads are column-packed to the raw layout.
-    As in JAX, the matrices and biases are packed in f32 and then cast to
-    `dtype`; the embedding constants stay f32 (sin(2^9 x) needs more
-    mantissa than bf16 carries).
+    As in JAX, the matrices and biases are packed in the params' dtype and
+    then cast to `dtype` once (f64 params packed at f64 stay exact); the
+    embedding constants stay f32 (sin(2^9 x) needs more mantissa than bf16
+    carries).
     """
     if cfg.depth != 8 or cfg.skips != (4,):
         raise ValueError("the fused field takes depth 8 with the skip at 4")
@@ -169,7 +178,7 @@ def pack_field_weights(params: dict, cfg: FieldConfig,
     packed.update(A=A, B=B, C=C, bias=bias,
                   D=D if D is not None else vw.new_zeros((half, n_out)))
 
-    packed = {k: v.to(device=device, dtype=torch.float32).to(dtype).contiguous()
+    packed = {k: v.to(device=device, dtype=dtype).contiguous()
               for k, v in packed.items()}
     packed.update(embedding_tensors(cfg, device))
     return packed
@@ -209,18 +218,54 @@ def _field_plain(packed: dict, x: torch.Tensor, density_only: bool) -> torch.Ten
             + view_feat @ w["D"] + w["bias"])
 
 
+def _field_plain_f64(packed: dict, x: torch.Tensor, density_only: bool) -> torch.Tensor:
+    """The kernel's math at f64 weights, rounding where the JAX kernel does
+    with `dt = float64`: the embedding in f32, widened to f64; each product
+    summed in f64 and rounded to f32 (`preferred_element_type=f32`), then
+    its f64 bias and relu in f64; the skip's and the view layer's two
+    products summed in f32 first; the heads' products, the bias and the
+    raw output in f32. (N, 8) f32 -> (N, 9+3K) or (N, 1) f32."""
+    w = packed
+    relu = torch.relu
+
+    def mm(a, b):
+        return (a @ b).float()
+
+    t = x @ w["emb_E"]
+    emb = torch.where(w["emb_id"] > 0.0, t, torch.sin(t + w["emb_phase"])).double()
+    tb = w["tb"]
+    h = relu(mm(emb, w["w0"]) + tb[0])
+    for i in (1, 2, 3, 4):
+        h = relu(mm(h, w[f"w{i}"]) + tb[i])
+    h = relu((mm(emb, w["w5x"]) + mm(h, w["w5h"])) + tb[5])
+    for i in (6, 7):
+        h = relu(mm(h, w[f"w{i}"]) + tb[i])
+    bias = w["bias"].float()
+    if density_only:
+        return mm(h, w["A"][:, 0:1]) + bias[0:1]
+    pos_feat = relu(mm(h, w["wpf"]) + w["bpf"])
+    feature = mm(h, w["wfeat"]) + w["bfeat"]
+    h2 = relu((mm(feature, w["wv_f"]) + mm(emb, w["wv_d"])) + w["bv"])
+    view_feat = relu(mm(h2, w["wcf"]) + w["bcf"])
+    return (mm(h, w["A"]) + mm(pos_feat, w["B"]) + mm(h2, w["C"])
+            + mm(view_feat, w["D"]) + bias)
+
+
 def _packed_dtype(packed: dict) -> torch.dtype:
     """The dtype the fused field computes in: that of the packed w0."""
     dt = packed["w0"].dtype
     if dt not in _DTYPE_NAMES:
-        raise ValueError(f"the fused field takes f32 or bf16 packed weights, not {dt}")
+        raise ValueError(f"the fused field takes f32, bf16 or f64 packed weights, not {dt}")
     return dt
 
 
 def _field_plain_any(packed: dict, x: torch.Tensor, density_only: bool) -> torch.Tensor:
     """The plain version for the packed dtype."""
-    if _packed_dtype(packed) == torch.bfloat16:
+    dt = _packed_dtype(packed)
+    if dt == torch.bfloat16:
         return _k2().field_bf16_plain(x, packed, _emb(packed), density_only)
+    if dt == torch.float64:
+        return _field_plain_f64(packed, x, density_only)
     return _field_plain(packed, x, density_only)
 
 
@@ -260,7 +305,8 @@ def _check(packed: dict, x: torch.Tensor, cfg: FieldConfig) -> None:
         raise ValueError("kernel input must be contiguous f32 (N, 8)")
 
 
-# argtypes of `fused_field_launch`
+# argtypes of `fused_field_launch` (csrc/fused_field.cu) and of
+# `fused_field_f64_launch` (csrc/fused_field_f64.cu)
 ENTRY_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
               ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
@@ -299,7 +345,15 @@ def occupancy(cfg: FieldConfig, density_only: bool) -> dict[str, int]:
 
 def _launch(packed: dict, x: torch.Tensor, cfg: FieldConfig,
             density_only: bool) -> torch.Tensor:
+    """The f32 or the f64 kernel, by the packed dtype: both take the same
+    arguments."""
     _check(packed, x, cfg)
+    f64 = _packed_dtype(packed) == torch.float64
+    if f64:
+        from ibl_nerf_tpu_torch.kernels import fused_field_f64  # it imports this module
+        entry = fused_field_f64._entries()[0]
+    else:
+        entry = _entry()
     n = x.shape[0]
     n_cols = 1 if density_only else 9 + 3 * cfg.coarse_radiance_number
     out = torch.empty((n, n_cols), dtype=torch.float32, device=x.device)
@@ -307,15 +361,16 @@ def _launch(packed: dict, x: torch.Tensor, cfg: FieldConfig,
         *[packed[k].data_ptr() for k in _WEIGHT_ORDER])
     table = _proj_table(cfg.coarse_radiance_number)
     with torch.cuda.device(x.device):
-        err = _entry()(x.data_ptr(), n, ctypes.cast(ptrs, ctypes.c_void_p),
-                       len(_WEIGHT_ORDER), cfg.width, cfg.input_ch,
-                       cfg.input_ch_views, cfg.coarse_radiance_number,
-                       int(density_only), ctypes.cast(table, ctypes.c_void_p),
-                       len(table) // 4, out.data_ptr(),
-                       torch.cuda.current_stream(x.device).cuda_stream)
+        err = entry(x.data_ptr(), n, ctypes.cast(ptrs, ctypes.c_void_p),
+                    len(_WEIGHT_ORDER), cfg.width, cfg.input_ch,
+                    cfg.input_ch_views, cfg.coarse_radiance_number,
+                    int(density_only), ctypes.cast(table, ctypes.c_void_p),
+                    len(table) // 4, out.data_ptr(),
+                    torch.cuda.current_stream(x.device).cuda_stream)
+    suffix = "_f64" if f64 else ""
     if err != 0:
-        raise RuntimeError(f"fused_field kernel launch failed: error {err}")
-    LAUNCHES["fused_field_density" if density_only else "fused_field_apply"] += 1
+        raise RuntimeError(f"fused_field{suffix} kernel launch failed: error {err}")
+    LAUNCHES[("fused_field_density" if density_only else "fused_field_apply") + suffix] += 1
     return out
 
 

@@ -52,7 +52,10 @@ def accumulate(weights: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     """
     if values.ndim == weights.ndim:
         return torch.sum(weights * values, dim=-1)
-    return torch.einsum("...s,...sc->...c", weights, values)
+    # einsum does not promote, jnp.einsum does (f64 weights over the f32 raw
+    # of K1 at f64 weights)
+    dt = torch.promote_types(weights.dtype, values.dtype)
+    return torch.einsum("...s,...sc->...c", weights.to(dt), values.to(dt))
 
 
 def composite_depth_disp_acc(weights: torch.Tensor, z_vals: torch.Tensor):

@@ -29,8 +29,9 @@ the gradient-path full query goes through K2/K3
 (`kernels/fused_field_train.py`), as the JAX renderer routes them
 through its Pallas kernels. Random draws (the `perturb` jitter and
 importance uniforms, the `raw_noise_std` noise on raw σ) come from a
-`torch.Generator` or are passed in. `compute_dtype=float64` with
-`use_pallas` raises NotImplementedError: K1 has no float64 kernel.
+`torch.Generator` or are passed in. Under `compute_dtype=float64` K1
+runs at f64 weights (`csrc/fused_field_f64.cu`) and returns f32 raw, as
+the JAX kernel does.
 """
 
 from __future__ import annotations
@@ -75,14 +76,9 @@ _COMPUTE_DTYPES = ("float32", "bfloat16", "mixed", "bf16_grad", "amp", "float64"
 
 
 def _check_supported(rcfg: RenderConfig) -> None:
-    """Raise NotImplementedError, naming the mode, for what the port
-    does not cover yet, and ValueError for an unknown mode."""
+    """Raise ValueError for an unknown compute dtype or normal type."""
     if rcfg.compute_dtype not in _COMPUTE_DTYPES:
         raise ValueError(f"unknown compute_dtype {rcfg.compute_dtype!r}")
-    if rcfg.compute_dtype == "float64" and rcfg.use_pallas:
-        # the JAX package runs this only in Pallas's interpret mode
-        raise NotImplementedError("compute_dtype=float64 with use_pallas: K1 has no "
-                                  "float64 kernel on any platform")
     if rcfg.approximate_radiance and rcfg.normal_type not in NORMAL_TYPES:
         raise ValueError(f"unknown normal_type {rcfg.normal_type!r}")
 

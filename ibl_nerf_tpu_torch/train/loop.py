@@ -20,12 +20,11 @@ N CUDA devices (`parallel/mesh.py`) when N divides N_rand; under a
 process group (`--num_processes`, joined by cli/train.py) the data is
 sharded by process and the gradients all-reduced
 (`parallel/distributed.py`), and only rank 0 writes the logdir, the
-scalars, the logs, the test-set renders and the train info. The one
-refusal left is the renderer's (`compute_dtype=float64` with
-`use_pallas`), raised before the scene loads. Where `--use_pallas_train`
-is set and the K2/K3 gate refuses a phase's configuration
-(`render/renderer.pallas_train_refusal`), the eager query runs and one
-warning names the reason.
+scalars, the logs, the test-set renders and the train info. An unknown
+compute dtype or normal type is refused before the scene loads. Where
+`--use_pallas_train` is set and the K2/K3 gate refuses a phase's
+configuration (`render/renderer.pallas_train_refusal`), the eager query
+runs and one warning names the reason.
 """
 
 from __future__ import annotations
@@ -207,9 +206,7 @@ def n_updates(args) -> int:
 
 
 def check_supported_flags(args) -> None:
-    """Raise, before anything runs, for the renderer's one refusal
-    (`compute_dtype=float64` with `use_pallas`: K1 has no float64
-    kernel) and for an unknown mode."""
+    """Raise ValueError, before anything runs, for an unknown mode."""
     rcfg = render_config_from_args(args, field_config_from_args(args))
     _check_supported(rcfg.replace(approximate_radiance=True))
 

@@ -4,7 +4,8 @@ Counterpart of ibl_nerf_tpu/utils/labels.py, vestigial in the reference
 (imported by its train and test scripts, used on no live path):
 colored-mask <-> label maps and the four label encodings (one-hot,
 scalar, colored, random code). The mask map stays numpy; the encoders
-work on tensors on the `device` they are given. `RandomLabelEncoder`
+work on tensors on the `device` they are given (CUDA unless named, as
+every entry point of the port). `RandomLabelEncoder`
 draws its codes from a seeded torch generator unless `codes` passes
 them in (JAX draws them from `jax.random.key(seed)`), so the two
 packages' encoders can hold the same codes.
@@ -15,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ibl_nerf_tpu_torch.utils.device import resolve_device
 
 
 def colored_mask_to_label_map(colored_mask: np.ndarray,
@@ -37,8 +40,8 @@ def label_to_colored_label(label: torch.Tensor,
 class LabelEncoder:
     """Base: maps integer instance labels to a trainable-target encoding."""
 
-    def __init__(self, label_color_list: np.ndarray, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, label_color_list: np.ndarray, device=None):
+        self.device = resolve_device(device)
         self.label_color_list = torch.as_tensor(np.asarray(label_color_list),
                                                 device=self.device)
         self.label_number = len(label_color_list)
@@ -105,7 +108,7 @@ class RandomLabelEncoder(LabelEncoder):
     as a JAX encoder's `codes`, drawn from `jax.random.key(seed)`)."""
 
     def __init__(self, label_color_list, dim: int = 16, seed: int = 0,
-                 device="cpu", codes: np.ndarray | None = None):
+                 device=None, codes: np.ndarray | None = None):
         super().__init__(label_color_list, device)
         self.dim = dim
         if codes is None:

@@ -7,6 +7,7 @@ at a time.
     python3 k3_knockout.py k2 --parent OLD.cu
     python3 k3_knockout.py k1 --parent OLD.cu
     python3 k3_knockout.py k1bf16 --parent OLD.cu
+    python3 k3_knockout.py k1f64
 
 Builds `ibl_nerf_tpu_torch/csrc/fused_field_train.cu` as it is and once
 per variant -- a text substitution that removes one part of the kernel
@@ -57,6 +58,16 @@ chip_smoke's TRAIN_KERNEL_REL at ragged and main-path counts (the run
 exits 1 if either fails; the intact kernel also bit-identical on a
 rerun), then timed in turns (parent, new, new, parent): density at
 1,572,864 points, full at 131,072 and 32,768.
+
+K1 at f64 weights (`k1f64`) builds `csrc/fused_field_f64.cu` with the
+mma.sync shapes it could take (m16n8k4 as written; m8n8k4, Ampere's shape,
+two to one m16n8k4; m16n8k8; m16n8k16) and with parts knocked out (the
+products cut to one FMA a fragment, the weight loads, the sines, the head
+projections), prints each build's registers and spills, holds the intact
+kernel and every shape against the plain version within chip_smoke's
+K1_F64_REL (the run exits 1 if one fails) and times every variant at the
+serving shapes (density at 1,572,864 points, full at 131,072) by CUDA
+events, in turn, twice.
 """
 
 from __future__ import annotations
@@ -77,6 +88,7 @@ import chip_smoke as cs
 from ibl_nerf_tpu_torch.kernels import build as kb
 from ibl_nerf_tpu_torch.kernels import fused_field as ff
 from ibl_nerf_tpu_torch.kernels import fused_field_bf16 as k1b
+from ibl_nerf_tpu_torch.kernels import fused_field_f64 as k1d
 from ibl_nerf_tpu_torch.kernels import fused_field_train as fft
 from ibl_nerf_tpu_torch.models.field import FieldConfig, init_field_params
 
@@ -185,9 +197,35 @@ VARIANTS = {
             ('    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\\n" ::"n"(kProducerRegs));\n', ""),
             ('  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\\n" ::"n"(kConsumerRegs));\n', "")],
     },
+    "k1f64": {
+        "intact": [],
+        # shapes: the products of one m16n8k4 as two m8n8k4 (rows g, g + 8)
+        "mma_m8n8k4": [(
+            '    asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "\n'
+            '        "{%4, %5}, {%6}, {%0, %1, %2, %3};"\n'
+            '        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])\n'
+            '        : "d"(a[0]), "d"(a[1]), "d"(b[0]));',
+            '    asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, "\n'
+            '        "{%0, %1};" : "+d"(d[0]), "+d"(d[1]) : "d"(a[0]), "d"(b[0]));\n'
+            '    asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, "\n'
+            '        "{%0, %1};" : "+d"(d[2]), "+d"(d[3]) : "d"(a[1]), "d"(b[0]));')],
+        "mma_m16n8k8": [("constexpr int kMmaK = 4;", "constexpr int kMmaK = 8;")],
+        "mma_m16n8k16": [("constexpr int kMmaK = 4;", "constexpr int kMmaK = 16;")],
+        # knock-outs: one FMA per fragment instead of an mma (loads kept)
+        "products_as_one_fma": [("      for (int m = 0; m < M16; ++m) Mma<kMmaK>::run(acc[n][m], a[m], b[n]);",
+                                 "      for (int m = 0; m < M16; ++m) acc[n][m][0] = fma(a[m][0], b[n][0], acc[n][m][0]);")],
+        "no_weight_loads": [("        b[n][j] = __ldg(b_ptr + static_cast<size_t>(k + 4 * j) * ldw + 8 * n);",
+                             "        b[n][j] = 1e-3 * (k + 4 * j + 8 * n);")],
+        "no_sines": [("? u : sinf(u + __ldg(w.f(kEmbPhase) + l));",
+                      "? u : u + __ldg(w.f(kEmbPhase) + l);")],
+        "no_head_projections": [("    for (int r = part; r < rows; r += kParts)",
+                                 "    for (int r = part; r < 0; r += kParts)")],
+    },
 }
+# the k1f64 variants that change only a setting, held to the plain version
+K1F64_SHAPES = ("intact", "mma_m8n8k4", "mma_m16n8k8", "mma_m16n8k16")
 SOURCES = {"k3": "fused_field_train", "k2": "fused_field_train", "k1": "fused_field",
-           "k1bf16": "fused_field_bf16"}
+           "k1bf16": "fused_field_bf16", "k1f64": "fused_field_f64"}
 OUT = kb.BUILD_DIR / "knockout"
 # the entry point of K2 before its weights became a slab stream
 _PARENT_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
@@ -548,13 +586,60 @@ def k1bf16_main(card: str, extra: dict) -> int:
     return 0 if ok else 1
 
 
+def k1f64_main(card: str) -> int:
+    logs: dict = {}
+    libs = build_variants(SOURCES["k1f64"], VARIANTS["k1f64"], {}, logs)
+    entries = {}
+    for name, path in libs.items():
+        lib = ctypes.CDLL(str(path))
+        launch, occ = lib.fused_field_f64_launch, lib.fused_field_f64_occupancy
+        launch.restype, launch.argtypes = ctypes.c_int, ff.ENTRY_ARGS
+        occ.restype, occ.argtypes = ctypes.c_int, k1d.OCCUPANCY_ARGS
+        entries[name] = (launch, occ)
+    cfg = FieldConfig(depth=8, width=256, coarse_radiance_number=3)
+    params = init_field_params(np.random.default_rng(cs.SEED), cfg, "cuda")
+    params["sigma"]["b"] += 0.5
+    packed = ff.pack_field_weights(params, cfg, dtype=torch.float64)
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    original = k1d._entries
+    try:
+        k1d._entries = lambda: entries["intact"]
+        print(json.dumps({
+            "ptxas": {k: cs.k1_ptxas(v, "fused_field_f64_kernel") for k, v in logs.items()},
+            "occupancy": {"density": k1d.occupancy(cfg, True),
+                          "full": k1d.occupancy(cfg, False)}}), flush=True)
+        ok, calls = True, {}
+        for case, n, with_dirs in (("full", 131072, True), ("density", 1572864, False)):
+            kern, plain = cs.k1_calls(packed, cfg, *cs.k1_inputs((n, 1), gen), with_dirs)
+            ref = plain()
+            for name in K1F64_SHAPES:
+                k1d._entries = lambda name=name: entries[name]
+                err = cs.rel_err(kern(), ref)
+                ok &= err <= cs.K1_F64_REL[with_dirs]
+                print(json.dumps({"check": name, "case": case, "points": n,
+                                  "rel_err_vs_plain": err,
+                                  "bound": cs.K1_F64_REL[with_dirs]}), flush=True)
+            del ref
+            calls[case] = (n, kern)
+        torch.cuda.empty_cache()
+        for rnd in range(2):
+            for name in VARIANTS["k1f64"]:
+                k1d._entries = lambda name=name: entries[name]
+                ms = {case: cs.time_ms(kern, 3) for case, (_, kern) in calls.items()}
+                print(json.dumps({"variant": name, "round": rnd, "ms": ms}), flush=True)
+    finally:
+        k1d._entries = original
+    print(card)
+    return 0 if ok else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("kernel", nargs="?", choices=sorted(VARIANTS), default="k3")
     ap.add_argument("--parent", type=Path,
                     help="source of an earlier K2, K1 or K1 at bf16 weights (k2, k1, k1bf16)")
     args = ap.parse_args()
-    if args.parent and args.kernel == "k3":
+    if args.parent and args.kernel in ("k3", "k1f64"):
         ap.error("--parent applies to k2, k1 and k1bf16")
     if not torch.cuda.is_available():
         print("k3_knockout: no CUDA device", file=sys.stderr)
@@ -565,6 +650,8 @@ def main() -> int:
         return k1_main(args, card, extra)
     if args.kernel == "k1bf16":
         return k1bf16_main(card, extra)
+    if args.kernel == "k1f64":
+        return k1f64_main(card)
     libs = build_variants(SOURCES[args.kernel], VARIANTS[args.kernel], extra)
     entry = fft._entries
     fwd0, bwd0 = entry()

@@ -6,15 +6,16 @@ A port `train` run on the CPU (N_iter 6 with the phase switch at 3,
 normals, merged sampling, bf16_grad) writes the same files as JAX's
 `train` on the same scene and arguments: the checkpoint names, the keys
 of train_info_step_time.json and of metrics.jsonl, and the test-set
-PNG names. The renderer's one refusal (float64 with use_pallas) stops a
-run before anything runs, every trainer flag of JAX's passes, and the
-CLI refuses to run without a card.
+PNG names. Every trainer flag of JAX's passes the check before anything
+runs, float64 with use_pallas (refused until K1 had its f64 kernel)
+trains, and the CLI refuses to run without a card.
 """
 
 import json
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -96,20 +97,26 @@ def test_train_writes_the_files_jax_writes(scene_dir, tmp_path):
 
 
 def test_unported_flags_are_refused_before_anything_runs(scene_dir, tmp_path):
-    """The flags refused until this slice ported them (raw_noise_std,
+    """The flags refused until their slices ported them (raw_noise_std,
     mesh_devices, num_processes, init_port_path, patch sampling) pass the
     check, as do the aux heads, the environment map, Monte-Carlo shading
-    and the inferred normal; the renderer's one refusal left, float64
-    with use_pallas, still stops train before anything runs."""
+    and the inferred normal; float64 with use_pallas, the renderer's last
+    refusal until K1 had its f64 kernel, now trains (at depth 8, which K1
+    takes) to its last checkpoint with finite losses."""
     logdir = str(tmp_path / "refused")
     for extra in (["--raw_noise_std", "1.0"], ["--mesh_devices", "2"],
                   ["--num_processes", "2"], ["--init_port_path", "x.tar"],
                   ["--ray_sample", "patch", "--no_batching"]):
         loop.check_supported_flags(parse_with_includes(_argv(scene_dir, logdir, *extra)))
-    with pytest.raises(NotImplementedError, match="float64"):
-        train(parse_with_includes(_argv(scene_dir, logdir, "--compute_dtype", "float64",
-                                        "--use_pallas")), device="cpu")
     assert not os.path.exists(logdir)
+    state = train(parse_with_includes(_argv(scene_dir, logdir, "--compute_dtype", "float64",
+                                            "--use_pallas", "--netdepth", "8")), device="cpu")
+    assert state.step == 7
+    ours, _ = _files(os.path.join(logdir, "exp"))
+    assert ours["ckpts"] == ["ckpt_000000", "ckpt_000003", "ckpt_000006"]
+    with open(os.path.join(logdir, "exp", "metrics.jsonl")) as f:
+        losses = [r["loss_total"] for r in map(json.loads, f) if "loss_total" in r]
+    assert losses and np.isfinite(losses).all()
     loop.check_supported_flags(parse_with_includes(_argv(
         scene_dir, logdir, "--infer_normal", "--infer_normal_at_surface", "--infer_depth",
         "--infer_albedo_separate", "--infer_roughness_separate", "--infer_irradiance_separate",

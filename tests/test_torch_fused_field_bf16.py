@@ -140,9 +140,14 @@ def test_bad_dtypes_and_widths_raise():
     pts = torch.rand(5, 3)
     x = tff._pack_inputs(pts, None)
     tff._check(packed, x, cfg)
-    for dt in (torch.float16, torch.float64):
-        with pytest.raises(ValueError, match="f32 or bf16"):
-            tff.fused_field_density(tff.pack_field_weights(params, cfg, dtype=dt), pts, cfg)
+    with pytest.raises(ValueError, match="f32, bf16 or f64"):
+        tff.fused_field_density(tff.pack_field_weights(params, cfg, dtype=torch.float16),
+                                pts, cfg)
+    # f64, refused until K1 had its f64 kernel, computes
+    # (tests/test_torch_fused_field_f64.py holds it to JAX's)
+    dens = tff.fused_field_density(tff.pack_field_weights(params, cfg, dtype=torch.float64),
+                                   pts, cfg)
+    assert dens.shape == (5, 1) and dens.dtype == torch.float32
     with pytest.raises(ValueError, match="bf16"):   # one matrix left in f32
         tff._check(dict(packed, w3=packed["w3"].float()), x, cfg)
     with pytest.raises(ValueError, match="f32"):    # the embedding must stay f32

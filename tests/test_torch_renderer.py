@@ -10,6 +10,8 @@ atol 2e-3 / rtol 5e-3 on the shaded maps.
 """
 
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +37,9 @@ from ibl_nerf_tpu_torch.render import (RenderConfig, make_frame_render_fn,
 from ibl_nerf_tpu_torch.render import renderer
 from ibl_nerf_tpu_torch.render.config import EditConfig
 from ibl_nerf_tpu_torch.utils.port import field_params_from_numpy
+
+sys.path.insert(0, os.path.dirname(__file__))
+from test_torch_fused_field_f64 import RENDER_ATOL, RENDER_RTOL, render_f64_both  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -261,8 +266,11 @@ def test_uncovered_modes_raise(setup, kw, mode):
     were ported, now render their maps (tests/test_torch_aux.py and
     tests/test_torch_mc_shading.py hold them against JAX); so does
     raw_noise_std, refused until it was ported, held here to JAX's render
-    with JAX's noise (alone and under an edit); shading with the inferred
-    normal but no normal head is a ValueError."""
+    with JAX's noise (alone and under an edit), and so does float64 with
+    use_pallas, held to JAX's f64 render within the bounds of
+    tests/test_torch_fused_field_f64.py, K1 at f64 weights on its two
+    no-grad sweeps; shading with the inferred normal but no normal head is
+    a ValueError."""
     jvars, tvars, jconsts, tconsts, rays_o, rays_d = setup
     jr, tr = _cfgs(**kw)
     batch = make_ray_batch(torch.from_numpy(rays_o), torch.from_numpy(rays_d), 2.0, 6.0)
@@ -286,6 +294,15 @@ def test_uncovered_modes_raise(setup, kw, mode):
         gt = {"normal": torch.tensor([0.5, 0.5, 1.0]).expand(rays_o.shape[0], 3)}
         out = render_rays({**tvars, **aux}, tconsts, batch, tr, gt_values=gt)
         assert torch.isfinite(out[PORTED_MODES[mode]]).all()
+    elif mode == "float64 with use_pallas":
+        # refused until K1 had its f64 kernel; now held to JAX's f64 render,
+        # both sides running K1 at f64 weights on the no-grad sweeps
+        ref, out, calls = render_f64_both(dict(
+            jvars=jax.tree.map(np.asarray, jvars), lut=np.asarray(jconsts["brdf_lut"]),
+            rays_o=rays_o, rays_d=rays_d))
+        assert calls == [(torch.float64, True), (torch.float64, False)] * 2  # coarse, fine
+        _assert_maps(ref, out, basic_tol=(RENDER_ATOL, RENDER_RTOL),
+                     shaded_tol=(RENDER_ATOL, RENDER_RTOL))
     elif mode == "normal_type":
         with pytest.raises(ValueError, match="infer_normal"):
             render_rays(tvars, tconsts, batch, tr)

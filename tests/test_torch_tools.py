@@ -89,12 +89,12 @@ def test_label_encoders_match_jax(name):
         drawn = jax.random.normal(jax.random.key(3), (len(COLORS), 8))
         np.testing.assert_allclose(ref.codes, drawn / np.linalg.norm(drawn, axis=-1)[:, None],
                                    rtol=1e-6)
-        own = labels.RandomLabelEncoder(COLORS, dim=8, seed=3)
+        own = labels.RandomLabelEncoder(COLORS, dim=8, seed=3, device="cpu")
         gen = torch.Generator().manual_seed(3)
         raw = torch.randn((len(COLORS), 8), generator=gen)
         torch.testing.assert_close(own.codes, raw / raw.norm(dim=-1, keepdim=True))
         with pytest.raises(ValueError, match="codes"):
-            labels.RandomLabelEncoder(COLORS, dim=4, codes=np.asarray(drawn))
+            labels.RandomLabelEncoder(COLORS, dim=4, device="cpu", codes=np.asarray(drawn))
     else:
         ref = getattr(j_labels, name)(COLORS)
         enc = getattr(labels, name)(COLORS, device="cpu")
@@ -112,6 +112,17 @@ def test_label_encoders_match_jax(name):
         np.asarray(ref.encoded_label_to_colored_label(noisy)))
     np.testing.assert_allclose(float(enc.error(torch.from_numpy(noisy), t_label)),
                                float(ref.error(noisy, label)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["OneHotLabelEncoder", "RandomLabelEncoder"])
+def test_label_encoders_default_to_the_card(name):
+    """An encoder built without a device is on CUDA, as every entry point
+    of the port is; with no card it raises instead of taking the CPU."""
+    if torch.cuda.is_available():
+        assert getattr(labels, name)(COLORS).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            getattr(labels, name)(COLORS)
 
 
 def test_label_maps_match_jax():

@@ -30,6 +30,7 @@ from ibl_nerf_tpu.render import render_rays as j_render_rays
 from ibl_nerf_tpu.train import losses as jlosses
 from ibl_nerf_tpu.train import step as jstep
 from ibl_nerf_tpu_torch.data.brdf_lut import load_brdf_lut
+from ibl_nerf_tpu_torch.kernels import fused_field as tff
 from ibl_nerf_tpu_torch.models.field import FieldConfig
 from ibl_nerf_tpu_torch.render import RenderConfig, make_ray_batch, render_rays
 from ibl_nerf_tpu_torch.train import losses as tlosses
@@ -260,10 +261,12 @@ def test_train_step_draws_from_a_generator(scene):
     assert losses[0] == losses[1] and np.isfinite(losses[0])
 
 
-def test_train_step_uncovered_modes_raise(scene):
+def test_train_step_uncovered_modes_raise(scene, monkeypatch):
     """Patch sampling and raw_noise_std, refused until they were ported,
-    now step (tests/test_torch_patch_noise.py holds them to JAX); the one
-    mode left that raises is float64 with use_pallas, at the first step."""
+    now step (tests/test_torch_patch_noise.py holds them to JAX); so does
+    float64 with use_pallas, refused until K1 had its f64 kernel: a finite
+    step whose ε-offset sweeps and reflected marches ran K1 at f64 weights
+    (tests/test_torch_fused_field_f64.py holds the step to JAX's)."""
     _, tarr, _, tc = scene
     _, tr = _cfgs(4, normal_type=EPS)
     tl = tlosses.LossConfig(**LOSS)
@@ -279,5 +282,11 @@ def test_train_step_uncovered_modes_raise(scene):
     assert float(scalars["patch_depth_smoothness"]) > 0
     step = tstep.make_train_step(tr.replace(compute_dtype="float64", use_pallas=True), tl,
                                  phase, opt, tc, H, W, B, 0.7, NEAR, FAR)
-    with pytest.raises(NotImplementedError, match="float64"):
-        step(tstep.init_train_state(tv, opt), tarr)
+    calls, run = [], tff._run
+    monkeypatch.setattr(tff, "_run", lambda packed, x, cfg, density_only: (
+        calls.append((packed["w0"].dtype, density_only)) or run(packed, x, cfg, density_only)))
+    state, scalars = step(tstep.init_train_state(tv, opt), tarr,
+                          generator=torch.Generator().manual_seed(0))
+    assert state.step == 1
+    assert np.isfinite(float(scalars["loss_total"]))
+    assert calls == [(torch.float64, True), (torch.float64, False)] * 2  # coarse, fine
