@@ -17,7 +17,10 @@ Phases, one JSON line each; any failure exits non-zero:
           direction per ray; K1 at bf16 weights also against K2's raw;
           K1 at f64 weights, `fused_field_*_f64`, within 1e-7 (full) and
           2e-7 (density) relative norm of its plain version, also at
-          K = 0, 1 and 4, two runs bit-identical), K2
+          K = 0, 1 and 4, two runs bit-identical, the outputs not
+          bit-equal to it counted; full also timed and held at the
+          Monte-Carlo march's shape; its shared memory per block equal
+          to kernels/fused_field_f64.smem_bytes at every K), K2
           (raw and the 11 residuals) and K3 (the 24 weight gradients), the
           bf16 ones each with two runs bit-identical;
           errors against the stated tolerance, kernel and plain times (CUDA
@@ -653,39 +656,63 @@ def k1_bf16_kernel_phase(cfg, params, gen) -> list[dict]:
     return report
 
 
+def k1_f64_hold(name, kern, plain, lead, with_dirs: bool) -> dict:
+    """One K1-f64 launch against its plain version: finite, bit-identical
+    on a rerun and within K1_F64_REL relative norm, or the phase fails;
+    its relative error, max abs error and the count of outputs not
+    bit-equal to the plain version."""
+    out, again, ref = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        fail("kernel", f"{name}: non-finite output at {lead}")
+    if not torch.equal(out, again):
+        fail("kernel", f"{name}: two runs on the same inputs differ at {lead}")
+    err = rel_err(out, ref)
+    if not err <= K1_F64_REL[with_dirs]:
+        fail("kernel", f"{name} at {lead}: off its plain version by {err:.3e} relative "
+             f"(bound {K1_F64_REL[with_dirs]})")
+    return {"rel_err": err, "max_abs_err": (out - ref).abs().max().item(),
+            "not_bit_equal": int((out != ref).sum())}
+
+
 def k1_f64_head_counts(cfg, gen, with_dirs: bool) -> dict:
     """K1 at f64 weights with 0, 1 and 4 coarse heads (no view_feat tile,
     a lone 128-column tile, two 256-column tiles; the main path has 3)
-    against its plain version on a ragged count, in relative norm under
-    K1_F64_REL, twice bit-identical: the error at each K."""
-    errs = {}
+    against its plain version on a ragged count (`k1_f64_hold`): its
+    relative error and outputs not bit-equal at each K."""
+    out = {}
     for k in (0, 1, 4):
         kcfg = FieldConfig(depth=cfg.depth, width=cfg.width, coarse_radiance_number=k)
         params = init_field_params(np.random.default_rng(SEED + k), kcfg, "cuda")
         params["sigma"]["b"] += 0.5
         packed = ff.pack_field_weights(params, kcfg, dtype=torch.float64)
         kern, plain = k1_calls(packed, kcfg, *k1_inputs((4097, 1), gen), with_dirs)
-        out, again, ref = kern(), kern(), plain()
-        torch.cuda.synchronize()
-        errs[k] = rel_err(out, ref)
-        if not (torch.isfinite(out).all() and torch.equal(out, again)
-                and errs[k] <= K1_F64_REL[with_dirs]):
-            fail("kernel", f"K1-f64 ({'full' if with_dirs else 'density'}) at K={k}: "
-                 f"{errs[k]:.3e} relative from its plain version (bound "
-                 f"{K1_F64_REL[with_dirs]}), finite and rerun-identical required")
-    return errs
+        held = k1_f64_hold(f"K1-f64 ({'full' if with_dirs else 'density'}) at K={k}",
+                           kern, plain, (4097, 1), with_dirs)
+        out[k] = {"rel_err": held["rel_err"], "not_bit_equal": held["not_bit_equal"]}
+    return out
 
 
 def k1_f64_kernel_phase(cfg, params, gen) -> list[dict]:
     """K1's f64-weight variant (compute_dtype float64), both modes, at the
-    serving path's shapes and at ragged counts (+37): against its plain
-    version in relative norm under K1_F64_REL, twice bit-identical, and at
-    K = 0, 1 and 4 (`k1_f64_head_counts`); with
-    its shared memory per block, blocks per SM and ptxas registers and
-    spills, and its times in turns with the plain version's."""
+    serving path's shapes and at ragged counts (+37), full also at the
+    Monte-Carlo march's K1_MC_SHAPE: against its plain version in
+    relative norm under K1_F64_REL, twice bit-identical, with the outputs
+    not bit-equal to it counted, and at K = 0, 1 and 4
+    (`k1_f64_head_counts`); with its shared memory per block, blocks per
+    SM and ptxas registers and spills, and its times in turns with the
+    plain version's (at the Monte-Carlo shape too, for full)."""
     packed = ff.pack_field_weights(params, cfg, dtype=torch.float64)
     ptxas = k1_ptxas(kernel_build.build_logs.get("fused_field_f64", ""),
                      "fused_field_f64_kernel")
+    # kernels/fused_field_f64.smem_bytes is the source's at every K it takes
+    for k in range(ff.MAX_COARSE + 1):
+        kcfg = FieldConfig(depth=cfg.depth, width=cfg.width, coarse_radiance_number=k)
+        for density_only in (True, False):
+            occ, mirror = k1d.occupancy(kcfg, density_only), k1d.smem_bytes(kcfg, density_only)
+            if occ["smem_bytes_per_block"] != mirror or occ["blocks_per_sm"] < 1:
+                fail("kernel", f"K1-f64 at K={k} (density {density_only}): {occ}, "
+                     f"the Python mirror says {mirror} B")
     report = []
     for name, shape, with_dirs in K1_VARIANTS:
         name = name + "_f64"
@@ -693,47 +720,56 @@ def k1_f64_kernel_phase(cfg, params, gen) -> list[dict]:
         occupancy = k1d.occupancy(cfg, density_only=not with_dirs)
         if occupancy["blocks_per_sm"] < 1:
             fail("kernel", f"{name}: {occupancy}, no block fits an SM")
-        errs, max_abs = {}, 0.0
+
+        def timed(kern, plain, points):
+            """Kernel and plain ms in turns, and the bound, at `points`."""
+            iters = 3 if points <= n_pts else 2
+            kern(), plain()
+            p1, k1, k2, p2 = (time_ms(plain, iters), time_ms(kern, iters),
+                              time_ms(kern, iters), time_ms(plain, iters))
+            return [k1, k2], [p1, p2], k1_bound(cfg, packed, with_dirs, points,
+                                                PEAK_F64_FLOPS)
+
+        held = {}
         for lead in ((n_pts + 37, 1), shape):
             kern, plain = k1_calls(packed, cfg, *k1_inputs(lead, gen), with_dirs)
-            out, again, ref = kern(), kern(), plain()
-            torch.cuda.synchronize()
-            n_lead = lead[0] * lead[1]
-            if not torch.isfinite(out).all():
-                fail("kernel", f"{name}: non-finite output at {lead}")
-            if not torch.equal(out, again):
-                fail("kernel", f"{name}: two runs on the same inputs differ at {lead}")
-            errs[n_lead] = rel_err(out, ref)
-            if not errs[n_lead] <= K1_F64_REL[with_dirs]:
-                fail("kernel", f"{name} at {lead}: off its plain version by "
-                     f"{errs[n_lead]:.3e} relative (bound {K1_F64_REL[with_dirs]})")
-            max_abs = max(max_abs, (out - ref).abs().max().item())
-            del out, again, ref
+            held[lead[0] * lead[1]] = k1_f64_hold(name, kern, plain, lead, with_dirs)
         torch.cuda.empty_cache()
-
-        iters = 3
-        kern(), plain()
-        p1, k1, k2, p2 = (time_ms(plain, iters), time_ms(kern, iters),
-                          time_ms(kern, iters), time_ms(plain, iters))
-        flops, nbytes, t_ops, t_bytes = k1_bound(cfg, packed, with_dirs, n_pts,
-                                                 PEAK_F64_FLOPS)
+        ms, plain_ms, (flops, nbytes, t_ops, t_bytes) = timed(kern, plain, n_pts)
+        del kern, plain
+        torch.cuda.empty_cache()
+        mc = None
+        if with_dirs:  # the Monte-Carlo incident march of a chunk
+            n_mc = K1_MC_SHAPE[0] * K1_MC_SHAPE[1]
+            kern, plain = k1_calls(packed, cfg, *k1_inputs(K1_MC_SHAPE, gen), True)
+            mc = k1_f64_hold(name, kern, plain, K1_MC_SHAPE, True)
+            mc_ms, mc_plain, (_, _, mc_ops, mc_bytes) = timed(kern, plain, n_mc)
+            mc.update(points=n_mc, rays=K1_MC_SHAPE[0], ms=mc_ms, plain_ms=mc_plain,
+                      bound_ms=max(mc_ops, mc_bytes))
+            del kern, plain
+            torch.cuda.empty_cache()
+        max_abs = max(h["max_abs_err"] for h in held.values())
+        not_bit_equal = sum(h["not_bit_equal"] for h in held.values())
         report.append({
             "name": name, "route": "cuda", "source": K1_F64_SOURCE,
             "replaces": K1_SOURCE,
-            "launches": None, "max_abs_err": max_abs,
-            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "launches": None, "max_abs_err": max_abs, "not_bit_equal": not_bit_equal,
+            "ms": sum(ms) / 2, "plain_ms": sum(plain_ms) / 2,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
+            **({"mc_march": {"points": mc["points"], "ms": sum(mc["ms"]) / 2,
+                             "plain_ms": sum(mc["plain_ms"]) / 2,
+                             "bound_ms": mc["bound_ms"], "max_abs_err": mc["max_abs_err"],
+                             "not_bit_equal": mc["not_bit_equal"]}} if mc else {}),
         })
         emit("kernel", name=name, points=n_pts, flops=flops, bytes=nbytes,
-             rel_err_by_points=errs, rel_bound=K1_F64_REL[with_dirs], max_abs_err=max_abs,
-             rerun_identical=True, ms=[k1, k2], plain_ms=[p1, p2], bound_ops_ms=t_ops,
-             bound_bytes_ms=t_bytes, tflops=flops / ((k1 + k2) / 2) / 1e9, **occupancy,
+             held_by_points=held, rel_bound=K1_F64_REL[with_dirs], max_abs_err=max_abs,
+             not_bit_equal=not_bit_equal, rerun_identical=True, ms=ms, plain_ms=plain_ms,
+             bound_ops_ms=t_ops, bound_bytes_ms=t_bytes, tflops=flops / (sum(ms) / 2) / 1e9,
+             **occupancy,
              ptxas=ptxas.get("full" if with_dirs else "density", "not built in this run"),
-             other_head_counts_rel_err=k1_f64_head_counts(cfg, gen, with_dirs))
-        del kern, plain
-        torch.cuda.empty_cache()
+             mc_march=mc, other_head_counts=k1_f64_head_counts(cfg, gen, with_dirs))
     return report
 
 

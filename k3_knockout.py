@@ -7,7 +7,7 @@ at a time.
     python3 k3_knockout.py k2 --parent OLD.cu
     python3 k3_knockout.py k1 --parent OLD.cu
     python3 k3_knockout.py k1bf16 --parent OLD.cu
-    python3 k3_knockout.py k1f64
+    python3 k3_knockout.py k1f64 [--parent OLD.cu]
 
 Builds `ibl_nerf_tpu_torch/csrc/fused_field_train.cu` as it is and once
 per variant -- a text substitution that removes one part of the kernel
@@ -61,13 +61,25 @@ rerun), then timed in turns (parent, new, new, parent): density at
 
 K1 at f64 weights (`k1f64`) builds `csrc/fused_field_f64.cu` with the
 mma.sync shapes it could take (m16n8k4 as written; m8n8k4, Ampere's shape,
-two to one m16n8k4; m16n8k8; m16n8k16) and with parts knocked out (the
-products cut to one FMA a fragment, the weight loads, the sines, the head
-projections), prints each build's registers and spills, holds the intact
-kernel and every shape against the plain version within chip_smoke's
-K1_F64_REL (the run exits 1 if one fails) and times every variant at the
-serving shapes (density at 1,572,864 points, full at 131,072) by CUDA
-events, in turn, twice.
+two to one m16n8k4; m16n8k8; m16n8k16), its k loop unrolled 1, 2 (as
+written) or 4 times, with parts knocked out (the
+products cut to one FMA a fragment, the weight loads, the sines) and with
+the full variant's epilogue head partials, or its sums over warps, run
+twice (the same values written again: the second run's time is the part's),
+prints each build's registers and spills, holds the intact kernel,
+every shape and setting and the run-twice variants against the plain version within
+chip_smoke's K1_F64_REL, bit-identical on a rerun, with the count of
+outputs not bit-equal to the plain version (the run exits 1 if one
+fails), and times every variant at
+the serving shapes (density at 1,572,864 points, full at 131,072) by CUDA
+events, in turn, twice; the intact full variant is also held at the
+Monte-Carlo march's 1,179,648 points. `k1f64 --parent OLD.cu` takes an
+earlier source of the same entry points (e.g. `git show
+<commit>:ibl_nerf_tpu_torch/csrc/fused_field_f64.cu` into the git-ignored
+`build/`): it is held to the plain version too, its density output must
+equal the intact kernel's bit for bit (the full output's equality is
+reported), and the two are timed in turns (parent, new, new, parent) at
+the three shapes.
 """
 
 from __future__ import annotations
@@ -211,6 +223,9 @@ VARIANTS = {
             '        "{%0, %1};" : "+d"(d[2]), "+d"(d[3]) : "d"(a[1]), "d"(b[0]));')],
         "mma_m16n8k8": [("constexpr int kMmaK = 4;", "constexpr int kMmaK = 8;")],
         "mma_m16n8k16": [("constexpr int kMmaK = 4;", "constexpr int kMmaK = 16;")],
+        # settings: the products' k loop unrolled 1 or 4 times instead of 2
+        "unroll_1": [("#pragma unroll 2\n  for (int k = 0;", "#pragma unroll 1\n  for (int k = 0;")],
+        "unroll_4": [("#pragma unroll 2\n  for (int k = 0;", "#pragma unroll 4\n  for (int k = 0;")],
         # knock-outs: one FMA per fragment instead of an mma (loads kept)
         "products_as_one_fma": [("      for (int m = 0; m < M16; ++m) Mma<kMmaK>::run(acc[n][m], a[m], b[n]);",
                                  "      for (int m = 0; m < M16; ++m) acc[n][m][0] = fma(a[m][0], b[n][0], acc[n][m][0]);")],
@@ -218,12 +233,25 @@ VARIANTS = {
                              "        b[n][j] = 1e-3 * (k + 4 * j + 8 * n);")],
         "no_sines": [("? u : sinf(u + __ldg(w.f(kEmbPhase) + l));",
                       "? u : u + __ldg(w.f(kEmbPhase) + l);")],
-        "no_head_projections": [("    for (int r = part; r < rows; r += kParts)",
-                                 "    for (int r = part; r < 0; r += kParts)")],
+        # the full variant's epilogue projections run twice, each time
+        # writing the same values: the partials (the f64 dot products and
+        # the butterflies), or the sums over warps and the output stores.
+        # (Removing them instead lets the compiler drop pos_feat's and
+        # view_feat's products too, whose values nothing else reads.)
+        "head_partials_twice": [
+            ("  for (int ci = 0; ci < nc; ++ci) {\n    const int c = column(pr, ci);",
+             "  for (int cj = 0; cj < 2 * nc; ++cj) {\n    const int ci = cj % nc;\n"
+             "    const int c = column(pr, ci);")],
+        "head_sums_twice": [
+            ("  for (int i = i0; i < items; i += step) {\n    const int ci = i / kTile",
+             "  for (int j = i0; j < 2 * items; j += step) {\n    const int i = j % items;\n"
+             "    const int ci = i / kTile")],
     },
 }
-# the k1f64 variants that change only a setting, held to the plain version
-K1F64_SHAPES = ("intact", "mma_m8n8k4", "mma_m16n8k8", "mma_m16n8k16")
+# the k1f64 variants that compute what the intact kernel does, held to the
+# plain version
+K1F64_CHECKED = ("intact", "mma_m8n8k4", "mma_m16n8k8", "mma_m16n8k16", "unroll_1",
+                 "unroll_4", "head_partials_twice", "head_sums_twice")
 SOURCES = {"k3": "fused_field_train", "k2": "fused_field_train", "k1": "fused_field",
            "k1bf16": "fused_field_bf16", "k1f64": "fused_field_f64"}
 OUT = kb.BUILD_DIR / "knockout"
@@ -586,9 +614,9 @@ def k1bf16_main(card: str, extra: dict) -> int:
     return 0 if ok else 1
 
 
-def k1f64_main(card: str) -> int:
+def k1f64_main(card: str, extra: dict) -> int:
     logs: dict = {}
-    libs = build_variants(SOURCES["k1f64"], VARIANTS["k1f64"], {}, logs)
+    libs = build_variants(SOURCES["k1f64"], VARIANTS["k1f64"], extra, logs)
     entries = {}
     for name, path in libs.items():
         lib = ctypes.CDLL(str(path))
@@ -601,31 +629,66 @@ def k1f64_main(card: str) -> int:
     params["sigma"]["b"] += 0.5
     packed = ff.pack_field_weights(params, cfg, dtype=torch.float64)
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    parent = "parent" in entries
     original = k1d._entries
+
+    def use(name):
+        k1d._entries = lambda: entries[name]
+
     try:
-        k1d._entries = lambda: entries["intact"]
+        occupancy = {}
+        for name in ("intact", "parent") if parent else ("intact",):
+            use(name)
+            occupancy[name] = {"density": k1d.occupancy(cfg, True),
+                               "full": k1d.occupancy(cfg, False)}
         print(json.dumps({
             "ptxas": {k: cs.k1_ptxas(v, "fused_field_f64_kernel") for k, v in logs.items()},
-            "occupancy": {"density": k1d.occupancy(cfg, True),
-                          "full": k1d.occupancy(cfg, False)}}), flush=True)
+            "occupancy": occupancy}), flush=True)
         ok, calls = True, {}
-        for case, n, with_dirs in (("full", 131072, True), ("density", 1572864, False)):
-            kern, plain = cs.k1_calls(packed, cfg, *cs.k1_inputs((n, 1), gen), with_dirs)
-            ref = plain()
-            for name in K1F64_SHAPES:
-                k1d._entries = lambda name=name: entries[name]
-                err = cs.rel_err(kern(), ref)
-                ok &= err <= cs.K1_F64_REL[with_dirs]
-                print(json.dumps({"check": name, "case": case, "points": n,
-                                  "rel_err_vs_plain": err,
-                                  "bound": cs.K1_F64_REL[with_dirs]}), flush=True)
-            del ref
-            calls[case] = (n, kern)
+        mc = cs.K1_MC_SHAPE
+        cases = (("full", (131072, 1), True), ("full_mc_march", mc, True),
+                 ("density", (1572864, 1), False))
+        for case, lead, with_dirs in cases:
+            kern, plain = cs.k1_calls(packed, cfg, *cs.k1_inputs(lead, gen), with_dirs)
+            ref, outs = plain(), {}
+            names = (K1F64_CHECKED if case != "full_mc_march" else ("intact",)) + (
+                ("parent",) if parent else ())
+            for name in names:
+                use(name)
+                out, again = kern(), kern()
+                err = cs.rel_err(out, ref)
+                same = torch.equal(out, again)
+                ok &= err <= cs.K1_F64_REL[with_dirs] and same
+                outs[name] = out
+                print(json.dumps({"check": name, "case": case, "points": lead[0] * lead[1],
+                                  "rel_err_vs_plain": err, "bound": cs.K1_F64_REL[with_dirs],
+                                  "not_bit_equal_to_plain": int((out != ref).sum()),
+                                  "rerun_identical": same}), flush=True)
+            if parent:
+                # the density variant's output must not move; the full one's is reported
+                same = torch.equal(outs["intact"], outs["parent"])
+                ok &= same or with_dirs
+                print(json.dumps({"parent_identical": same, "case": case}), flush=True)
+            del ref, outs
+            calls[case] = (lead[0] * lead[1], kern)
         torch.cuda.empty_cache()
+        if parent:
+            for case, (n, kern) in calls.items():
+                runs = {}
+                for name in ("parent", "intact", "intact", "parent"):
+                    use(name)
+                    kern()
+                    runs.setdefault(name, []).append(cs.time_ms(kern, 3))
+                print(json.dumps({"parent_turns": case, "points": n, "ms": runs["intact"],
+                                  "parent_ms": runs["parent"]}), flush=True)
         for rnd in range(2):
             for name in VARIANTS["k1f64"]:
-                k1d._entries = lambda name=name: entries[name]
-                ms = {case: cs.time_ms(kern, 3) for case, (_, kern) in calls.items()}
+                use(name)
+                ms = {}
+                for case, (_, kern) in calls.items():
+                    if case != "full_mc_march":
+                        kern()  # a build's first launch loads its module
+                        ms[case] = cs.time_ms(kern, 3)
                 print(json.dumps({"variant": name, "round": rnd, "ms": ms}), flush=True)
     finally:
         k1d._entries = original
@@ -637,10 +700,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("kernel", nargs="?", choices=sorted(VARIANTS), default="k3")
     ap.add_argument("--parent", type=Path,
-                    help="source of an earlier K2, K1 or K1 at bf16 weights (k2, k1, k1bf16)")
+                    help="source of an earlier K2, K1 or K1 at bf16 or f64 weights "
+                         "(k2, k1, k1bf16, k1f64)")
     args = ap.parse_args()
-    if args.parent and args.kernel in ("k3", "k1f64"):
-        ap.error("--parent applies to k2, k1 and k1bf16")
+    if args.parent and args.kernel == "k3":
+        ap.error("--parent applies to k2, k1, k1bf16 and k1f64")
     if not torch.cuda.is_available():
         print("k3_knockout: no CUDA device", file=sys.stderr)
         return 2
@@ -651,7 +715,7 @@ def main() -> int:
     if args.kernel == "k1bf16":
         return k1bf16_main(card, extra)
     if args.kernel == "k1f64":
-        return k1f64_main(card)
+        return k1f64_main(card, extra)
     libs = build_variants(SOURCES[args.kernel], VARIANTS[args.kernel], extra)
     entry = fft._entries
     fwd0, bwd0 = entry()

@@ -25,7 +25,9 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -228,16 +230,108 @@ def test_f64_pack_checks():
 @pytest.mark.parametrize("k", [0, 1, 3, 7, tff.MAX_COARSE])
 def test_kernel_tiles_fit_shared_memory(k):
     """The source's shared-memory budget (its header: 174,080 B density,
-    175,968 B full at K=3) for every head count the kernel takes: one block
-    an SM, under Hopper's 227 KB."""
+    221,536 B full) for every head count the kernel takes: 64-point tiles
+    in both variants, the full one's X (91 rows) + H (256) and two planes
+    of the heads' f64 partial sums, which no longer grow with K (no P
+    plane, no raw tile); one block an SM, under Hopper's 227 KB."""
     cfg = tfield.FieldConfig(depth=8, width=256, coarse_radiance_number=k)
     dens, full = k1d.smem_bytes(cfg, True), k1d.smem_bytes(cfg, False)
     if k == 3:
-        assert (dens, full) == (174080, 175968)
+        assert (dens, full) == (174080, 221536)
     assert dens == 320 * 68 * 8
-    assert full == 603 * 36 * 8 + (9 + 3 * k) * 32 * 4
+    assert full == 347 * 68 * 8 + 2 * 8 * 4 * 64 * 8
     assert max(dens, full) <= k1d.SMEM_LIMIT
-    assert k1d.tile_points(True) == 64 and k1d.tile_points(False) == 32
+    assert k1d.TILE == 64
+
+
+def test_plan_constants_are_the_sources():
+    """The Python mirror's constants are the source's."""
+    src = (Path(tff.__file__).resolve().parent.parent / "csrc" / "fused_field_f64.cu").read_text()
+    for name, value in (("kTile", k1d.TILE), ("kProjCols", k1d.PROJ_COLS),
+                        ("kMmaK", k1d.MMA_K), ("kThreads", 32 * k1d.WARPS)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert f"Projs {{\n  Proj p[3 + kMaxCoarse];" in src
+    assert re.search(rf"constexpr int kMaxCoarse = {tff.MAX_COARSE};", src)
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 3, 4, 7, tff.MAX_COARSE])
+def test_projection_split_covers_each_column_once(k):
+    """Every raw column lies in one projection, each of at most PROJ_COLS
+    columns (the partial planes' width), and each projection's rows split
+    into equal runs over its warps: A, B, C over 8 warps, head k of a pair
+    over warps 0-3 or 4-7, an odd last head over all 8."""
+    cols = [c for ranges in tff.projection_columns(k) for r in ranges for c in range(*r)]
+    assert sorted(cols) == list(range(9 + 3 * k))
+    for ranges in tff.projection_columns(k):
+        assert sum(hi - lo for lo, hi in ranges) <= k1d.PROJ_COLS
+    split = k1d.projection_split(k)
+    assert split[:3] == [(0, 8)] * 3 and len(split) == 3 + k
+    for i, (w0, nw) in enumerate(split[3:]):
+        odd_last = k % 2 and i == k - 1
+        assert (w0, nw) == ((0, 8) if odd_last else (4 * (i % 2), 4))
+        assert (128 // nw) in (16, 32)
+
+
+def _raw_by_split(packed, x, n_coarse, round_partials=False):
+    """A model of the full variant's raw output: the activations as
+    `_field_plain_f64` makes them, then each projection's rows split over
+    its warps as `projection_split` says, each warp's partial an f64
+    product, the partials summed in warp order in f64 and rounded to f32
+    once (or, with `round_partials`, each rounded to f32 first and summed
+    in f32), plus the f32 bias."""
+    w, relu = packed, torch.relu
+
+    def mm(a, b):
+        return (a @ b).float()
+
+    t = x @ w["emb_E"]
+    emb = torch.where(w["emb_id"] > 0.0, t, torch.sin(t + w["emb_phase"])).double()
+    tb = w["tb"]
+    h = relu(mm(emb, w["w0"]) + tb[0])
+    for i in (1, 2, 3, 4):
+        h = relu(mm(h, w[f"w{i}"]) + tb[i])
+    h = relu((mm(emb, w["w5x"]) + mm(h, w["w5h"])) + tb[5])
+    for i in (6, 7):
+        h = relu(mm(h, w[f"w{i}"]) + tb[i])
+    pos_feat = relu(mm(h, w["wpf"]) + w["bpf"])
+    feature = mm(h, w["wfeat"]) + w["bfeat"]
+    h2 = relu((mm(feature, w["wv_f"]) + mm(emb, w["wv_d"])) + w["bv"])
+    vf = relu(mm(h2, w["wcf"]) + w["bcf"])
+    acts = [h, pos_feat, h2] + [vf[:, 128 * k:128 * (k + 1)] for k in range(n_coarse)]
+    mats = [w["A"], w["B"], w["C"]] + [w["D"][128 * k:128 * (k + 1)] for k in range(n_coarse)]
+    out = torch.empty((x.shape[0], w["bias"].shape[0]), dtype=torch.float32)
+    for ranges, act, mat, (_, nw) in zip(tff.projection_columns(n_coarse), acts, mats,
+                                         k1d.projection_split(n_coarse)):
+        cols = [c for r in ranges for c in range(*r)]
+        rows = act.shape[1] // nw
+        parts = [act[:, rows * i:rows * (i + 1)] @ mat[rows * i:rows * (i + 1), cols]
+                 for i in range(nw)]
+        if round_partials:
+            parts = [q.float() for q in parts]
+        s = parts[0]
+        for q in parts[1:]:
+            s = s + q
+        out[:, cols] = s.float() + w["bias"][cols].float()
+    return out
+
+
+def test_projection_split_is_the_plain_heads():
+    """The full variant's head split (per-warp f64 partials summed in warp
+    order, rounded to f32 once) gives `_field_plain_f64`'s raw output bit
+    for bit at width 256, K = 3, on 4,096 points: only the order of the
+    f64 sums differs. The negative control: the per-warp partials rounded
+    to f32 before their sum differ from it in many elements."""
+    s = _setup(256)
+    x = tff._pack_inputs(torch.from_numpy(s["pts"]), torch.from_numpy(s["dirs"]))
+    ref = tff._field_plain_f64(s["packed"], x, False)
+    split = _raw_by_split(s["packed"], x, 3)
+    assert split.shape == ref.shape == (4096, 18)
+    assert torch.equal(split, ref)
+    rounded = _raw_by_split(s["packed"], x, 3, round_partials=True)
+    off = int((rounded != ref).sum())
+    assert off > 100, off
+    # ... though not by enough for the relative-norm gate to see it
+    assert _rel(rounded.numpy(), ref.numpy()) <= REL_FULL
 
 
 # ---------------------------------------------------------------------------
