@@ -9,7 +9,9 @@ far*0.1), the `acc` coverage buffer and the screen-space
 normal-from-depth buffer. The scene's gt buffers go to the renderer per
 pose (shrunk with INTER_AREA at render_factor > 1), and with `savedir`
 every buffer is written as `{name}_{idx:03d}.png` through the port's
-own PNG encoder.
+own PNG encoder. With spans on (`utils/timing`) each pose is the span
+`render_path.frame` (its unit the pose index) over `render_path.setup`,
+`render_path.chunks` and `render_path.export`.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from ibl_nerf_tpu_torch.ops.rays import get_rays_full_image
 from ibl_nerf_tpu_torch.render.renderer import (make_frame_render_fn, render_frame,
                                                 render_image)
 from ibl_nerf_tpu_torch.utils.png import write_png
+from ibl_nerf_tpu_torch.utils.timing import span
 
 # result key -> export name (order matches the reference's exports)
 _EXPORTS = [
@@ -131,18 +134,8 @@ def render_path(
         if savedir is not None:
             save_image(savedir, out_name, idx, img)
 
-    for i, c2w in enumerate(render_poses):
-        gt_i = _resize_gt(gt_buffers, i, factor, device) if gt_buffers else None
-        c2w = torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4], device=device)
-        if fast:
-            ro, rd = get_rays_full_image(H, W, K, c2w)
-            res = render_frame(frame_fn, ro.reshape(-1, 3), rd.reshape(-1, 3),
-                               scene.near, scene.far, chunk, gt_values=gt_i)
-            res = {k: v.reshape(H, W, *v.shape[1:]) for k, v in res.items()}
-        else:
-            res = render_image(variables, consts, H, W, K, c2w, scene.near, scene.far,
-                               rcfg_test, gt_values=gt_i, chunk=chunk)
-
+    def export(res, i, c2w):
+        """Pose i's buffers to the host (and to PNGs under `savedir`)."""
         for key_name, out_name in _EXPORTS:
             append(res, key_name, i, out_name)
         # acc coverage for the collapse detector — returned, never saved
@@ -156,5 +149,23 @@ def render_path(
             nfd = depth_to_normal_image_space(res["depth_map"], c2w, K)
             append({"normal_map_from_depth_map": nfd},
                    "normal_map_from_depth_map", i, "normal_from_depth")
+
+    for i, c2w in enumerate(render_poses):
+        with span("render_path.frame", unit=i):
+            with span("render_path.setup"):
+                gt_i = _resize_gt(gt_buffers, i, factor, device) if gt_buffers else None
+                c2w = torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4], device=device)
+                if fast:
+                    ro, rd = get_rays_full_image(H, W, K, c2w)
+            with span("render_path.chunks"):
+                if fast:
+                    res = render_frame(frame_fn, ro.reshape(-1, 3), rd.reshape(-1, 3),
+                                       scene.near, scene.far, chunk, gt_values=gt_i)
+                    res = {k: v.reshape(H, W, *v.shape[1:]) for k, v in res.items()}
+                else:
+                    res = render_image(variables, consts, H, W, K, c2w, scene.near, scene.far,
+                                       rcfg_test, gt_values=gt_i, chunk=chunk)
+            with span("render_path.export"):
+                export(res, i, c2w)
 
     return {k: np.stack(v, 0) for k, v in results.items()}

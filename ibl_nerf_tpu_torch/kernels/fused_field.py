@@ -32,7 +32,7 @@ Beside the kernels live their plain PyTorch versions
 the same math from the same packed weights and the same sin(t + phase)
 embedding. The wrappers `fused_field_apply` / `fused_field_density`
 take the plain version for CPU tensors only; for CUDA tensors they launch the kernel of the packed
-dtype or raise.
+dtype or raise. A launch's host wrapper is the span `kernel.k1` (`utils/timing`).
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ import torch
 from ibl_nerf_tpu_torch.kernels import build as _build
 from ibl_nerf_tpu_torch.models.field import FieldConfig, _assembly_matrices
 from ibl_nerf_tpu_torch.ops.embedding import frequency_bands
+from ibl_nerf_tpu_torch.utils.timing import span
 
 LANE = 128    # embedding lanes: [pts_emb(63) | dirs_emb(27) | 0-pad]
 IN_COLS = 8   # packed kernel input: [pts(3) | dirs(3) | pad(2)]
@@ -387,9 +388,10 @@ def _run(packed, x, cfg, density_only):
     if x.device.type == "cpu":
         return _field_plain_any(packed, x, density_only)
     if x.device.type == "cuda":
-        if _packed_dtype(packed) == torch.bfloat16:
-            return _launch_bf16(packed, x, cfg, density_only)
-        return _launch(packed, x, cfg, density_only)
+        with span("kernel.k1"):
+            if _packed_dtype(packed) == torch.bfloat16:
+                return _launch_bf16(packed, x, cfg, density_only)
+            return _launch(packed, x, cfg, density_only)
     raise ValueError(f"no fused field for device {x.device}")
 
 

@@ -33,7 +33,9 @@ points: embedding in f32 then bf16; each layer f32 accumulate + bias,
 relu, round to bf16; raw summed in f32 with the bf16 bias; relu masks
 from the saved bf16 activations; g rounded to bf16 for the products
 while the output bias sums the f32 g; every dW accumulated in f32. CPU
-tensors take them; CUDA tensors launch the kernels or raise.
+tensors take them; CUDA tensors launch the kernels or raise. The host
+wrappers of the launches are the spans `kernel.k2` and `kernel.k3`
+(`utils/timing`).
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from ibl_nerf_tpu_torch.kernels.fused_field import (
     embedding_tensors,
 )
 from ibl_nerf_tpu_torch.models.field import FieldConfig
+from ibl_nerf_tpu_torch.utils.timing import span
 
 # Residual activations K2 saves for K3, in order.
 _RES_ORDER = ["h0", "h1", "h2", "h3", "h4", "h5", "h6", "h7", "pf", "ft", "hv"]
@@ -553,14 +556,16 @@ def _device_of(x: torch.Tensor) -> str:
 def train_forward(x, w16, emb):
     """K2 on CUDA tensors, its plain version on CPU ones."""
     if _device_of(x) == "cuda":
-        return _launch_fwd(x, w16, emb)
+        with span("kernel.k2"):
+            return _launch_fwd(x, w16, emb)
     return train_forward_plain(x, w16, emb)
 
 
 def train_backward(x, g, res, w16, emb):
     """K3 on CUDA tensors, its plain version on CPU ones."""
     if _device_of(x) == "cuda":
-        return _launch_bwd(x, g, res, w16, emb)
+        with span("kernel.k3"):
+            return _launch_bwd(x, g, res, w16, emb)
     return train_backward_plain(x, g, res, w16, emb)
 
 

@@ -31,7 +31,10 @@ through its Pallas kernels. Random draws (the `perturb` jitter and
 importance uniforms, the `raw_noise_std` noise on raw σ) come from a
 `torch.Generator` or are passed in. Under `compute_dtype=float64` K1
 runs at f64 weights (`csrc/fused_field_f64.cu`) and returns f32 raw, as
-the JAX kernel does.
+the JAX kernel does. With spans on (`utils/timing`) the passes are the
+spans `render.coarse`, `render.importance` and `render.fine`, and inside
+a shaded pass `render.aux_heads`, `render.normal` and `render.shading`;
+the inferred depth head is `render.depth_head`.
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ from ibl_nerf_tpu_torch.ops.texture import grid_sample_2d, mip_interp
 from ibl_nerf_tpu_torch.render import normals as normals_mod
 from ibl_nerf_tpu_torch.render.config import NORMAL_TYPES, RenderConfig
 from ibl_nerf_tpu_torch.utils.device import pin_f32_matmul
+from ibl_nerf_tpu_torch.utils.timing import span
 
 _AUTOGRAD_NORMALS = ("normal_map_from_depth_gradient",
                      "normal_map_from_depth_gradient_direction")
@@ -361,7 +365,8 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
         target_depth_map = _where(mask_all, gt["object_insert_depth"][..., 0],
                                   target_depth_map)
     x_surface = (rays_o + rays_d * target_depth_map[..., None]).detach()
-    aux = _aux_maps(variables, pts, x_surface, weights_det, rcfg)
+    with span("render.aux_heads"):
+        aux = _aux_maps(variables, pts, x_surface, weights_det, rcfg)
     inferred_normal_map = aux.get("normal")
 
     # --- intrinsic maps: detached weights, radiance on live ones; the
@@ -395,9 +400,10 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
     reflected_coarse_maps = []
 
     if rcfg.approximate_radiance:
-        target_normal_map = _estimate_normal(query_sigma, query_sigma_ng, rays_o,
-                                             rays_d, z_vals, pts, x_surface,
-                                             weights_det, inferred_normal_map, gt, rcfg)
+        with span("render.normal"):
+            target_normal_map = _estimate_normal(query_sigma, query_sigma_ng, rays_o,
+                                                 rays_d, z_vals, pts, x_surface,
+                                                 weights_det, inferred_normal_map, gt, rcfg)
         if edit is not None:
             (target_normal_map, target_albedo_map, target_roughness_map,
              target_irradiance_map) = _apply_edit_overrides(
@@ -405,63 +411,64 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
                 target_roughness_map, target_irradiance_map)
         n_dot_v = torch.clamp(torch.sum(-rays_d * target_normal_map, -1), 0.0, 1.0)
 
-    if rcfg.approximate_radiance and rcfg.shading_mode == "monte_carlo":
-        # no reflected or prefiltered maps in this mode
-        diffuse_map, specular_map = _monte_carlo_shading(
-            query_full_ng, rays_d, x_surface, z_vals_constant, target_normal_map,
-            target_albedo_map, target_roughness_map, rcfg)
-        approximated_radiance_map = diffuse_map + specular_map
-    elif rcfg.approximate_radiance:
-        # split sum: BRDF LUT fetch
-        lut_uv = torch.stack(
-            [2.0 * n_dot_v - 1.0, 2.0 * target_roughness_map - 1.0], dim=-1)
-        env_brdf = grid_sample_2d(consts["brdf_lut"], lut_uv)
-        env_c1 = env_brdf[..., 0:1]
-        env_c0 = env_brdf[..., 1:2]
+    with span("render.shading"):
+        if rcfg.approximate_radiance and rcfg.shading_mode == "monte_carlo":
+            # no reflected or prefiltered maps in this mode
+            diffuse_map, specular_map = _monte_carlo_shading(
+                query_full_ng, rays_d, x_surface, z_vals_constant, target_normal_map,
+                target_albedo_map, target_roughness_map, rcfg)
+            approximated_radiance_map = diffuse_map + specular_map
+        elif rcfg.approximate_radiance:
+            # split sum: BRDF LUT fetch
+            lut_uv = torch.stack(
+                [2.0 * n_dot_v - 1.0, 2.0 * target_roughness_map - 1.0], dim=-1)
+            env_brdf = grid_sample_2d(consts["brdf_lut"], lut_uv)
+            env_c1 = env_brdf[..., 0:1]
+            env_c0 = env_brdf[..., 1:2]
 
-        # dielectric F0 with metallic = 1 - roughness
-        metallic = (1.0 - target_roughness_map)[..., None]
-        f0 = torch.full((3,), 0.04, dtype=raw.dtype, device=raw.device)
-        f0 = f0 * (1.0 - metallic) + target_albedo_map * metallic
+            # dielectric F0 with metallic = 1 - roughness
+            metallic = (1.0 - target_roughness_map)[..., None]
+            f0 = torch.full((3,), 0.04, dtype=raw.dtype, device=raw.device)
+            f0 = f0 * (1.0 - metallic) + target_albedo_map * metallic
 
-        fresnel_map = fresnel_schlick_roughness(n_dot_v, f0, target_roughness_map)
-        if rcfg.lut_coefficient == "F":
-            spec_coeff = fresnel_map * env_c1 + env_c0
-        elif rcfg.lut_coefficient == "F0":
-            spec_coeff = f0 * env_c1 + env_c0
-        else:
-            raise ValueError(rcfg.lut_coefficient)
+            fresnel_map = fresnel_schlick_roughness(n_dot_v, f0, target_roughness_map)
+            if rcfg.lut_coefficient == "F":
+                spec_coeff = fresnel_map * env_c1 + env_c0
+            elif rcfg.lut_coefficient == "F0":
+                spec_coeff = f0 * env_c1 + env_c0
+            else:
+                raise ValueError(rcfg.lut_coefficient)
 
-        # reflected-ray second march along the constant coarse z
-        reflected_dirs = reflect(rays_d, target_normal_map)
-        reflected_pts = (x_surface[..., None, :]
-                         + reflected_dirs[..., None, :]
-                         * z_vals_constant[..., :, None])
-        if rcfg.use_gradient_for_incident_radiance:
-            r_raw = query_full(reflected_pts, reflected_dirs)
-            reflected_radiance_map, reflected_coarse_maps = _composite_radiance_stack(
-                r_raw, z_vals_constant, reflected_dirs, rcfg)
-        else:
-            with torch.no_grad():
-                r_raw = query_full_ng(reflected_pts.detach(), reflected_dirs.detach())
+            # reflected-ray second march along the constant coarse z
+            reflected_dirs = reflect(rays_d, target_normal_map)
+            reflected_pts = (x_surface[..., None, :]
+                             + reflected_dirs[..., None, :]
+                             * z_vals_constant[..., :, None])
+            if rcfg.use_gradient_for_incident_radiance:
+                r_raw = query_full(reflected_pts, reflected_dirs)
                 reflected_radiance_map, reflected_coarse_maps = _composite_radiance_stack(
                     r_raw, z_vals_constant, reflected_dirs, rcfg)
-        prefiltered = torch.stack(
-            [reflected_radiance_map] + list(reflected_coarse_maps), dim=1)
+            else:
+                with torch.no_grad():
+                    r_raw = query_full_ng(reflected_pts.detach(), reflected_dirs.detach())
+                    reflected_radiance_map, reflected_coarse_maps = _composite_radiance_stack(
+                        r_raw, z_vals_constant, reflected_dirs, rcfg)
+            prefiltered = torch.stack(
+                [reflected_radiance_map] + list(reflected_coarse_maps), dim=1)
 
-        # roughness-driven mip level (the field's roughness, as in JAX)
-        if rcfg.correct_depth_for_prefiltered_radiance_infer:
-            depth_0 = (far + near) * 0.5
-            mip_level = torch.clamp(
-                roughness_map * depth_map.detach() / depth_0[..., 0], 0.0, 1.0)
-        else:
-            mip_level = roughness_map
-        prefiltered_reflected_map = mip_interp(prefiltered, mip_level)
+            # roughness-driven mip level (the field's roughness, as in JAX)
+            if rcfg.correct_depth_for_prefiltered_radiance_infer:
+                depth_0 = (far + near) * 0.5
+                mip_level = torch.clamp(
+                    roughness_map * depth_map.detach() / depth_0[..., 0], 0.0, 1.0)
+            else:
+                mip_level = roughness_map
+            prefiltered_reflected_map = mip_interp(prefiltered, mip_level)
 
-        diffuse_map = ((1.0 - fresnel_map) * (1.0 - metallic)
-                       * target_albedo_map * target_irradiance_map)
-        specular_map = spec_coeff * prefiltered_reflected_map
-        approximated_radiance_map = diffuse_map + specular_map
+            diffuse_map = ((1.0 - fresnel_map) * (1.0 - metallic)
+                           * target_albedo_map * target_irradiance_map)
+            specular_map = spec_coeff * prefiltered_reflected_map
+            approximated_radiance_map = diffuse_map + specular_map
 
     return _assemble_outputs(
         rcfg, approximated_radiance_map, radiance_map, coarse_radiance_maps,
@@ -687,25 +694,27 @@ def render_rays(variables, consts, batch, rcfg: RenderConfig,
                                        amp=rc.compute_dtype == "amp")[1]
         return _render_depth_only(query_sigma, rays_o, rays_d, z, rc, noise)
 
-    if is_depth_only or (not rcfg.coarse_shading and rcfg.n_importance > 0):
-        # Inference fast path: the coarse pass only has to produce the
-        # importance-resampling weights (+ depth); the density query
-        # shares trunk+sigma with the full one, so every fine buffer is
-        # unchanged.
-        result = depth_only(variables["coarse"], rcfg, z_vals, draws.get("noise_coarse"))
-    else:
-        coarse_vars = dict(variables, coarse_or_fine=variables["coarse"])
-        result = _raw2outputs(coarse_vars, consts, rays_o, rays_d, z_vals,
-                              z_vals_constant, near, far, rcfg, gt_values,
-                              draws.get("noise_coarse"))
+    with span("render.coarse"):
+        if is_depth_only or (not rcfg.coarse_shading and rcfg.n_importance > 0):
+            # Inference fast path: the coarse pass only has to produce the
+            # importance-resampling weights (+ depth); the density query
+            # shares trunk+sigma with the full one, so every fine buffer is
+            # unchanged.
+            result = depth_only(variables["coarse"], rcfg, z_vals, draws.get("noise_coarse"))
+        else:
+            coarse_vars = dict(variables, coarse_or_fine=variables["coarse"])
+            result = _raw2outputs(coarse_vars, consts, rays_o, rays_d, z_vals,
+                                  z_vals_constant, near, far, rcfg, gt_values,
+                                  draws.get("noise_coarse"))
 
     if rcfg.n_importance > 0:
-        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-        with torch.no_grad():
-            z_samples = sample_pdf(z_mid, result["weights"][..., 1:-1],
-                                   rcfg.n_importance, det=not rcfg.perturb,
-                                   u=draws["pdf"] if rcfg.perturb else None)
-        z_all, _ = torch.sort(torch.cat([z_vals, z_samples], -1), dim=-1)
+        with span("render.importance"):
+            z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+            with torch.no_grad():
+                z_samples = sample_pdf(z_mid, result["weights"][..., 1:-1],
+                                       rcfg.n_importance, det=not rcfg.perturb,
+                                       u=draws["pdf"] if rcfg.perturb else None)
+            z_all, _ = torch.sort(torch.cat([z_vals, z_samples], -1), dim=-1)
 
         fine_params = variables.get("fine", variables["coarse"])
         # Distinct fine architecture: swap the field config for the fine
@@ -714,23 +723,26 @@ def render_rays(variables, consts, batch, rcfg: RenderConfig,
         if rcfg.field_fine is not None:
             rcfg_f = rcfg.replace(field=rcfg.field_fine, field_fine=None)
 
-        if is_depth_only:
-            result_fine = depth_only(fine_params, rcfg_f, z_all, draws.get("noise_fine"))
-        else:
-            fine_vars = dict(variables, coarse_or_fine=fine_params)
-            result_fine = _raw2outputs(fine_vars, consts, rays_o, rays_d,
-                                       z_all, z_vals_constant, near, far,
-                                       rcfg_f, gt_values, draws.get("noise_fine"))
+        with span("render.fine"):
+            if is_depth_only:
+                result_fine = depth_only(fine_params, rcfg_f, z_all, draws.get("noise_fine"))
+            else:
+                fine_vars = dict(variables, coarse_or_fine=fine_params)
+                result_fine = _raw2outputs(fine_vars, consts, rays_o, rays_d,
+                                           z_all, z_vals_constant, near, far,
+                                           rcfg_f, gt_values, draws.get("noise_fine"))
         for k, v in result.items():
             result_fine[k + "0"] = v
         result = result_fine
         result["z_std"] = torch.std(z_samples, dim=-1, correction=0)
 
     if rcfg.infer_depth:
-        pe = positional_encoding(rays_o[..., None, :], rcfg.field.multires)
-        de = positional_encoding(batch["viewdirs"][..., None, :], rcfg.field.multires_views)
-        out = apply_position_direction_mlp(variables["depth_mlp"], pe, de)
-        result["inferred_depth_map"] = torch.relu(out[..., 0]).squeeze(-1)
+        with span("render.depth_head"):
+            pe = positional_encoding(rays_o[..., None, :], rcfg.field.multires)
+            de = positional_encoding(batch["viewdirs"][..., None, :],
+                                     rcfg.field.multires_views)
+            out = apply_position_direction_mlp(variables["depth_mlp"], pe, de)
+            result["inferred_depth_map"] = torch.relu(out[..., 0]).squeeze(-1)
     return result
 
 

@@ -21,7 +21,10 @@ graph, with draws of their own, for the logged
 `patch_depth_smoothness` (the mean over pixels of their depths'
 population std); the loss and its gradients are those of the pixel
 step. `make_optimizer_step` turns a loss into the in-place Adam step
-that this step and the data-parallel steps of `parallel/` share.
+that this step and the data-parallel steps of `parallel/` share. With
+spans on (`utils/timing`) an update is the span `train.update` (its unit
+the state's step) over `train.forward`, `train.backward` and
+`train.optimizer`; the depth-volume pass is `train.depth_volume`.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from ibl_nerf_tpu_torch.render.renderer import (
     render_rays,
 )
 from ibl_nerf_tpu_torch.train.losses import LossConfig, Phase, compute_losses
+from ibl_nerf_tpu_torch.utils.timing import span
 
 
 def _leaves(tree) -> list[torch.Tensor]:
@@ -264,10 +268,11 @@ def loss_from_batch(variables, consts, pixel_info, rays_o, rays_d,
                          gt_values=pixel_info)
     depth_volume_result = None
     if phase.depth_loss_on and "normal" in pixel_info and n_vol > 0:
-        depth_volume_result = depth_volume_pass(
-            variables, consts, pixel_info["normal"], rays_o, rays_d, result["depth_map"],
-            rcfg_phase, near, far, n_vol,
-            vol_draws or draw_volume_uniforms(n_vol, rcfg_phase, rays_o.device))
+        with span("train.depth_volume"):
+            depth_volume_result = depth_volume_pass(
+                variables, consts, pixel_info["normal"], rays_o, rays_d, result["depth_map"],
+                rcfg_phase, near, far, n_vol,
+                vol_draws or draw_volume_uniforms(n_vol, rcfg_phase, rays_o.device))
     return compute_losses(result, pixel_info, lcfg, phase, prior_irradiance_mean, far,
                           depth_volume_result=depth_volume_result,
                           depth_volume_weight=vol_weight)
@@ -290,10 +295,12 @@ def value_and_grads(loss_fn, variables, *args):
     """(total, scalars, grads) of `loss_fn(variables, *args)`: grads as a
     list over `_leaves(variables)`, zeros for a param the loss does not
     reach (as jax.grad gives), and the scalars detached."""
-    total, scalars = loss_fn(variables, *args)
+    with span("train.forward"):
+        total, scalars = loss_fn(variables, *args)
     leaves = _leaves(variables)
-    grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    with span("train.backward"):
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     scalars = {k: v.detach() if isinstance(v, torch.Tensor) else v
                for k, v in scalars.items()}
     return total.detach(), scalars, grads
@@ -309,10 +316,11 @@ def make_optimizer_step(optimizer: NamedAdam, reduce=None):
     def build(loss_fn):
         def train_step(state: TrainState, draws: dict, *batch):
             _, scalars, grads = value_and_grads(loss_fn, state.variables, draws, *batch)
-            if reduce is not None:
-                grads, scalars = reduce(grads, scalars)
-            optimizer.update_(state.variables, _unflatten(state.variables, grads),
-                              state.opt_state)
+            with span("train.optimizer"):
+                if reduce is not None:
+                    grads, scalars = reduce(grads, scalars)
+                optimizer.update_(state.variables, _unflatten(state.variables, grads),
+                                  state.opt_state)
             state.step += 1
             return state, scalars
         return train_step
@@ -403,9 +411,10 @@ class TrainStep:
 
     def __call__(self, state: TrainState, arrays: dict, draws: dict | None = None,
                  generator: torch.Generator | None = None):
-        if draws is None:
-            draws = self.draw(arrays, generator)
-        return self._update(state, draws, arrays)
+        with span("train.update", unit=state.step):
+            if draws is None:
+                draws = self.draw(arrays, generator)
+            return self._update(state, draws, arrays)
 
 
 def make_train_step(

@@ -33,6 +33,9 @@ EXEMPT_NAMES = {
     ("kernels/fused_field_train.py", "fused_field_train"),
     # an alias of jax.lax.stop_gradient; tensors have .detach()
     ("render/renderer.py", "stop"),
+    # a host-clock phase logger nothing called (no device sync); the port
+    # names its phases with the profiler spans of the same module
+    ("utils/timing.py", "time_measure"),
 }
 
 

@@ -139,7 +139,7 @@ def test_label_maps_match_jax():
 
 
 # ---------------------------------------------------------------------------
-# timing, profile_trace, native_available
+# timeout, profile_trace, native_available
 # ---------------------------------------------------------------------------
 
 class _Records(logging.Handler):
@@ -155,17 +155,6 @@ def _capture(name):
     handler = _Records()
     load_logger(name).addHandler(handler)
     return handler
-
-
-def test_time_measure_logs_the_jax_line():
-    handler = _capture("timing_test")
-    try:
-        with timing.time_measure("phase", logger_name="timing_test"):
-            time.sleep(0.01)
-    finally:
-        load_logger("timing_test").removeHandler(handler)
-    (msg,) = handler.messages
-    assert re.fullmatch(r"phase: \d+\.\d{3}s", msg) and float(msg[7:-1]) >= 0.01
 
 
 def test_timeout_raises_and_restores_the_handler():
