@@ -21,8 +21,11 @@ Phases, one JSON line each; any failure exits non-zero:
           bit-equal to it counted; full also timed and held at the
           Monte-Carlo march's shape; its shared memory per block equal
           to kernels/fused_field_f64.smem_bytes at every K), K2
-          (raw and the 11 residuals) and K3 (the 24 weight gradients), the
-          bf16 ones each with two runs bit-identical;
+          (raw and the 11 residuals; also at the benchmark cells' shapes,
+          and its variant without residual stores, whose raw must equal
+          K2's bit for bit) and K3 (the 24 weight gradients; also fed the
+          kernel K2's residuals, against the plain backward of the plain
+          forward), the bf16 ones each with two runs bit-identical;
           errors against the stated tolerance, kernel and plain times (CUDA
           events, after warm-up), and the least time the card could take
           (FLOPs over the f32 or bf16 tensor-core rate, bytes over the
@@ -67,18 +70,20 @@ Phases, one JSON line each; any failure exits non-zero:
           update 30, then a resume to update 35. Gates: finite losses, 2
           K2 and 2 K3 launches in every step, 2 K1 full launches per step
           past the switch and none before, no K1 density launch anywhere,
-          one K1 full and one K2 launch per 2048-ray chunk of the render
-          (the fine pass's primary march runs the gradient-path query), the resume
+          one K1 full and one K2 launch (without residual stores) per
+          2048-ray chunk of the render and none with them (the fine pass's
+          primary march runs the gradient-path query), the resume
           starting at update 31, every PNG decoding at 480x640. Prints the
           scene's decode and pyramid times, ms per step and train rays/s
           (each step synchronised), the render's time and peak memory.
   eval_cli  on train_cli's newest checkpoint (ckpt_000030) and scene,
           through the CLIs' `main`s with --use_pallas --use_pallas_train
           and the defaults otherwise: `cli.test` at 480x640 with
-          --extract_mesh (one K1 full and one K2 launch per 2048-ray
-          chunk, no K1 density; 20 or more PNGs decoding at 480x640; the
-          rgb's psnr and ssim against the test image, the mesh's grid
-          and marching-cubes seconds and vertex count); an edit (albedo
+          --extract_mesh (one K1 full and one K2 launch without residual
+          stores per 2048-ray chunk, none with them, no K1 density; 20
+          or more PNGs decoding at 480x640; the rgb's psnr and ssim
+          against the test image, the mesh's grid and marching-cubes
+          seconds and vertex count); an edit (albedo
           and roughness constants on object 1) and an insert into test
           frame 1, each equal bit for bit to the plain render outside
           the mask and to its targets inside; normal_map_from_depth_
@@ -95,8 +100,8 @@ Phases, one JSON line each; any failure exits non-zero:
           (2 pages) with one embedded image per existing tile, the first
           equal to its PNG; profile_trace around cli.test at render
           factor 16 (one chunk per rendered test image): one K1 full and
-          one K2 launch a chunk, and the trace's kernel events name
-          fused_field_kernel and k2_forward as often; the orbit's frames
+          one K2 launch (without residual stores) a chunk, and the
+          trace's kernel events name fused_field_kernel and k2_forward as often; the orbit's frames
           as .mp4 and, cycled to 5,000 frames, as an OpenDML AVI of two
           or more RIFFs, both read back frame for frame; the 30-update
           fine field's 48^3 density grid on the card against the CPU's
@@ -118,9 +123,10 @@ Phases, one JSON line each; any failure exits non-zero:
           coarse and the fine pass), each at 1024 x 9 rays x 64 samples.
           Then `cli.test` on ckpt_000020 with the same heads, Monte-Carlo
           shading and --calculating_normal_type inferred_normal_map at
-          render factor 2 (38 chunks): one K2 and one K1 full launch (at
-          2048 x 9 x 64 points) per chunk and nothing else, every buffer
-          finite, the inferred_normal_map and inferred_disp PNGs written.
+          render factor 2 (38 chunks): one K2 (without residual stores)
+          and one K1 full launch (at 2048 x 9 x 64 points) per chunk and
+          nothing else, every buffer finite, the inferred_normal_map and
+          inferred_disp PNGs written.
           Prints ms per update before and after the switch and under
           Monte-Carlo shading, peak memory, cli.test's seconds per image,
           and a profiler breakdown of update 20 and of a second cli.test
@@ -827,33 +833,44 @@ def k3_design_floor(w16: dict, n: int) -> dict:
     return {**ms, "both": ms["chain"] + ms["dw"], "bytes_per_point": chain + dw}
 
 
-def k2_design_floor(w16: dict, n: int) -> dict:
+def k2_design_floor(w16: dict, n: int, residuals: bool = True) -> dict:
     """The least time K2's design could take on n points: the bytes of its
     own traffic in device memory over the memory rate. The pack reads each
     weight once and writes the slab stream; the forward reads x and the
-    stream once (later tiles find it in L2) and writes raw and the 11
-    residual planes."""
+    stream once (later tiles find it in L2) and writes raw and, with
+    `residuals`, the 11 residual planes."""
     _, n_slabs = fft.forward_schedule(fft._shapes(w16))
     stream = n_slabs * fft.SLAB_N * fft.SLAB_K * 2
     n_out, width = w16["bias"].shape[0], w16["w1"].shape[0]
     pack = sum(v.numel() * 2 for v in w16.values()) + stream
-    fwd = n * (ff.IN_COLS * 4 + n_out * 4 + len(fft._RES_ORDER) * width * 2) + stream
+    planes = len(fft._RES_ORDER) * width * 2 if residuals else 0
+    fwd = n * (ff.IN_COLS * 4 + n_out * 4 + planes) + stream
     ms = {k: b / PEAK_BYTES * 1e3 for k, b in (("pack", pack), ("forward", fwd))}
     return {**ms, "both": ms["pack"] + ms["forward"], "bytes": pack + fwd}
 
 
+# K2's point counts in the benchmark's cells: an update's coarse pass (4096
+# rays x 64 samples), its fine pass (x 192) and a 2048-ray render chunk's
+# fine pass (x 192)
+K2_CELL_SHAPES = (4096 * 64, 4096 * 192, 2048 * 192)
+
+
 def train_kernel_phase(cfg, field_params, gen) -> list[dict]:
     """K2 and K3 against their plain versions at the fine-pass (512x192)
-    and coarse-pass (512x64) point counts and at ragged ones (1 and 63
-    points: fewer pipeline stages than the ring holds; 4,097: a point
-    range of one stage), each rerun for bit-equality, and their gradients
-    against the eager paths'; timed at the fine-pass shape and by stage."""
+    and coarse-pass (512x64) point counts, at the benchmark cells' K2
+    shapes (`K2_CELL_SHAPES`, the largest also ragged) and at ragged ones
+    (1 and 63 points: fewer pipeline stages than the ring holds; 4,097: a
+    point range of one stage), each rerun for bit-equality; K2's variant
+    without residual stores against its raw bit for bit; K3 on the kernel
+    K2's residuals against the plain backward of the plain forward; their
+    gradients against the eager paths'; timed at the fine-pass shape and
+    by stage, K2 also at the cells' shapes with and without residuals."""
     w16 = fft.to_bf16(ff.pack_field_weights(field_params, cfg))
     emb = fft.emb_constants(cfg, torch.device("cuda"))
     n_out = 9 + 3 * cfg.coarse_radiance_number
     fine, coarse = 512 * (64 + 128), 512 * 64
-    errs = {"fwd": {}, "bwd": {}}
-    for n in (1, 63, 4097, fine + 37, coarse, fine):
+    errs = {"fwd": {}, "nores": {}, "bwd": {}, "chain": {}}
+    for n in (1, 63, 4097, fine + 37, coarse, *K2_CELL_SHAPES, K2_CELL_SHAPES[1] + 37, fine):
         pts = torch.rand((n, 1, 3), device="cuda", generator=gen) * 4 - 2
         dirs = torch.nn.functional.normalize(
             torch.randn((n, 3), device="cuda", generator=gen), dim=-1)
@@ -861,28 +878,42 @@ def train_kernel_phase(cfg, field_params, gen) -> list[dict]:
         g = torch.randn((n, n_out), device="cuda", generator=gen) * 1e-3
         raw, res = fft._launch_fwd(x, w16, emb)
         raw_again, res_again = fft._launch_fwd(x, w16, emb)
+        raw_nr, res_nr = fft._launch_fwd(x, w16, emb, residuals=False)
+        raw_nr_again, _ = fft._launch_fwd(x, w16, emb, residuals=False)
         raw_p, res_p = fft.train_forward_plain(x, w16, emb)
         dw = fft._launch_bwd(x, g, res_p, w16, emb)
         dw_again = fft._launch_bwd(x, g, res_p, w16, emb)
+        dw_k2 = fft._launch_bwd(x, g, res, w16, emb)   # fed the kernel K2's residuals
         dw_p = fft.train_backward_plain(x, g, res_p, w16, emb)
         torch.cuda.synchronize()
         fwd = {"raw": rel_err(raw, raw_p)}
         fwd.update({k: rel_err(res[i], res_p[i]) for i, k in enumerate(fft._RES_ORDER)})
         bwd = {k: rel_err(dw[k], dw_p[k]) for k in fft._DW_ORDER}
+        chain = {k: rel_err(dw_k2[k], dw_p[k]) for k in fft._DW_ORDER}
         if not torch.isfinite(raw).all() or not all(torch.isfinite(v).all() for v in dw.values()):
             fail("kernel", f"K2/K3: non-finite output at {n} points")
         if not (torch.equal(raw, raw_again) and torch.equal(res, res_again)):
             fail("kernel", f"K2: two runs on the same inputs differ at {n} points")
+        if res_nr is not None or not (torch.equal(raw_nr, raw)
+                                      and torch.equal(raw_nr, raw_nr_again)):
+            fail("kernel", f"K2 without residual stores: raw not bit-equal to K2's, or to its "
+                 f"own rerun, or planes returned at {n} points")
         if not all(torch.equal(dw[k], dw_again[k]) for k in fft._DW_ORDER):
             fail("kernel", f"K3: two runs on the same inputs differ at {n} points")
-        for name, e in (("K2", fwd), ("K3", bwd)):
+        for name, e in (("K2", fwd), ("K3", bwd), ("K3 on K2's residuals", chain)):
             worst = max(e, key=e.get)
             if not e[worst] <= TRAIN_KERNEL_REL:
                 fail("kernel", f"{name} at {n} points: block {worst} off by "
                      f"{e[worst]:.3e} relative (bound {TRAIN_KERNEL_REL})")
-        errs["fwd"][n], errs["bwd"][n] = fwd, bwd
+        errs["fwd"][n], errs["nores"][n], errs["bwd"][n], errs["chain"][n] = (
+            fwd, {"raw": fwd["raw"]}, bwd, chain)
         max_abs = {"fwd": (raw - raw_p).abs().max().item(),
                    "bwd": max((dw[k] - dw_p[k]).abs().max().item() for k in dw)}
+        max_abs["nores"] = max_abs["fwd"]
+        del raw, res, raw_again, res_again, raw_nr, raw_nr_again, raw_p, res_p
+        del dw, dw_again, dw_k2, dw_p
+        torch.cuda.empty_cache()
+    res_p = fft.train_forward_plain(x, w16, emb)[1]
 
     grad_err = field_grad_errors(cfg, field_params, gen, 512, 64 + 128)
     if not grad_err["kernels"] <= GRAD_RATIO * grad_err["eager_bf16"]:
@@ -893,29 +924,44 @@ def train_kernel_phase(cfg, field_params, gen) -> list[dict]:
 
     # timing at the fine-pass shape, in turns: plain, kernel, kernel, plain
     iters = 5
-    f_flops, b_flops = (f * fine for f in train_field_flops(cfg))
+    f_flop, b_flop = train_field_flops(cfg)
+    f_flops, b_flops = f_flop * fine, b_flop * fine
     weight_bytes = sum(v.numel() * 2 for v in w16.values())
-    io_bytes = fine * (ff.IN_COLS * 4 + n_out * 4 + len(fft._RES_ORDER) * cfg.width * 2)
+    raw_bytes = ff.IN_COLS * 4 + n_out * 4            # a point's input and raw
+    res_bytes = len(fft._RES_ORDER) * cfg.width * 2   # and its residual planes
+    io_bytes = fine * (raw_bytes + res_bytes)
     dw_bytes = sum(v.numel() * 4 for v in w16.values())
     cases = [
         ("fused_field_train_fwd", "ibl_nerf_tpu/kernels/fused_field_train.py:110",
          lambda: fft._launch_fwd(x, w16, emb),
          lambda: fft.train_forward_plain(x, w16, emb),
-         f_flops, io_bytes + weight_bytes),
+         f_flops, io_bytes + weight_bytes, "fwd"),
+        ("fused_field_train_fwd_nores", "ibl_nerf_tpu/kernels/fused_field_train.py:110",
+         lambda: fft._launch_fwd(x, w16, emb, residuals=False),
+         lambda: fft.train_forward_plain(x, w16, emb, residuals=False),
+         f_flops, fine * raw_bytes + weight_bytes, "nores"),
         ("fused_field_train_bwd", "ibl_nerf_tpu/kernels/fused_field_train.py:143",
          lambda: fft._launch_bwd(x, g, res_p, w16, emb),
          lambda: fft.train_backward_plain(x, g, res_p, w16, emb),
-         b_flops, io_bytes + weight_bytes + dw_bytes),
+         b_flops, io_bytes + weight_bytes + dw_bytes, "bwd"),
     ]
     report = []
-    for (name, replaces, kern, plain, flops, nbytes), which in zip(cases, ("fwd", "bwd")):
+    for name, replaces, kern, plain, flops, nbytes, which in cases:
         kern(), plain()
         p1, k1, k2, p2 = (time_ms(plain, iters), time_ms(kern, iters),
                           time_ms(kern, iters), time_ms(plain, iters))
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         worst = {n: max(e.values()) for n, e in errs[which].items()}
-        stages = stage_ms(kern, "k2_" if which == "fwd" else "k3_")
-        floor = (k2_design_floor if which == "fwd" else k3_design_floor)(w16, fine)
+        stages = stage_ms(kern, "k3_" if which == "bwd" else "k2_")
+        floor = (k3_design_floor(w16, fine) if which == "bwd"
+                 else k2_design_floor(w16, fine, residuals=which == "fwd"))
+        extra = {}
+        if which == "bwd":
+            extra["worst_rel_err_on_k2_residuals_by_points"] = {
+                n: max(e.values()) for n, e in errs["chain"].items()}
+        else:   # K2 at the cells' shapes
+            extra["cells_ms"] = k2_cell_times(cfg, w16, emb, gen, which == "fwd",
+                                              raw_bytes, res_bytes, weight_bytes)
         report.append({
             "name": name, "route": "cuda",
             "source": "ibl_nerf_tpu_torch/csrc/fused_field_train.cu",
@@ -931,8 +977,35 @@ def train_kernel_phase(cfg, field_params, gen) -> list[dict]:
              rel_bound=TRAIN_KERNEL_REL, max_abs_err_fine=max_abs[which],
              ms=[k1, k2], plain_ms=[p1, p2], bound_ops_ms=t_ops,
              bound_bytes_ms=t_bytes, design_floor_ms=floor,
-             tflops=flops / ((k1 + k2) / 2) / 1e9, stage_ms=stages)
+             tflops=flops / ((k1 + k2) / 2) / 1e9, stage_ms=stages, **extra)
     return report
+
+
+def k2_cell_times(cfg, w16, emb, gen, residuals: bool, raw_bytes: int, res_bytes: int,
+                  weight_bytes: int) -> dict:
+    """K2 (with or without residual stores) at each of `K2_CELL_SHAPES`:
+    ms of two timed runs (CUDA events) and the bound at that shape, the
+    larger of the products at the bf16 peak and the bytes at the memory
+    rate."""
+    f_flop = train_field_flops(cfg)[0]
+    out = {}
+    for n in K2_CELL_SHAPES:
+        pts = torch.rand((n, 1, 3), device="cuda", generator=gen) * 4 - 2
+        dirs = torch.nn.functional.normalize(
+            torch.randn((n, 3), device="cuda", generator=gen), dim=-1)
+        x = ff._pack_inputs(pts, dirs)
+
+        def kern():
+            return fft._launch_fwd(x, w16, emb, residuals=residuals)
+
+        kern()
+        ms = [time_ms(kern, 5), time_ms(kern, 5)]
+        nbytes = n * (raw_bytes + (res_bytes if residuals else 0)) + weight_bytes
+        bound = max(f_flop * n / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        out[n] = {"ms": ms, "bound_ms": bound, "ns_per_point": min(ms) * 1e6 / n}
+        del x
+        torch.cuda.empty_cache()
+    return out
 
 
 def _look_at(eye: np.ndarray) -> np.ndarray:
@@ -1563,8 +1636,9 @@ def train_cli_phase(kernels, card: str) -> dict:
     (render,) = first["render"]
     n_chunks = -(-TRAIN_H * TRAIN_W // CLI_CHUNK)
     # per chunk: the fine pass's primary march on K2 (the gradient-path
-    # query, as in JAX's render) and its reflected march on K1 full
-    want = {"fused_field_apply": n_chunks, "fused_field_train_fwd": n_chunks}
+    # query, as in JAX's render; no backward, so without residual stores)
+    # and its reflected march on K1 full
+    want = {"fused_field_apply": n_chunks, "fused_field_train_fwd_nores": n_chunks}
     if {k: v for k, v in render["launches"].items() if v} != want:
         fail("train_cli", f"the test-set render launched {render['launches']}, expected "
              f"{want} (one of each per chunk) and nothing else")
@@ -1745,9 +1819,11 @@ def eval_cli_phase(kernels, card: str) -> dict:
         return results
 
     full_chunks = -(-TRAIN_H * TRAIN_W // CLI_CHUNK)
-    primary = {"fused_field_apply": 1, "fused_field_train_fwd": 1}  # reflected + primary march
+    # reflected march + primary march (K2 without residual stores: no backward)
+    primary = {"fused_field_apply": 1, "fused_field_train_fwd_nores": 1}
 
-    # cli.test at 480x640 with the mesh: one K1 full and one K2 a chunk, no K1 density
+    # cli.test at 480x640 with the mesh: one K1 full and one K2 (no residual
+    # stores) a chunk, no K1 density
     plain = run("test", cli_test.main, eval_argv("--extract_mesh"), primary, full_chunks)
     testdir = CLI_DIR / "logs_eval" / "train_cli" / f"testset_{CLI_N_ITER:06d}"
     pngs = sorted(testdir.glob("*.png"))
@@ -1972,7 +2048,8 @@ def tools_phase(kernels, card: str, eval_report: dict, device="cuda") -> dict:
                       device=device)
         seconds["profiled_test"] = time.perf_counter() - t0
     launches = {k: v for k, v in _launch_counts().items() if v}
-    want_launches = {"fused_field_apply": len(names), "fused_field_train_fwd": len(names)}
+    want_launches = {"fused_field_apply": len(names),
+                     "fused_field_train_fwd_nores": len(names)}
     names_in_trace = trace_kernels(TOOLS_DIR / "trace" / timing.TRACE_NAME)
     seen = {sym: sum(sym in n for n in names_in_trace)
             for sym in ("fused_field_kernel", "k2_forward")}
@@ -2187,9 +2264,10 @@ def aux_cli_phase(kernels, card: str) -> dict:
     test_s = time.perf_counter() - t0
     test_launches = {k: v for k, v in _launch_counts().items() if v}
     add_totals()
-    # per chunk: the fine pass's primary march on K2 and its incident march
-    # on K1 full; the coarse pass density-only, no ε sweep
-    want = {"fused_field_apply": n_chunks, "fused_field_train_fwd": n_chunks}
+    # per chunk: the fine pass's primary march on K2 (without residual
+    # stores) and its incident march on K1 full; the coarse pass
+    # density-only, no ε sweep
+    want = {"fused_field_apply": n_chunks, "fused_field_train_fwd_nores": n_chunks}
     if test_launches != want:
         fail(phase, f"cli.test launched {test_launches}, expected {want}")
     if test_points != [CHUNK * MC_DIRS * K1_MC_SHAPE[1]] * n_chunks:

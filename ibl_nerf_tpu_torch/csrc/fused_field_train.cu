@@ -10,34 +10,46 @@
 // K2, per point: emb = where(id, t, sin(t + phase)), t = x @ E, rounded to
 // bf16; the 8-layer trunk (layer 5 reads emb and h4); pf = relu(h@wpf+bpf),
 // ft = h@wfeat+bfeat, hv = relu(ft@wv_f + emb@wv_d + bv), vf = relu(hv@wcf +
-// bcf); each layer sums in f32, adds its bias, applies relu and rounds to
-// bf16. raw = h@A + pf@B + hv@C + vf@D + bias stays f32, (N, 9+3K). It also
-// writes the 11 residuals h0..h7, pf, ft, hv as bf16 (N, 256) planes.
+// bcf); each layer sums its bias and products in f32 (the wgmma accumulators
+// start from the bias), applies relu and rounds to bf16. raw = h@A + pf@B +
+// hv@C + vf@D + bias stays f32, (N, 9+3K). It also writes the 11 residuals
+// h0..h7, pf, ft, hv as bf16 (N, 256) planes, unless the call has no
+// backward to read them.
 //
 // K3 recomputes emb and vf, replays the reverse chain (relu masks from the
 // saved bf16 activations, g rounded to bf16) and reduces the 24 weight and
 // bias gradients over the points in f32. It returns no gradient for x.
 //
-// What bounds them: at 8x256 a point costs ~1.6 MFLOP forward and ~3.3
-// MFLOP backward but moves ~5.7 KB (mostly the residuals), ~280 and ~580
-// operations per byte: at the bf16 tensor-core rate (989 TFLOP/s) over
-// 3.35 TB/s (~295 per byte) K2 sits at the ridge and K3 just above it. At
-// the fine pass (98,304 points) K2's bound is 0.169 ms (0.566 GB: x, raw
-// and the residuals) and its design floor 0.170 ms (the same bytes, plus
-// its weight stream written once and read once).
+// What bounds K2: bytes, with the residuals. At 8x256 a point costs ~1.6
+// MFLOP but writes 5,632 B of residuals (and reads 32 B, writes 72 B of raw
+// at K = 3), ~280 operations per byte, just under the ridge of the bf16
+// tensor cores (989 TFLOP/s) over 3.35 TB/s (~295 per byte): 1.8 ms at an
+// update's 1,048,576 points, of which the products alone need 1.69 ms.
+// Without residuals it is bound by operations (~10^4 a byte).
 //
-// What the design does about it: every product runs on the tensor cores as
-// warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate). A block owns 64
-// points and keeps their activations on chip, bf16 in shared memory, rows
-// padded by 8 so that the fragment loads of a warp hit 32 distinct banks.
-// Weights (1.7 MB bf16, far more than shared memory) are packed once a call
-// into slabs laid out in the order a kernel consumes them (k2_pack_slabs,
-// k3_pack_slabs) and stream through a ring of slabs in shared memory
-// (cp.async), shared by all 8 warps, from which ldmatrix hands the tensor
-// cores their B fragments. K2 is one such chain of layers, K3's stage 1
-// another. The residuals and deltas leave shared memory as 16-byte row
-// stores. What still holds the chains above their floors on this card is
-// issuing mma.sync at one block per SM and the cost of each slab (PERF.md).
+// What K2's design does about it: the kernel body is the wgmma field chain
+// of csrc/wgmma_field.cuh, which K1 at bf16 weights (csrc/fused_field_bf16.cu)
+// runs too: a persistent grid of one block per SM, 128-point tiles held by
+// two consumer warpgroups, every product a warpgroup wgmma from shared
+// memory, the forward_schedule slabs brought by a producer warpgroup's TMA
+// into a ring tracked by mbarriers, the activations kept in shared memory
+// as swizzled K-major bf16 and the head accumulators in registers. The
+// residual planes leave from those activations by TMA bulk stores, one
+// k-block box at a time, while the next layer's products run; a call with
+// no backward (no grad, or no weight that requires one) launches the
+// variant that stores none and allocates no planes (k2_forward<false>).
+//
+// K3's chain still runs on warp-level mma.sync m16n8k16 (bf16 in, f32
+// accumulate). A block owns 64 points and keeps their activations on chip,
+// bf16 in shared memory, rows padded by 8 so that the fragment loads of a
+// warp hit 32 distinct banks. Weights (1.7 MB bf16, far more than shared
+// memory) are packed once a call into slabs laid out in the order a kernel
+// consumes them (k3_pack_slabs) and stream through a ring of slabs in
+// shared memory (cp.async), shared by all 8 warps, from which ldmatrix
+// hands the tensor cores their B fragments. The deltas leave shared memory
+// as 16-byte row stores. What still holds the chain above its floor on
+// this card is issuing mma.sync at one block per SM and the cost of each
+// slab (PERF.md).
 //
 // The TPU kernel accumulated all 24 gradients across a sequential grid in
 // VMEM. Blocks here run in parallel, so K3 is split in two stages:
@@ -64,13 +76,13 @@
 #include <cstdint>
 
 #include "slab_stream.cuh"
+#include "wgmma_field.cuh"
 
 namespace {
 
-constexpr int kTile = 64;        // points per block of K2 and the delta chain
+constexpr int kTile = 64;        // points per block of the delta chain
 constexpr int kThreads = 256;    // 8 warps
 constexpr int kPad = 8;          // bf16 of padding per shared-memory row
-constexpr int kLdX = kLane + kPad;
 constexpr int kLdH = kWidth + kPad;
 constexpr int kGCols = 32;       // g (9+3K columns) padded to a k multiple of 16
 constexpr int kLdG = kGCols + kPad;
@@ -174,12 +186,12 @@ __device__ __forceinline__ float lo_bf(uint32_t v) { return __uint_as_float(v <<
 __device__ __forceinline__ float hi_bf(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 
 // ---------------------------------------------------------------------------
-// Chains of layers, weights streamed through shared memory (K2, K3 stage 1)
+// Chains of layers, weights streamed through shared memory (K3 stage 1)
 // ---------------------------------------------------------------------------
 
-// A chain's weights come as a slab stream (slab_stream.cuh: k2_pack_slabs,
-// k3_pack_slabs; the plain versions are forward_slabs and chain_slabs in
-// kernels/fused_field_train.py), kSlabN rows of kSlabK each. A ring of kRing slabs in shared memory is filled by cp.async, kRing - 1
+// A chain's weights come as a slab stream (slab_stream.cuh: k3_pack_slabs;
+// the plain version is chain_slabs in kernels/fused_field_train.py), kSlabN
+// rows of kSlabK each. A ring of kRing slabs in shared memory is filled by cp.async, kRing - 1
 // slabs ahead of the products, across pass and layer boundaries; all 8
 // warps share it. What bounds a chain on this card is shared memory's
 // bandwidth for the operand fragments and the block barrier each slab
@@ -339,141 +351,24 @@ __device__ __forceinline__ void chain_layer(const ChainOp (&ops)[NOPS], int n_co
   __syncthreads();
 }
 
-// K2's output heads: O (64 x n_out f32, row stride ldo, n_out <= kNarrowN)
-// = the sum over the operands, plus O as it was when add; B from the ring
-// as narrow slabs. Warp w owns rows 16*(w%4).. and columns 16*(w/4)..; each
-// sum takes its k-steps of 16 in order, operand after operand, as in
-// chain_layer. Ends with __syncthreads().
-template <int NOPS>
-__device__ __forceinline__ void head_layer(const ChainOp (&ops)[NOPS], SlabRing& ring,
-                                           float* O, int ldo, int n_out, bool add) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = (warp & 3) * 16, nl = (warp >> 2) * 16;
-  const int g = lane >> 2, t = lane & 3, q = lane >> 3, rr = lane & 7;
-  float acc[2][4] = {};
-#pragma unroll
-  for (int o = 0; o < NOPS; ++o) {
-    const ChainOp& op = ops[o];
-    const bf16_t* slab = nullptr;
-    for (int k0 = 0; k0 < op.k_dim; k0 += 16) {
-      const int ks = k0 % kNarrowK;
-      if (ks == 0) slab = ring.next();
-      uint32_t a[4], b[4];
-      ldsm_x4(a, op.a + (row0 + rr + 8 * (q & 1)) * op.lda + k0 + 8 * (q >> 1));
-      ldsm_x4(b, slab + (ks / kSlabK * kNarrowN + nl + rr + 8 * (q >> 1)) * kLdSlab +
-                     ks % kSlabK + 8 * (q & 1));
-      mma16816(acc[0], a[0], a[1], a[2], a[3], b[0], b[1]);
-      mma16816(acc[1], a[0], a[1], a[2], a[3], b[2], b[3]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = row0 + g + 8 * (e >> 1), c = nl + 8 * j + 2 * t + (e & 1);
-      if (c < n_out) O[r * ldo + c] = add ? O[r * ldo + c] + acc[j][e] : acc[j][e];
-    }
-  __syncthreads();
-}
-
 // ---------------------------------------------------------------------------
 // K2: forward
 // ---------------------------------------------------------------------------
 
-// The forward's biases, bf16 as packed.
-struct Biases {
-  const bf16_t *tb, *bpf, *bfeat, *bv, *bcf, *bias;
-};
+// K2: raw (n, n_out) f32 and, with kRes, the 11 residual planes, by the
+// wgmma field chain (wgmma_field.cuh's field_block over the full variant's
+// stream, in the order of forward_schedule in kernels/fused_field_train.py).
+template <bool kRes>
+__global__ void __launch_bounds__(wgfield::kThreads, 1)
+    k2_forward(const __grid_constant__ CUtensorMap slab_map,
+               const __grid_constant__ CUtensorMap res_map, const wgfield::Params P) {
+  wgfield::field_block<false, kRes>(&slab_map, &res_map, P);
+}
 
-// K2: raw (n, n_out) f32 and the 11 residual planes. Layer after layer
-// through chain_layer and head_layer, in the order of forward_schedule in
-// kernels/fused_field_train.py: every summand's products, k order and
-// rounding are those of the plain version. Shared memory: the ring, then
-// hv's buffer HB, the embedding X and HA; vf overwrites X and HA, which
-// nothing reads after hv.
-__global__ void __launch_bounds__(kThreads, 1)
-    k2_forward(const float* __restrict__ x, long long n, Emb emb, Biases bs,
-               const bf16_t* __restrict__ slabs, int n_slabs, Dims d,
-               float* __restrict__ raw, bf16_t* __restrict__ res) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ld_vf = d.vf_cols + kPad;
-  const int ld_o = (d.n_out + 7) / 8 * 8;
-  bf16_t* R = reinterpret_cast<bf16_t*>(smem);  // the slab ring
-  bf16_t* HB = R + kRing * kSlabSmem;            // trunk    [64][kLdH]
-  bf16_t* X = HB + kTile * kLdH;                 // emb      [64][kLdX]
-  bf16_t* HA = X + kTile * kLdX;                 // trunk    [64][kLdH]
-  bf16_t* VF = X;                                // vf       [64][ld_vf]
-  float* O = reinterpret_cast<float*>(X + kTile * max(kLdX + kLdH, ld_vf));  // raw [64][ld_o]
-
-  SlabRing ring{R, slabs, n_slabs, 0, 0};
-  ring.start();  // the first weight slabs load while the embedding is made
-
-  const long long base = static_cast<long long>(blockIdx.x) * kTile;
-  const long long plane = n * kWidth;
-  for (int idx = threadIdx.x; idx < kTile * kLane; idx += kThreads) {
-    const int r = idx / kLane, l = idx % kLane;
-    X[r * kLdX + l] = f2bf(embed(x, base + r, n, l, emb));
-  }
-  __syncthreads();
-
-  auto relu_bias = [](bf16_t* dst, int ld, const bf16_t* bias) {
-    return ChainEpi{dst, ld, bias, nullptr, 0, nullptr, 0, 0};
-  };
-  bf16_t* H[2] = {HA, HB};
-  {
-    const ChainOp ops[1] = {{X, kLdX, kLane}};
-    chain_layer(ops, kWidth, ring, relu_bias(HA, kLdH, bs.tb));
-    store_tile(res, kWidth, HA, kLdH, base, n);
-  }
-  for (int i = 1; i <= 7; ++i) {  // h_i from h_{i-1}: ping-pong HA/HB
-    bf16_t* in = H[(i - 1) & 1];
-    bf16_t* out = H[i & 1];
-    const ChainEpi epi = relu_bias(out, kLdH, bs.tb + i * kWidth);
-    if (i == 5) {
-      const ChainOp ops[2] = {{X, kLdX, kLane}, {in, kLdH, kWidth}};
-      chain_layer(ops, kWidth, ring, epi);
-    } else {
-      const ChainOp ops[1] = {{in, kLdH, kWidth}};
-      chain_layer(ops, kWidth, ring, epi);
-    }
-    store_tile(res + i * plane, kWidth, out, kLdH, base, n);
-  }
-  // h7 is in HB
-  {
-    const ChainOp ops[1] = {{HB, kLdH, kWidth}};
-    chain_layer(ops, kWidth, ring, relu_bias(HA, kLdH, bs.bpf));  // pf
-    store_tile(res + kPf * plane, kWidth, HA, kLdH, base, n);
-  }
-  {
-    const ChainOp ops[2] = {{HB, kLdH, kWidth}, {HA, kLdH, kWidth}};
-    head_layer(ops, ring, O, ld_o, d.n_out, false);  // h7 @ A + pf @ B
-  }
-  {
-    const ChainOp ops[1] = {{HB, kLdH, kWidth}};
-    ChainEpi epi = relu_bias(HA, kLdH, bs.bfeat);
-    epi.relu = false;
-    chain_layer(ops, kWidth, ring, epi);  // ft
-    store_tile(res + kFt * plane, kWidth, HA, kLdH, base, n);
-  }
-  {
-    const ChainOp ops[2] = {{HA, kLdH, kWidth}, {X, kLdX, kLane}};
-    chain_layer(ops, kWidth, ring, relu_bias(HB, kLdH, bs.bv));  // hv
-    store_tile(res + kHv * plane, kWidth, HB, kLdH, base, n);
-  }
-  {
-    const ChainOp ops[1] = {{HB, kLdH, kWidth}};
-    chain_layer(ops, d.vf_cols, ring, relu_bias(VF, ld_vf, bs.bcf));  // vf
-  }
-  {
-    const ChainOp ops[2] = {{HB, kLdH, kWidth}, {VF, ld_vf, d.vf_cols}};
-    head_layer(ops, ring, O, ld_o, d.n_out, true);  // + hv @ C + vf @ D
-  }
-  for (int idx = threadIdx.x; idx < kTile * d.n_out; idx += kThreads) {
-    const int r = idx / d.n_out, c = idx % d.n_out;
-    const long long p = base + r;
-    if (p < n) raw[p * d.n_out + c] = O[r * ld_o + c] + bf2f(__ldg(bs.bias + c));
-  }
-  cp_async_wait<0>();
+template <bool kRes>
+cudaError_t k2_set_smem() {
+  return cudaFuncSetAttribute(k2_forward<kRes>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(wgfield::smem_bytes(false)));
 }
 
 // ---------------------------------------------------------------------------
@@ -801,13 +696,6 @@ __global__ void k3_reduce(const float* __restrict__ partial, int splits,
   dw[i] = s;
 }
 
-size_t forward_smem(const Dims& d) {
-  const int ld_o = (d.n_out + 7) / 8 * 8;
-  return sizeof(bf16_t) * (kRing * kSlabSmem +
-                           kTile * (kLdH + max(kLdX + kLdH, d.vf_cols + kPad))) +
-         sizeof(float) * kTile * ld_o;
-}
-
 size_t chain_smem(const Dims& d) {
   return sizeof(bf16_t) * (kTile * (kLdG + 2 * kLdH + max(d.vf_cols, kWidth) + kPad) +
                            kRing * kSlabSmem);
@@ -824,9 +712,13 @@ bool dims_ok(long long n, int n_weights, int width, const Dims& d) {
 // Launches K2 on `stream`, two kernels in order:
 //   k2_pack_slabs  the forward's weights into `slabs` (n_slabs slabs), per
 //                  slab op as for K3's pack (see below);
-//   k2_forward     raw (n, n_out) f32 and res (11, n, 256) bf16.
+//   k2_forward     raw (n, n_out) f32 and res (11, n, 256) bf16, or with res
+//                  null raw alone (the variant without residual stores),
+//                  one block per SM (at most one per tile).
 // wn: kNumDw device pointers in DwIndex order, as packed ([in][out]).
-// Returns 0, a cudaError_t, or -1 for arguments the kernels do not take.
+// n_out <= 32 (K <= 7), vf_cols a multiple of 128; with res, n < 2^31.
+// Returns 0, a cudaError_t, -1 for arguments the kernels do not take, or -2
+// when the driver cannot encode a tensor map.
 extern "C" int fused_field_train_fwd_launch(
     const float* x, long long n, const float* emb_E, const float* emb_phase,
     const float* emb_id, const void* const* wn, int n_weights, int width,
@@ -835,24 +727,32 @@ extern "C" int fused_field_train_fwd_launch(
   const Dims d{n_out, vf_cols};
   SlabOps so;
   int max_slabs;
-  if (!dims_ok(n, n_weights, width, d) || n_slabs != forward_slab_count(d) ||
-      !read_slab_ops(slab_ops, n_slab_ops, wn, n_slabs, so, max_slabs))
+  if (!dims_ok(n, n_weights, width, d) || vf_cols % 128 || (res && n > INT_MAX) ||
+      n_slabs != forward_slab_count(d) ||
+      !read_slab_ops(slab_ops, n_slab_ops, wn, n_slabs, so, max_slabs) ||
+      reinterpret_cast<uintptr_t>(slabs) % 16 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(res) % 16)
     return -1;
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   k2_pack_slabs<<<dim3(max_slabs, n_slab_ops), kThreads, 0, s>>>(so, static_cast<bf16_t*>(slabs));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto w = [&](int i) { return static_cast<const bf16_t*>(wn[i]); };
-  const Biases bs{w(kTb), w(kBpf), w(kBfeat), w(kBv), w(kBcf), w(kBias)};
-  const size_t smem = forward_smem(d);
-  err = cudaFuncSetAttribute(k2_forward, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>((n + kTile - 1) / kTile);
-  k2_forward<<<blocks, kThreads, smem, s>>>(x, n, Emb{emb_E, emb_phase, emb_id}, bs,
-                                            static_cast<const bf16_t*>(slabs), n_slabs, d, raw,
-                                            static_cast<bf16_t*>(res));
+  CUtensorMap slab_map, res_map{};
+  if (!wgfield::encode_slab_map(&slab_map, slabs, n_slabs) ||
+      (res && !wgfield::encode_res_map(&res_map, res, n)))
+    return -2;
+  const wgfield::Params P = wgfield::make_params(x, n, Emb{emb_E, emb_phase, emb_id}, wn,
+                                                 n_out, vf_cols, n_slabs, raw);
+  unsigned grid;
+  if ((err = wgfield::persistent_grid(P.n_tiles, &grid)) != cudaSuccess ||
+      (err = res ? k2_set_smem<true>() : k2_set_smem<false>()) != cudaSuccess)
+    return static_cast<int>(err);
+  const uint32_t smem = wgfield::smem_bytes(false);
+  if (res)
+    k2_forward<true><<<grid, wgfield::kThreads, smem, s>>>(slab_map, res_map, P);
+  else
+    k2_forward<false><<<grid, wgfield::kThreads, smem, s>>>(slab_map, res_map, P);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,8 +16,9 @@ Like the JAX kernel, it computes in the dtype of the packed weights
 - bf16 (the renderer's no-grad dtype under compute_dtype "bfloat16" and
   "mixed"): the embedding rounded to bf16, bf16 products summed in f32,
   every layer rounded to bf16 after its bias and relu, raw in f32, where
-  K2 rounds: `csrc/fused_field_bf16.cu`, wgmma over 128-point tiles with
-  the weights streamed by TMA, launched by `fused_field_bf16.launch`;
+  K2 rounds: `csrc/fused_field_bf16.cu` on K2's kernel body
+  (`csrc/wgmma_field.cuh`: wgmma over 128-point tiles with the weights
+  streamed by TMA), launched by `fused_field_bf16.launch`;
 - f64 (the no-grad dtype under compute_dtype "float64", the strict-parity
   mode): the embedding in f32 (sinf) widened to f64, each product summed
   in f64 and rounded to f32 before its f64 bias (the skip's and the view

@@ -1,5 +1,6 @@
 """K1 at bf16 weights: the launch of csrc/fused_field_bf16.cu, and the
-Python mirror of its tiling and shared-memory layout.
+Python mirror of its tiling and shared-memory layout (the kernel body of
+csrc/wgmma_field.cuh, which K2 runs too).
 
 The kernel computes what `fused_field_train.field_bf16_plain` computes
 (its plain version), from the slab stream of `density_schedule` or

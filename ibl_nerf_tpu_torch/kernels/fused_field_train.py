@@ -8,11 +8,16 @@ query of the coarse and fine passes through `fused_field_apply_train`
 under `use_pallas_train` with bf16 gradients.
 
 - K2 (`csrc/fused_field_train.cu`: `k2_pack_slabs`, `k2_forward`,
-  launched together by one entry point): per point the embedding, the
-  8-layer trunk and every head with bf16 operands and f32 accumulation,
-  its weights streamed as slabs (`forward_schedule`, `forward_slabs`). It
-  writes the raw output (N, 9+3K) in f32 and the 11 bf16 residuals
-  `h0..h7, pf, ft, hv` (`_RES_ORDER`) for the backward.
+  launched together by one entry point; its body is the wgmma field chain
+  of `csrc/wgmma_field.cuh`, which K1 at bf16 weights runs too): per point
+  the embedding, the 8-layer trunk and every head with bf16 operands and
+  f32 accumulation, its weights streamed as slabs (`forward_schedule`,
+  `forward_slabs`). It writes the raw output (N, 9+3K) in f32 and the 11
+  bf16 residuals `h0..h7, pf, ft, hv` (`_RES_ORDER`) for the backward; a
+  call that no backward follows (`fused_field_apply_train` with grad off,
+  or no packed weight that requires grad) launches its variant without
+  residual stores, which allocates no planes and gives the same raw bit
+  for bit.
 - K3 (`k3_pack_slabs`, `k3_delta_chain`, `k3_dw_gemm`, `k3_reduce`,
   launched together by one entry point): recomputes the embedding and the
   coarse features `vf`, replays the reverse chain with relu masks read
@@ -86,7 +91,9 @@ _DW_SUMS = ([("tb", i, f"d{i}") for i in range(8)]
                ("bcf", None, "dvf"), ("bias", None, "g")])
 
 # Launches of each kernel per wrapper; the plain versions never count.
-LAUNCHES = {"fused_field_train_fwd": 0, "fused_field_train_bwd": 0}
+# "fused_field_train_fwd_nores": K2 without its residual stores.
+LAUNCHES = {"fused_field_train_fwd": 0, "fused_field_train_fwd_nores": 0,
+            "fused_field_train_bwd": 0}
 
 
 def emb_constants(cfg: FieldConfig, device) -> dict[str, torch.Tensor]:
@@ -132,8 +139,10 @@ def _trunk_plain(xe: torch.Tensor, w16: dict) -> list[torch.Tensor]:
     return hs
 
 
-def train_forward_plain(x: torch.Tensor, w16: dict, emb: dict):
-    """K2's math: (N, 8) -> (raw (N, 9+3K) f32, residuals (11, N, W) bf16)."""
+def train_forward_plain(x: torch.Tensor, w16: dict, emb: dict, residuals: bool = True):
+    """K2's math: (N, 8) -> (raw (N, 9+3K) f32, residuals (11, N, W) bf16);
+    with `residuals` False the residuals are None (K2's variant without
+    residual stores)."""
     xe = _embed(x, emb).to(torch.bfloat16)
     hs = _trunk_plain(xe, w16)
     h = hs[-1]
@@ -143,7 +152,7 @@ def train_forward_plain(x: torch.Tensor, w16: dict, emb: dict):
     vf = _layer(w16, (hv, "wcf"), bias=w16["bcf"].float())
     raw = (_mmf(h, w16["A"]) + _mmf(pf, w16["B"]) + _mmf(hv, w16["C"])
            + _mmf(vf, w16["D"]) + w16["bias"].float())
-    return raw, torch.stack(hs + [pf, ft, hv])
+    return raw, (torch.stack(hs + [pf, ft, hv]) if residuals else None)
 
 
 def field_bf16_plain(x: torch.Tensor, w16: dict, emb: dict,
@@ -153,7 +162,7 @@ def field_bf16_plain(x: torch.Tensor, w16: dict, emb: dict,
     so the full variant is K2's raw (N, 9+3K) and the density variant the
     same trunk, then sigma = h7 @ A[:, :1] + bias[:1] in f32, (N, 1)."""
     if not density_only:
-        return train_forward_plain(x, w16, emb)[0]
+        return train_forward_plain(x, w16, emb, residuals=False)[0]
     h = _trunk_plain(_embed(x, emb).to(torch.bfloat16), w16)[-1]
     return _mmf(h, w16["A"][:, :1]) + w16["bias"][:1].float()
 
@@ -482,14 +491,16 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch_fwd(x, w16, emb):
+def _launch_fwd(x, w16, emb, residuals: bool = True):
+    """K2 on CUDA tensors: (raw, the residual planes), or with `residuals`
+    False (raw, None) from the variant that stores and allocates none."""
     n_out = w16["bias"].shape[0]
     _check(x, w16, emb, n_out)
     n, width, vf_cols = x.shape[0], KERNEL_WIDTH, w16["wcf"].shape[1]
     sched, n_slabs = forward_schedule(_shapes(w16))
     raw = torch.empty((n, n_out), dtype=torch.float32, device=x.device)
     res = torch.empty((len(_RES_ORDER), n, width), dtype=torch.bfloat16,
-                      device=x.device)
+                      device=x.device) if residuals else None
     slabs = torch.empty(n_slabs * SLAB_N * SLAB_K, dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         err = _entries()[0](
@@ -497,10 +508,11 @@ def _launch_fwd(x, w16, emb):
             emb["id"].data_ptr(), _ptrs([w16[k].data_ptr() for k in _DW_ORDER]),
             len(_DW_ORDER), width, n_out, vf_cols,
             ctypes.cast(_slab_table(sched), ctypes.c_void_p), len(sched),
-            slabs.data_ptr(), n_slabs, raw.data_ptr(), res.data_ptr(), _stream(x.device))
+            slabs.data_ptr(), n_slabs, raw.data_ptr(),
+            res.data_ptr() if residuals else None, _stream(x.device))
     if err != 0:
         raise RuntimeError(f"fused_field_train forward kernel launch failed: error {err}")
-    LAUNCHES["fused_field_train_fwd"] += 1
+    LAUNCHES["fused_field_train_fwd" if residuals else "fused_field_train_fwd_nores"] += 1
     return raw, res
 
 
@@ -553,12 +565,13 @@ def _device_of(x: torch.Tensor) -> str:
     return x.device.type
 
 
-def train_forward(x, w16, emb):
-    """K2 on CUDA tensors, its plain version on CPU ones."""
+def train_forward(x, w16, emb, residuals: bool = True):
+    """K2 on CUDA tensors, its plain version on CPU ones: (raw, residuals),
+    the residuals None unless asked for."""
     if _device_of(x) == "cuda":
         with span("kernel.k2"):
-            return _launch_fwd(x, w16, emb)
-    return train_forward_plain(x, w16, emb)
+            return _launch_fwd(x, w16, emb, residuals)
+    return train_forward_plain(x, w16, emb, residuals)
 
 
 def train_backward(x, g, res, w16, emb):
@@ -599,8 +612,15 @@ def fused_field_apply_train(packed32: dict, pts: torch.Tensor, dirs: torch.Tenso
                             cfg: FieldConfig) -> torch.Tensor:
     """apply_field-shaped wrapper: pts (..., S, 3), dirs (..., 3) -> raw
     (..., S, 9+3K) f32, differentiable with respect to `packed32`
-    (`pack_field_weights` of the field params, not detached)."""
+    (`pack_field_weights` of the field params, not detached). Where no
+    backward can follow (grad off, or no packed weight requires grad) it
+    runs K2 without its residual stores, outside autograd."""
     x = _pack_inputs(pts.detach(), dirs.detach())
     emb = emb_constants(cfg, x.device)
-    out = FusedFieldTrain.apply(emb, x, *[packed32[k] for k in _DW_ORDER])
+    weights = [packed32[k] for k in _DW_ORDER]
+    if torch.is_grad_enabled() and any(w.requires_grad for w in weights):
+        out = FusedFieldTrain.apply(emb, x, *weights)
+    else:
+        out, _ = train_forward(x, to_bf16(dict(zip(_DW_ORDER, weights))), emb,
+                               residuals=False)
     return out.reshape(*pts.shape[:-1], out.shape[-1])

@@ -217,7 +217,7 @@ def test_density_slabs_round_trip(k):
 
 
 def _stream_model(x, w16, emb, slabs, density_only):
-    """csrc/fused_field_bf16.cu's dataflow in PyTorch: per 128-point tile two
+    """csrc/wgmma_field.cuh's dataflow (K1 at bf16 weights, K2) in PyTorch: per 128-point tile two
     warpgroups of 64 points, each consuming the whole slab stream in the
     producer's order (`stream_order`) and keeping its activations as bf16
     k-blocks of 64 x 32 in its own shared-memory region (H, P, X, as
@@ -226,7 +226,10 @@ def _stream_model(x, w16, emb, slabs, density_only):
     rows of one wide slab each; a head sums a narrow slab's [32][32] blocks
     in turn; the epilogue adds the bias, applies relu (not for ft) and
     rounds to bf16; the heads accumulate in f32 from A and B, then C, then
-    D a vf pass at a time. Returns raw (n, 1) or (n, 9+3K) f32."""
+    D a vf pass at a time. K2's residual stores read the buffer an
+    epilogue just wrote (H after each trunk layer and hv, P after pf and
+    ft), in program order. Returns raw (n, 1) or (n, 9+3K) f32 and, for
+    the full variant, the stored planes (11, n, 256) bf16."""
     bf, rows = torch.bfloat16, k1b.ROWS
     n, n_out, vf_cols = x.shape[0], w16["bias"].shape[0], w16["wcf"].shape[1]
     order = k1b.stream_order(slabs.shape[0], vf_cols, density_only)
@@ -234,7 +237,7 @@ def _stream_model(x, w16, emb, slabs, density_only):
     H, X = blocks["H"][0], blocks["X"][0]
     P = blocks.get("P", (None,))[0]
     n_blocks = sum(b for _, b in blocks.values())
-    out = []
+    out, planes = [], []
     for base in range(0, n, rows):   # a warpgroup's 64 points of a tile
         xt = torch.zeros((rows, x.shape[1]))
         xt[:min(rows, n - base)] = x[base:base + rows]
@@ -261,20 +264,30 @@ def _stream_model(x, w16, emb, slabs, density_only):
             v = products(ops, n_cols, False, torch.zeros((rows, n_cols))) + bias.float()
             write(dst, (torch.relu(v) if relu else v).to(bf))
 
+        stored = []
+
+        def store(first):   # a residual plane from the buffer as it is now
+            stored.append(read(first, 256).clone())
+
         write(X, tfft._embed(xt, emb).to(bf))
         tb = w16["tb"]
         layer([(X, 4)], H, 256, tb[0])
+        store(H)
         for i in range(1, 8):
             layer([(X, 4), (H, 8)] if i == 5 else [(H, 8)], H, 256, tb[i])
+            store(H)
         if density_only:
             o = products([(H, 8)], 8, True, torch.zeros((rows, 8)))
             raw = o[:, :1] + w16["bias"][0].float()
         else:
             layer([(H, 8)], P, 256, w16["bpf"])                          # pf
+            store(P)
             o = products([(H, 8), (P, 8)], k1b.HEAD_N, True,
                          torch.zeros((rows, k1b.HEAD_N)))                # h7@A + pf@B
             layer([(H, 8)], P, 256, w16["bfeat"], relu=False)            # ft
+            store(P)
             layer([(P, 8), (X, 4)], H, 256, w16["bv"])                   # hv
+            store(H)
             o = products([(H, 8)], k1b.HEAD_N, True, o)                  # + hv@C
             for c0 in range(0, vf_cols, 256):                            # vf into P
                 cols = min(256, vf_cols - c0)
@@ -284,7 +297,8 @@ def _stream_model(x, w16, emb, slabs, density_only):
         assert next(ring, None) is None   # the warpgroup used the whole stream
         assert not read(H, 256).isnan().any()
         out.append(raw[:min(rows, n - base)])
-    return torch.cat(out)
+        planes.append(torch.stack(stored)[:, :min(rows, n - base)])
+    return torch.cat(out), (None if density_only else torch.cat(planes, dim=1))
 
 
 def _model_case(n, k, density_only):
@@ -295,10 +309,15 @@ def _model_case(n, k, density_only):
     x = tff._pack_inputs(pts, None if density_only else dirs)
     emb = tfft.emb_constants(tfield.FieldConfig(coarse_radiance_number=k), "cpu")
     slabs = (tfft.density_slabs if density_only else tfft.forward_slabs)(w16)
-    got = _stream_model(x, w16, emb, slabs, density_only)
+    got, planes = _stream_model(x, w16, emb, slabs, density_only)
     want = tfft.field_bf16_plain(x, w16, emb, density_only)
     assert got.shape == want.shape == (n, 1 if density_only else 9 + 3 * k)
     assert _rel(got.numpy(), want.numpy()) <= REL
+    if not density_only:   # K2's residual planes, stored from the activations
+        _, res = tfft.train_forward_plain(x, w16, emb)
+        assert planes.shape == res.shape == (len(tfft._RES_ORDER), n, 256)
+        for i, name in enumerate(tfft._RES_ORDER):
+            assert _rel(planes[i].float().numpy(), res[i].float().numpy()) <= REL, name
 
 
 @pytest.mark.parametrize("n", [1, 63, 127, 129, 130, 300])
@@ -312,7 +331,8 @@ def test_executing_the_full_stream_gives_the_plain_field(n, k):
     """The full variant's dataflow at K = 3 (vf in a 256- and a 128-column
     pass, D over two narrow slabs), 1 and 0 (one 128-column pass), 4 (two
     256-column passes) and 7 (30 head columns; vf in three 256-column
-    passes and a 128-column one)."""
+    passes and a 128-column one); with K2's residual planes as its stores
+    read them (ft leaves P before vf's passes overwrite it)."""
     _model_case(n, k, density_only=False)
 
 
@@ -375,12 +395,16 @@ def test_stream_order_takes_each_vf_pass_then_its_slab_of_d(k):
 
 def test_plan_constants_are_the_sources():
     """The mirror's tile, ring and alignment are the ones
-    csrc/fused_field_bf16.cu compiles (read from its text), so the layout
-    and budget tests above hold for the kernel itself."""
+    csrc/fused_field_bf16.cu and K2 compile (read from the text of the
+    field chain they share, csrc/wgmma_field.cuh), so the layout and budget
+    tests above hold for the kernels themselves."""
     import pathlib
     import re
 
-    src = (pathlib.Path(tfft.__file__).parent.parent / "csrc" / "fused_field_bf16.cu").read_text()
+    csrc = pathlib.Path(tfft.__file__).parent.parent / "csrc"
+    src = (csrc / "wgmma_field.cuh").read_text()
+    for user in ("fused_field_bf16.cu", "fused_field_train.cu"):
+        assert '#include "wgmma_field.cuh"' in (csrc / user).read_text(), user
 
     def const(name):
         return int(re.search(rf"constexpr \w+ {name} = (\d+);", src).group(1))

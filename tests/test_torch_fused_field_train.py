@@ -10,6 +10,9 @@ neighbouring value. The CUDA kernels themselves run only on the card,
 where chip_smoke.py holds them against these plain versions.
 """
 
+import contextlib
+import ctypes
+
 import jax
 import jax.flatten_util
 import jax.numpy as jnp
@@ -205,20 +208,100 @@ def test_zero_position_gradient():
     assert packed["w1"].grad is not None and packed["emb_E"].grad is None
 
 
-def test_cpu_wrappers_take_the_plain_version():
+@pytest.mark.parametrize("residuals", [True, False], ids=["res", "nores"])
+def test_cpu_wrappers_take_the_plain_version(residuals):
     _, tcfg, _, tp, pts, dirs, g = _setup(32, 70)
     w16, emb, x = _torch_inputs(tp, tcfg, pts, dirs)
     before = dict(tfft.LAUNCHES)
-    raw, res = tfft.train_forward(x, w16, emb)
+    raw, res = tfft.train_forward(x, w16, emb, residuals=residuals)
     raw_p, res_p = tfft.train_forward_plain(x, w16, emb)
-    assert torch.equal(raw, raw_p) and torch.equal(res, res_p)
-    g = torch.from_numpy(g)
-    dw, dw_p = (tfft.train_backward(x, g, res, w16, emb),
-                tfft.train_backward_plain(x, g, res, w16, emb))
-    assert all(torch.equal(dw[k], dw_p[k]) for k in tfft._DW_ORDER)
+    assert torch.equal(raw, raw_p)
+    if residuals:
+        assert torch.equal(res, res_p)
+        g = torch.from_numpy(g)
+        dw, dw_p = (tfft.train_backward(x, g, res, w16, emb),
+                    tfft.train_backward_plain(x, g, res, w16, emb))
+        assert all(torch.equal(dw[k], dw_p[k]) for k in tfft._DW_ORDER)
+    else:   # the variant without residual stores computes none
+        assert res is None and tfft.train_forward_plain(x, w16, emb, False)[1] is None
     assert tfft.LAUNCHES == before  # the plain version is no launch
     with pytest.raises(ValueError, match="device"):
-        tfft.train_forward(x.to("meta"), w16, emb)
+        tfft.train_forward(x.to("meta"), w16, emb, residuals=residuals)
+
+
+def _fake_device(monkeypatch, x, w16, emb):
+    """Route the wrappers to `_launch_fwd` on CPU tensors, with an entry
+    point that writes the plain version's raw and residuals where the
+    kernel would; returns the residual pointers it was handed."""
+    raw_p, res_p = tfft.train_forward_plain(x, w16, emb)
+    handed = []
+
+    def fwd(*args):
+        raw_ptr, res_ptr = args[-3], args[-2]
+        handed.append(res_ptr)
+        ctypes.memmove(raw_ptr, raw_p.data_ptr(), raw_p.numel() * raw_p.element_size())
+        if res_ptr is not None:
+            ctypes.memmove(res_ptr, res_p.data_ptr(), res_p.numel() * res_p.element_size())
+        return 0
+
+    monkeypatch.setattr(tfft, "_device_of", lambda t: "cuda")
+    monkeypatch.setattr(tfft, "_entries", lambda: (fwd, None))
+    monkeypatch.setattr(tfft, "_stream", lambda d: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    return handed
+
+
+@pytest.mark.parametrize("mode", ["no_grad", "detached_weights", "grad"])
+def test_forward_skips_the_residuals_where_no_backward_follows(mode, monkeypatch):
+    """`fused_field_apply_train` launches K2 without residual stores (no
+    planes allocated, the "fused_field_train_fwd_nores" count, outside
+    autograd) under no_grad or when no packed weight requires grad, and
+    with them through `FusedFieldTrain` otherwise; raw is the same."""
+    _, tcfg, _, tp, pts, dirs, _ = _setup(256, 70)   # the kernel's width
+    w16, emb, x = _torch_inputs(tp, tcfg, pts, dirs)
+    packed = tff.pack_field_weights(tp, tcfg)
+    if mode != "detached_weights":
+        for k in tfft._DW_ORDER:
+            packed[k].requires_grad_(True)
+    p, d = torch.from_numpy(pts)[:, None, :], torch.from_numpy(dirs)
+    want = tfft.train_forward_plain(x, w16, emb)[0]
+    handed = _fake_device(monkeypatch, x, w16, emb)
+    entered = []
+    forward = tfft.FusedFieldTrain.forward
+    monkeypatch.setattr(tfft.FusedFieldTrain, "forward",
+                        staticmethod(lambda *a: entered.append(1) or forward(*a)))
+    before = dict(tfft.LAUNCHES)
+    with torch.set_grad_enabled(mode != "no_grad"):
+        raw = tfft.fused_field_apply_train(packed, p, d, tcfg)
+    counts = {k: v - before[k] for k, v in tfft.LAUNCHES.items()}
+    assert torch.equal(raw.reshape(want.shape), want)
+    if mode == "grad":
+        assert raw.requires_grad and entered and handed[0] is not None
+        assert counts == {"fused_field_train_fwd": 1, "fused_field_train_fwd_nores": 0,
+                          "fused_field_train_bwd": 0}
+    else:
+        assert not raw.requires_grad and not entered and handed == [None]
+        assert counts == {"fused_field_train_fwd": 0, "fused_field_train_fwd_nores": 1,
+                          "fused_field_train_bwd": 0}
+
+
+def test_no_grad_path_gives_the_grad_paths_raw_and_grads_unchanged():
+    """On the plain versions: the wrapper's raw under no_grad equals its raw
+    under grad bit for bit, and the gradients under grad are those of
+    `FusedFieldTrain` called directly."""
+    _, tcfg, _, tp, pts, dirs, tgt = _grad_setup()
+    p, d, t = torch.from_numpy(pts)[:, None, :], torch.from_numpy(dirs), torch.from_numpy(tgt)
+    packed = tff.pack_field_weights(tp, tcfg)
+    with torch.no_grad():
+        raw_ng = tfft.fused_field_apply_train(packed, p, d, tcfg)
+    weights = [packed[k].detach().requires_grad_(True) for k in tfft._DW_ORDER]
+    raw = tfft.fused_field_apply_train(dict(zip(tfft._DW_ORDER, weights)), p, d, tcfg)
+    assert torch.equal(raw.detach(), raw_ng)
+    grads = torch.autograd.grad(torch.mean((raw[:, 0] - t) ** 2), weights)
+    x = tff._pack_inputs(p, d)
+    direct = tfft.FusedFieldTrain.apply(tfft.emb_constants(tcfg, "cpu"), x, *weights)
+    want = torch.autograd.grad(torch.mean((direct - t) ** 2), weights)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
 
 
 def test_dw_tables_cover_every_weight_once():

@@ -1,11 +1,15 @@
-"""K2's slab stream, pure Python: the layout of the forward's weights and
-the order in which `k2_forward` consumes them.
+"""K2's slab stream, pure Python: the layout of the forward's weights,
+layer after layer.
 
 The CUDA kernel runs only on the card (chip_smoke.py holds it against
 `train_forward_plain`); these tests check on the CPU that the stream
 holds every weight once, transposed and zero-padded as the kernel reads
 it, in as many slabs as the entry point checks, and that consuming the
-stream slab after slab as the kernel does gives the plain forward.
+stream slab after slab, as laid out, gives the plain forward. The order
+in which `k2_forward` takes the slabs (C after hv, each vf pass with its
+slab of D) and its 128-point tiles are modelled, with the residual
+stores, in tests/test_torch_fused_field_bf16.py: K2 and K1 at bf16
+weights run one kernel body (csrc/wgmma_field.cuh).
 """
 
 import numpy as np
@@ -18,7 +22,7 @@ from ibl_nerf_tpu_torch.models.field import FieldConfig, init_field_params
 
 torch.set_num_threads(2)
 
-TILE = 64  # points per block of k2_forward
+TILE = 64  # points of a consumer warpgroup of k2_forward
 
 
 def _shapes(k):
@@ -113,8 +117,8 @@ def test_forward_slab_count_is_what_the_entry_point_checks(k):
 
 
 def _stream_forward(x, w16, emb, slabs):
-    """K2 as `k2_forward` runs it: per 64-point tile (rows past the end
-    embed x = 0), the layers of `_FORWARD_LAYERS` in order, each pass of
+    """K2's layers over the stream as laid out: per 64-point tile (rows
+    past the end embed x = 0), the layers of `_FORWARD_LAYERS` in order, each pass of
     SLAB_N columns summing its operands' slabs in stream order in f32,
     then bias, relu and bf16 as the kernel's epilogues; the heads' f32
     sums into the raw tile. Returns raw and the residuals of the n rows."""
