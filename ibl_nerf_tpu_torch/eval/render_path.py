@@ -16,12 +16,13 @@ own PNG encoder. With spans on (`utils/timing`) each pose is the span
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
 import torch
 
-from ibl_nerf_tpu_torch.data.resize import resize
+from ibl_nerf_tpu_torch.data.resize import area_weights
 from ibl_nerf_tpu_torch.ops.color import to8b
 from ibl_nerf_tpu_torch.ops.geometry import depth_to_normal_image_space
 from ibl_nerf_tpu_torch.ops.rays import get_rays_full_image
@@ -51,17 +52,26 @@ _EXPORTS = [
 ]
 
 
+@functools.lru_cache(maxsize=8)
+def _area_weights(src: int, dst: int, device) -> torch.Tensor:
+    """`data/resize.area_weights` as a float64 tensor on `device`."""
+    return torch.as_tensor(area_weights(src, dst), device=device)
+
+
 def _resize_gt(buffers: dict[str, np.ndarray], i: int, factor: int, device) -> dict:
     """Pose i's gt buffers shrunk by 1/factor (INTER_AREA), flattened to
-    (H*W, C) f32 tensors on `device`."""
+    (H*W, C) f32 tensors on `device`. The shrink runs on `device`, as
+    `data/resize.resize` computes it: wy @ img @ wx^T in float64 with
+    OpenCV's area weights, cast to float32."""
     out = {}
     for k, stack in buffers.items():
-        img = stack[i]
+        img = torch.as_tensor(np.ascontiguousarray(stack[i]), device=device)
         if factor != 1:
             h, w = img.shape[:2]
-            img = resize(img, (w // factor, h // factor), interpolation="area")
-        out[k] = torch.as_tensor(np.ascontiguousarray(img.reshape(-1, img.shape[-1])),
-                                 dtype=torch.float32, device=device)
+            wy, wx = _area_weights(h, h // factor, device), _area_weights(w, w // factor, device)
+            img = torch.tensordot(wy, img.double(), dims=([1], [0]))          # (dh, W, C)
+            img = torch.tensordot(wx, img, dims=([1], [1])).movedim(0, 1)     # (dh, dw, C)
+        out[k] = img.reshape(-1, img.shape[-1]).float()
     return out
 
 

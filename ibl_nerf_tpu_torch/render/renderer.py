@@ -33,8 +33,10 @@ importance uniforms, the `raw_noise_std` noise on raw σ) come from a
 runs at f64 weights (`csrc/fused_field_f64.cu`) and returns f32 raw, as
 the JAX kernel does. With spans on (`utils/timing`) the passes are the
 spans `render.coarse`, `render.importance` and `render.fine`, and inside
-a shaded pass `render.aux_heads`, `render.normal` and `render.shading`;
-the inferred depth head is `render.depth_head`.
+a shaded pass `render.aux_heads`, `render.normal` and `render.shading`
+(under Monte-Carlo shading `render.mc_incident` and `render.mc_brdf`
+inside it); the inferred depth head is `render.depth_head`. `COUNTERS`
+counts the points of the Monte-Carlo incident marches, on every device.
 """
 
 from __future__ import annotations
@@ -75,6 +77,9 @@ from ibl_nerf_tpu_torch.utils.timing import span
 _AUTOGRAD_NORMALS = ("normal_map_from_depth_gradient",
                      "normal_map_from_depth_gradient_direction")
 
+# points queried by the Monte-Carlo incident marches (B·M·S a march), kept
+# beside the kernels' launch counters (`kernels/*.LAUNCHES`)
+COUNTERS = {"mc_incident_points": 0}
 
 _COMPUTE_DTYPES = ("float32", "bfloat16", "mixed", "bf16_grad", "amp", "float64")
 
@@ -580,34 +585,45 @@ def _monte_carlo_shading(query_full_ng, rays_d, x_surface, z_vals_constant,
     the GGX glossy and Lambert diffuse BRDF and the uniform-hemisphere
     weight 2π/M. The incident radiance and the directions carry no
     gradient; the BRDF terms carry it to the normal, albedo and roughness
-    maps, as in the JAX renderer. Returns (diffuse (B, 3), specular (B, 3))."""
+    maps, as in the JAX renderer. With spans on, the marches are the span
+    `render.mc_incident` and the BRDF sums `render.mc_brdf`; each march
+    adds its B·M·S points to COUNTERS["mc_incident_points"]. Returns
+    (diffuse (B, 3), specular (B, 3))."""
     b, s = rays_d.shape[0], z_vals_constant.shape[-1]
     local = _hemisphere(rcfg.mc_samples_axis, rays_d.device)   # (M, 3)
     m = local.shape[0]
 
+    with span("render.mc_incident"):
+        wdirs = _world_directions(local, normal_map)
+        with torch.no_grad():
+            z = z_vals_constant[:, None, :].expand(b, m, s).reshape(b * m, s)
+            flat_dirs = wdirs.reshape(b * m, 3)
+            pts = (x_surface[:, None, None, :] + wdirs[:, :, None, :]
+                   * z.reshape(b, m, s)[..., None]).reshape(b * m, s, 3)
+            raw = query_full_ng(pts, flat_dirs)
+            COUNTERS["mc_incident_points"] += b * m * s
+            incident, _ = _composite_radiance_stack(raw, z, flat_dirs, rcfg)
+            incident = incident.reshape(b, m, 3)
+
+    with span("render.mc_brdf"):
+        brdf_glossy, brdf_diffuse, l_dot_n = microfacet_brdf(
+            wdirs, -rays_d, normal_map, albedo_map, roughness_map[..., None])
+        w_mc = 2.0 * torch.pi / m   # the uniform hemisphere's pdf is 1/2π
+        specular = w_mc * torch.sum(brdf_glossy * incident * l_dot_n, dim=1)
+        diffuse = w_mc * torch.sum(brdf_diffuse * incident * l_dot_n, dim=1)
+    return diffuse, specular
+
+
+def _world_directions(local: torch.Tensor, normal_map: torch.Tensor) -> torch.Tensor:
+    """The hemisphere directions (M, 3) about +z turned about each normal
+    (B, 3): unit world-space directions (B, M, 3) in the frame (tangent,
+    binormal, normal) of `get_tbn`, without a gradient."""
     binormal, tangent = get_tbn(normal_map)
-    # world-space directions (B, M, 3) in the frame (tangent, binormal, normal)
     wdirs = (local[None, :, 0, None] * tangent[:, None, :]
              + local[None, :, 1, None] * binormal[:, None, :]
              + local[None, :, 2, None] * normal_map[:, None, :])
-    wdirs = (wdirs / torch.clamp(torch.linalg.vector_norm(wdirs, dim=-1, keepdim=True),
-                                 min=1e-12)).detach()
-
-    with torch.no_grad():
-        z = z_vals_constant[:, None, :].expand(b, m, s).reshape(b * m, s)
-        flat_dirs = wdirs.reshape(b * m, 3)
-        pts = (x_surface[:, None, None, :] + wdirs[:, :, None, :]
-               * z.reshape(b, m, s)[..., None]).reshape(b * m, s, 3)
-        raw = query_full_ng(pts, flat_dirs)
-        incident, _ = _composite_radiance_stack(raw, z, flat_dirs, rcfg)
-        incident = incident.reshape(b, m, 3)
-
-    brdf_glossy, brdf_diffuse, l_dot_n = microfacet_brdf(
-        wdirs, -rays_d, normal_map, albedo_map, roughness_map[..., None])
-    w_mc = 2.0 * torch.pi / m   # the uniform hemisphere's pdf is 1/2π
-    specular = w_mc * torch.sum(brdf_glossy * incident * l_dot_n, dim=1)
-    diffuse = w_mc * torch.sum(brdf_diffuse * incident * l_dot_n, dim=1)
-    return diffuse, specular
+    return (wdirs / torch.clamp(torch.linalg.vector_norm(wdirs, dim=-1, keepdim=True),
+                                min=1e-12)).detach()
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,8 @@ SPANS = (
     # the renderer (render/renderer.py)
     "render.coarse", "render.importance", "render.fine", "render.aux_heads",
     "render.normal", "render.shading", "render.depth_head",
+    # inside render.shading under Monte-Carlo shading: the incident marches, the BRDF sums
+    "render.mc_incident", "render.mc_brdf",
     # the host wrappers of the kernels' launches (kernels/)
     "kernel.k1", "kernel.k2", "kernel.k3",
     # the render path (eval/render_path.py); render_path.frame is the root of a frame

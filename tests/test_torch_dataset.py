@@ -8,7 +8,8 @@ colmap scene: every decoded array equal to JAX's bit for bit at scale 1
 halving (OpenCV's rounded 2x2 average, reproduced); the depth maps and
 the prefiltered pyramid (float resampling, reproduced in float64) within
 1e-5. Then the pyramid at the Kitchen shape, whose last level is
-fractional (480 rows to 7), and the PNG encoder against cv2.imwrite.
+fractional (480 rows to 7), render_path's gt-buffer shrink (on the render
+device) against `resize`, and the PNG encoder against cv2.imwrite.
 """
 
 import os
@@ -25,7 +26,7 @@ from ibl_nerf_tpu_torch.data import native_loader
 from ibl_nerf_tpu_torch.data.dataset import SceneData, load_scene
 from ibl_nerf_tpu_torch.data.pyramid import build_prefiltered_pyramid, level_size
 from ibl_nerf_tpu_torch.data.resize import resize
-from ibl_nerf_tpu_torch.eval.render_path import save_image
+from ibl_nerf_tpu_torch.eval.render_path import _resize_gt, save_image
 
 sys.path.insert(0, os.path.dirname(__file__))
 from make_synthetic_scene import make_colmap_scene, make_scene  # noqa: E402
@@ -112,6 +113,20 @@ def test_pyramid_fractional_level_matches_jax():
 def test_uint8_shrink_matches_opencv(fx):
     img = np.random.default_rng(1).integers(0, 256, (40, 52, 3), dtype=np.uint8)
     np.testing.assert_array_equal(resize(img, fx=fx, fy=fx), cv2.resize(img, None, fx=fx, fy=fx))
+
+
+@pytest.mark.parametrize("shape,factor", [((480, 640, 3), 2), ((481, 639, 3), 4),
+                                          ((30, 41, 1), 3)])
+def test_render_path_gt_shrink_matches_resize(shape, factor):
+    """render_path's shrink of a pose's gt buffer, run where the frame
+    renders, gives `resize(..., interpolation="area")` bit for bit, at an
+    integer and at a fractional ratio."""
+    stack = np.random.default_rng(3).uniform(-1, 1, (2, *shape)).astype(np.float32)
+    got = _resize_gt({"normal": stack}, 1, factor, torch.device("cpu"))["normal"]
+    h, w = shape[:2]
+    want = resize(stack[1], (w // factor, h // factor), interpolation="area")
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want.reshape(-1, shape[-1]))
 
 
 @pytest.mark.parametrize("shape", [(13, 17, 3), (13, 17), (13, 17, 1)], ids=["rgb", "gray", "gray1"])
