@@ -810,7 +810,7 @@ def field_grad_errors(cfg, params, gen, n_rays, n_samples) -> dict:
     for name, kw in (("kernels", {}), ("eager_bf16", dict(use_pallas_train=False)),
                      ("eager_f32", dict(use_pallas_train=False, compute_dtype="float32"))):
         rcfg = train_config(cfg, use_pallas=False, **kw)[0]
-        query_full = renderer._make_queries(params, rcfg)[0]
+        query_full = renderer.FieldQueries(params, rcfg).full
         loss = ((query_full(pts, dirs) - tgt) ** 2).mean()
         grads[name] = flat_grads(torch.autograd.grad(loss, leaves))
     ref = grads["eager_f32"]

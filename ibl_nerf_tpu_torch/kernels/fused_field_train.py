@@ -614,13 +614,15 @@ def fused_field_apply_train(packed32: dict, pts: torch.Tensor, dirs: torch.Tenso
     (..., S, 9+3K) f32, differentiable with respect to `packed32`
     (`pack_field_weights` of the field params, not detached). Where no
     backward can follow (grad off, or no packed weight requires grad) it
-    runs K2 without its residual stores, outside autograd."""
+    runs K2 without its residual stores, outside autograd; there it takes
+    either that f32 pack, which it rounds to bf16, or the pack already
+    rounded (`to_bf16`), which it uses as it is."""
     x = _pack_inputs(pts.detach(), dirs.detach())
     emb = emb_constants(cfg, x.device)
     weights = [packed32[k] for k in _DW_ORDER]
     if torch.is_grad_enabled() and any(w.requires_grad for w in weights):
         out = FusedFieldTrain.apply(emb, x, *weights)
     else:
-        out, _ = train_forward(x, to_bf16(dict(zip(_DW_ORDER, weights))), emb,
-                               residuals=False)
+        w16 = packed32 if packed32["w0"].dtype == torch.bfloat16 else to_bf16(packed32)
+        out, _ = train_forward(x, w16, emb, residuals=False)
     return out.reshape(*pts.shape[:-1], out.shape[-1])

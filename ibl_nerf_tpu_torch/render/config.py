@@ -100,7 +100,7 @@ class RenderConfig:
 
     # numerics / kernels
     # "float32" | "bfloat16" | "mixed" | "bf16_grad" | "amp" | "float64"
-    # -- see renderer._make_queries for the split
+    # -- see renderer.FieldQueries for the split
     compute_dtype: str = "float32"
     use_pallas: bool = False        # fused-field kernel K1 on no-grad sweeps
     use_pallas_train: bool = False  # fused train kernels K2/K3 (bf16 gradient path)

@@ -17,17 +17,19 @@ the edit/insert depth before the surface point, the normal, albedo,
 roughness and irradiance overrides before the LUT fetch). Gradients
 follow the JAX renderer's `stop_gradient` sites: intrinsic maps on
 detached weights (radiance on live ones), a detached surface point, a
-detached reflected march and detached depth in the mip level. The no-grad sweeps run under
-`torch.no_grad()`; `render_image`, `make_frame_render_fn` and the
-serving path render under no-grad throughout.
+detached reflected march and detached depth in the mip level. The
+no-grad sweeps run under `torch.no_grad()`.
 
-With `use_pallas` the no-grad sweeps (ε-offset density sweeps,
-reflected march, Monte-Carlo incident march) go through the fused-field
-kernel K1
-(`kernels/fused_field.py`); with `use_pallas_train` and bf16 gradients
-the gradient-path full query goes through K2/K3
-(`kernels/fused_field_train.py`), as the JAX renderer routes them
-through its Pallas kernels. Random draws (the `perturb` jitter and
+Every field query goes through `FieldQueries`, which picks the
+implementation and dtype of each: with `use_pallas` the no-grad sweeps
+(ε-offset density sweeps, reflected march, Monte-Carlo incident march)
+run the fused-field kernel K1 (`kernels/fused_field.py`); with
+`use_pallas_train` and bf16 gradients the gradient-path full query runs
+K2/K3 (`kernels/fused_field_train.py`), as the JAX renderer routes them
+through its Pallas kernels. A training pass builds its own; a frame
+(`make_frame_render_fn` + `render_frame`, which `render_image` runs too)
+renders under no-grad, one chunk after another, on queries built once
+for the frame. Random draws (the `perturb` jitter and
 importance uniforms, the `raw_noise_std` noise on raw σ) come from a
 `torch.Generator` or are passed in. Under `compute_dtype=float64` K1
 runs at f64 weights (`csrc/fused_field_f64.cu`) and returns f32 raw, as
@@ -51,7 +53,7 @@ from ibl_nerf_tpu_torch.kernels.fused_field import (
     fused_field_density,
     pack_field_weights,
 )
-from ibl_nerf_tpu_torch.kernels.fused_field_train import fused_field_apply_train
+from ibl_nerf_tpu_torch.kernels.fused_field_train import fused_field_apply_train, to_bf16
 from ibl_nerf_tpu_torch.models.aux_mlp import apply_position_direction_mlp, apply_position_mlp
 from ibl_nerf_tpu_torch.models.field import apply_field, apply_field_density
 from ibl_nerf_tpu_torch.ops.color import rgb_to_srgb, tonemap_reinhard
@@ -81,30 +83,26 @@ _AUTOGRAD_NORMALS = ("normal_map_from_depth_gradient",
 # beside the kernels' launch counters (`kernels/*.LAUNCHES`)
 COUNTERS = {"mc_incident_points": 0}
 
-_COMPUTE_DTYPES = ("float32", "bfloat16", "mixed", "bf16_grad", "amp", "float64")
+# compute_dtype -> (gradient-path dtype, no-grad sweep dtype)
+_QUERY_DTYPES = {"float32": (torch.float32, torch.float32),
+                 "bfloat16": (torch.bfloat16, torch.bfloat16),
+                 "mixed": (torch.float32, torch.bfloat16),
+                 "bf16_grad": (torch.bfloat16, torch.float32),
+                 "amp": (torch.float32, torch.float32),
+                 "float64": (torch.float64, torch.float64)}
 
 
 def _check_supported(rcfg: RenderConfig) -> None:
     """Raise ValueError for an unknown compute dtype or normal type."""
-    if rcfg.compute_dtype not in _COMPUTE_DTYPES:
+    if rcfg.compute_dtype not in _QUERY_DTYPES:
         raise ValueError(f"unknown compute_dtype {rcfg.compute_dtype!r}")
     if rcfg.approximate_radiance and rcfg.normal_type not in NORMAL_TYPES:
         raise ValueError(f"unknown normal_type {rcfg.normal_type!r}")
 
 
 # ---------------------------------------------------------------------------
-# Field query helpers
+# Field queries
 # ---------------------------------------------------------------------------
-
-def _query_dtypes(rcfg: RenderConfig) -> tuple[torch.dtype, torch.dtype]:
-    """(gradient-path dtype, no-grad sweep dtype) of the compute dtype."""
-    cd = rcfg.compute_dtype
-    if cd == "float64":
-        return torch.float64, torch.float64
-    dt_grad = torch.bfloat16 if cd in ("bfloat16", "bf16_grad") else torch.float32
-    dt_ng = torch.bfloat16 if cd in ("bfloat16", "mixed") else torch.float32
-    return dt_grad, dt_ng
-
 
 def pallas_train_refusal(rcfg: RenderConfig) -> str | None:
     """Why K2/K3 cannot take the gradient path's full query of
@@ -113,7 +111,7 @@ def pallas_train_refusal(rcfg: RenderConfig) -> str | None:
     with its skip at layer 4 and view-dependent colour, with nothing
     frozen."""
     fcfg = rcfg.field
-    dt_grad, _ = _query_dtypes(rcfg)
+    dt_grad = _QUERY_DTYPES[rcfg.compute_dtype][0]
     if dt_grad != torch.bfloat16:
         return (f"dtype: compute_dtype {rcfg.compute_dtype} runs the gradient path in "
                 f"{str(dt_grad).removeprefix('torch.')}, K2/K3 in bfloat16")
@@ -128,8 +126,10 @@ def pallas_train_refusal(rcfg: RenderConfig) -> str | None:
     return None
 
 
-def _make_queries(field_params, rcfg: RenderConfig):
-    """(query_full, query_sigma, query_full_ng, query_sigma_ng).
+class FieldQueries:
+    """The four queries of one field under `rcfg`: `full(pts, viewdirs)`
+    and `sigma(pts)` on the gradient path, `full_ng` and `sigma_ng` for
+    the no-grad sweeps (call those under torch.no_grad()).
 
     compute_dtype, as in the JAX renderer: "float32" everything f32;
     "bfloat16" every query in bf16 (f32 raw heads); "mixed" the gradient
@@ -137,75 +137,114 @@ def _make_queries(field_params, rcfg: RenderConfig):
     "bf16_grad" the inverse split; "amp" f32 everywhere but the matmul
     operands, rounded to bf16 and summed in f32, with the no-grad sweeps
     in plain f32; "float64" everything f64. With use_pallas the `_ng`
-    pair is K1 at the no-grad dtype, fed detached weights; call it under
-    torch.no_grad(). With use_pallas_train, bf16 gradients, no freeze and
-    the default architecture, query_full is K2/K3, whose gradients flow
-    through the f32 packing to the params (positions get none);
-    query_sigma stays eager, since the sgs normal needs its position
-    gradient.
+    pair is K1 at the no-grad dtype, fed detached weights. With
+    use_pallas_train and no `pallas_train_refusal`, `full` is K2/K3,
+    whose gradients flow through the f32 packing to the params (positions
+    get none); `sigma` stays eager, since the sgs normal needs its
+    position gradient.
+
+    Each cast and pack is made on first use, at most once per instance,
+    in the grad mode the instance was built in. A training pass builds
+    its own, so no bf16 cast carries the gradients of two passes; a frame
+    builds one per field under torch.no_grad() (`frame_queries`), and its
+    K2 weights are then packed already rounded to bf16. With K2 on, K1's
+    pack is K2's f32 pack, detached, at the no-grad dtype.
     """
-    fcfg = rcfg.field
-    amp = rcfg.compute_dtype == "amp"
-    dt_grad, dt_ng = _query_dtypes(rcfg)
-    query_full, query_sigma = _make_query_pair(field_params, rcfg, dt_grad, amp=amp)
 
-    if rcfg.use_pallas_train and pallas_train_refusal(rcfg) is None:
-        packed32 = pack_field_weights(field_params, fcfg)
+    def __init__(self, field_params, rcfg: RenderConfig):
+        self.params, self.rcfg, self.fcfg = field_params, rcfg, rcfg.field
+        self.dt_grad, self.dt_ng = _QUERY_DTYPES[rcfg.compute_dtype]
+        self.amp = rcfg.compute_dtype == "amp"
+        self.k2 = rcfg.use_pallas_train and pallas_train_refusal(rcfg) is None
+        self.grad = torch.is_grad_enabled()
+        self._casts: dict[torch.dtype, Any] = {}
 
-        def query_full(pts, viewdirs):  # noqa: F811
-            return fused_field_apply_train(packed32, pts, viewdirs, fcfg)
+    def full(self, pts, viewdirs):
+        if self.k2:
+            return fused_field_apply_train(self._k2_pack, pts, viewdirs, self.fcfg)
+        return self._eager(self.dt_grad, self.amp, pts, viewdirs)
 
-    if rcfg.use_pallas:
-        with torch.no_grad():
-            packed = pack_field_weights(field_params, fcfg, dtype=dt_ng)
+    def sigma(self, pts):
+        return self._eager(self.dt_grad, self.amp, pts)
 
-        def query_full_ng(pts, viewdirs):
-            return fused_field_apply(packed, pts, viewdirs, fcfg)
+    def full_ng(self, pts, viewdirs):
+        if self.rcfg.use_pallas:
+            return fused_field_apply(self._k1_pack, pts, viewdirs, self.fcfg)
+        return self._eager(self.dt_ng, False, pts, viewdirs)
 
-        def query_sigma_ng(pts):
-            return fused_field_density(packed, pts, fcfg)
-    elif dt_ng != dt_grad or amp:
-        # amp keeps the no-grad sweeps at plain f32, as bf16_grad does
-        query_full_ng, query_sigma_ng = _make_query_pair(field_params, rcfg, dt_ng)
-    else:
-        query_full_ng, query_sigma_ng = query_full, query_sigma
-    return query_full, query_sigma, query_full_ng, query_sigma_ng
+    def sigma_ng(self, pts):
+        if self.rcfg.use_pallas:
+            return fused_field_density(self._k1_pack, pts, self.fcfg)
+        return self._eager(self.dt_ng, False, pts)
 
+    def _cast(self, dt: torch.dtype):
+        """The params cast to `dt`, in the grad mode of the instance."""
+        def cast(tree):
+            if isinstance(tree, dict):
+                return {k: cast(v) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [cast(v) for v in tree]
+            return tree.to(dt)
+        with torch.set_grad_enabled(self.grad):
+            return cast(self.params)
 
-def _cast_params(tree, dt):
-    if isinstance(tree, dict):
-        return {k: _cast_params(v, dt) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_cast_params(v, dt) for v in tree]
-    return tree.to(dt)
-
-
-def _make_query_pair(field_params, rcfg: RenderConfig, dt: torch.dtype,
-                     amp: bool = False):
-    """(query_full, query_sigma) closures at compute dtype `dt` (under
-    `amp`, f32 with bf16 matmul operands). The positional encoding runs
-    in the points' dtype, then is cast to `dt`; raw outputs are f32 for
-    bf16 compute and `dt` otherwise."""
-    fcfg = rcfg.field
-    params_c = _cast_params(field_params, dt) if dt != torch.float32 else field_params
-    out_dt = torch.float32 if dt == torch.bfloat16 else dt
-
-    def query_full(pts, viewdirs):
-        # pts (B, S, 3); viewdirs (B, 3) broadcast over samples.
+    def _eager(self, dt: torch.dtype, amp: bool, pts, viewdirs=None):
+        """apply_field (apply_field_density without viewdirs) at `dt`; under
+        `amp`, f32 with bf16 matmul operands. pts (B, S, 3); viewdirs (B, 3)
+        broadcast over samples. The encoding runs in the points' dtype, then
+        is cast to `dt`; raw is f32 for bf16 compute and `dt` otherwise."""
+        if dt != torch.float32 and dt not in self._casts:
+            self._casts[dt] = self._cast(dt)
+        params, fcfg, rc = self._casts.get(dt, self.params), self.fcfg, self.rcfg
         pe = positional_encoding(pts, fcfg.multires).to(dt)
-        de = positional_encoding(viewdirs, fcfg.multires_views).to(dt)
-        de = de[..., None, :].expand(*pts.shape[:-1], de.shape[-1])
-        return apply_field(params_c, pe, de, fcfg,
-                           freeze_radiance=rcfg.freeze_radiance,
-                           freeze_roughness=rcfg.freeze_roughness, amp=amp).to(out_dt)
+        if viewdirs is None:
+            out = apply_field_density(params, pe, fcfg, freeze_radiance=rc.freeze_radiance,
+                                      amp=amp)
+        else:
+            de = positional_encoding(viewdirs, fcfg.multires_views).to(dt)
+            de = de[..., None, :].expand(*pts.shape[:-1], de.shape[-1])
+            out = apply_field(params, pe, de, fcfg, freeze_radiance=rc.freeze_radiance,
+                              freeze_roughness=rc.freeze_roughness, amp=amp)
+        return out.to(torch.float32 if dt == torch.bfloat16 else dt)
 
-    def query_sigma(pts):
-        pe = positional_encoding(pts, fcfg.multires).to(dt)
-        return apply_field_density(params_c, pe, fcfg,
-                                   freeze_radiance=rcfg.freeze_radiance,
-                                   amp=amp).to(out_dt)
+    @functools.cached_property
+    def _pack32(self) -> dict:
+        """`pack_field_weights` at f32, with a graph to the params if grad is on."""
+        with torch.set_grad_enabled(self.grad):
+            return pack_field_weights(self.params, self.fcfg)
 
-    return query_full, query_sigma
+    @functools.cached_property
+    def _k2_pack(self) -> dict:
+        """K2's weights: the f32 pack, or without grad `to_bf16` of it."""
+        return self._pack32 if self.grad else to_bf16(self._pack32)
+
+    @functools.cached_property
+    def _k1_pack(self) -> dict:
+        """K1's weights at the no-grad dtype, detached (the embedding f32)."""
+        if not self.k2:
+            with torch.no_grad():
+                return pack_field_weights(self.params, self.fcfg, dtype=self.dt_ng)
+        return {k: v.detach() if k.startswith("emb_") else v.detach().to(self.dt_ng)
+                for k, v in self._pack32.items()}
+
+
+def frame_queries(variables, rcfg: RenderConfig) -> tuple[FieldQueries, FieldQueries]:
+    """The coarse and the fine pass's queries for `render_rays(queries=)`,
+    built under no-grad for every chunk of a frame; one if the field is one."""
+    with torch.no_grad():
+        coarse = FieldQueries(variables["coarse"], rcfg)
+        rcfg_f = _fine_config(rcfg)
+        if "fine" not in variables and rcfg_f is rcfg:
+            return coarse, coarse
+        return coarse, FieldQueries(variables.get("fine", variables["coarse"]), rcfg_f)
+
+
+def _fine_config(rcfg: RenderConfig) -> RenderConfig:
+    """The fine pass's config: `field_fine`, if set, in place of `field`
+    (multires and K are shared, so every shape is unchanged)."""
+    if rcfg.field_fine is None:
+        return rcfg
+    return rcfg.replace(field=rcfg.field_fine, field_fine=None)
 
 
 def _radiance_f(rcfg: RenderConfig):
@@ -335,23 +374,21 @@ def _aux_maps(variables, pts, x_surface, weights_det, rcfg: RenderConfig) -> dic
     return out
 
 
-def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
-                 near, far, rcfg: RenderConfig, gt_values=None, noise=None):
+def _raw2outputs(q: FieldQueries, variables, consts, rays_o, rays_d, z_vals,
+                 z_vals_constant, near, far, rcfg: RenderConfig, gt_values=None, noise=None):
     """Full compositing + shading (split-sum or Monte-Carlo) for one
-    sample set. gt_values: per-ray gt buffers ("normal", "depth",
-    "albedo", "roughness", "irradiance", and the edit and insert
-    buffers), read by the modes that substitute them. noise: the
-    standard normals added to the primary march's raw σ under
+    sample set, the field queried through `q`. gt_values: per-ray gt
+    buffers ("normal", "depth", "albedo", "roughness", "irradiance", and
+    the edit and insert buffers), read by the modes that substitute them.
+    noise: the standard normals added to the primary march's raw σ under
     `raw_noise_std`."""
     rf = _radiance_f(rcfg)
     gt = gt_values or {}
     edit = rcfg.edit
-    (query_full, query_sigma, query_full_ng, query_sigma_ng) = _make_queries(
-        variables["coarse_or_fine"], rcfg)
 
     # --- primary march -----------------------------------------------------
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
-    raw = query_full(pts, rays_d)
+    raw = q.full(pts, rays_d)
     sigma_raw = _raw_sigma_with_noise(raw[..., 0], noise, rcfg)
     alpha = alpha_from_sigma(sigma_raw, dists_from_z_vals(z_vals, rays_d))
     weights = weights_from_alpha(alpha)
@@ -406,9 +443,9 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
 
     if rcfg.approximate_radiance:
         with span("render.normal"):
-            target_normal_map = _estimate_normal(query_sigma, query_sigma_ng, rays_o,
-                                                 rays_d, z_vals, pts, x_surface,
-                                                 weights_det, inferred_normal_map, gt, rcfg)
+            target_normal_map = _estimate_normal(q.sigma, q.sigma_ng, rays_o, rays_d,
+                                                 z_vals, pts, x_surface, weights_det,
+                                                 inferred_normal_map, gt, rcfg)
         if edit is not None:
             (target_normal_map, target_albedo_map, target_roughness_map,
              target_irradiance_map) = _apply_edit_overrides(
@@ -420,7 +457,7 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
         if rcfg.approximate_radiance and rcfg.shading_mode == "monte_carlo":
             # no reflected or prefiltered maps in this mode
             diffuse_map, specular_map = _monte_carlo_shading(
-                query_full_ng, rays_d, x_surface, z_vals_constant, target_normal_map,
+                q.full_ng, rays_d, x_surface, z_vals_constant, target_normal_map,
                 target_albedo_map, target_roughness_map, rcfg)
             approximated_radiance_map = diffuse_map + specular_map
         elif rcfg.approximate_radiance:
@@ -450,12 +487,12 @@ def _raw2outputs(variables, consts, rays_o, rays_d, z_vals, z_vals_constant,
                              + reflected_dirs[..., None, :]
                              * z_vals_constant[..., :, None])
             if rcfg.use_gradient_for_incident_radiance:
-                r_raw = query_full(reflected_pts, reflected_dirs)
+                r_raw = q.full(reflected_pts, reflected_dirs)
                 reflected_radiance_map, reflected_coarse_maps = _composite_radiance_stack(
                     r_raw, z_vals_constant, reflected_dirs, rcfg)
             else:
                 with torch.no_grad():
-                    r_raw = query_full_ng(reflected_pts.detach(), reflected_dirs.detach())
+                    r_raw = q.full_ng(reflected_pts.detach(), reflected_dirs.detach())
                     reflected_radiance_map, reflected_coarse_maps = _composite_radiance_stack(
                         r_raw, z_vals_constant, reflected_dirs, rcfg)
             prefiltered = torch.stack(
@@ -674,7 +711,8 @@ def draw_render_uniforms(n_rays: int, rcfg: RenderConfig, device,
 
 def render_rays(variables, consts, batch, rcfg: RenderConfig,
                 is_depth_only: bool = False, draws: dict | None = None,
-                generator: torch.Generator | None = None, gt_values: dict | None = None):
+                generator: torch.Generator | None = None, gt_values: dict | None = None,
+                queries: tuple[FieldQueries, FieldQueries] | None = None):
     """Render a ray batch into all output maps.
 
     variables: {'coarse': field params, 'fine': field params | absent,
@@ -686,6 +724,9 @@ def render_rays(variables, consts, batch, rcfg: RenderConfig,
                draws; drawn from `generator` on the rays' device when absent.
     gt_values: per-ray gt buffers, (B, C) each (the train step passes its
                pixel batch), for the gt normal and the gt substitutions.
+    queries:   the (coarse, fine) `FieldQueries` of `frame_queries`, shared
+               by the calls of one frame under no-grad; when absent each
+               pass builds its own.
     Returns a dict of maps; coarse-pass results are suffixed '0' when a
     fine pass runs. Differentiable with respect to the params; wrap it in
     torch.no_grad() to render without a graph.
@@ -704,22 +745,17 @@ def render_rays(variables, consts, batch, rcfg: RenderConfig,
                                u=draws["strat"] if rcfg.perturb else None)
     z_vals_constant = z_vals
 
-    def depth_only(field_params, rc, z, noise):
-        # the gradient-path density query, as the full coarse pass's
-        query_sigma = _make_query_pair(field_params, rc, _query_dtypes(rc)[0],
-                                       amp=rc.compute_dtype == "amp")[1]
-        return _render_depth_only(query_sigma, rays_o, rays_d, z, rc, noise)
-
     with span("render.coarse"):
+        q = queries[0] if queries else FieldQueries(variables["coarse"], rcfg)
         if is_depth_only or (not rcfg.coarse_shading and rcfg.n_importance > 0):
             # Inference fast path: the coarse pass only has to produce the
-            # importance-resampling weights (+ depth); the density query
-            # shares trunk+sigma with the full one, so every fine buffer is
-            # unchanged.
-            result = depth_only(variables["coarse"], rcfg, z_vals, draws.get("noise_coarse"))
+            # importance-resampling weights (+ depth); the gradient-path
+            # density query shares trunk+sigma with the full one, so every
+            # fine buffer is unchanged.
+            result = _render_depth_only(q.sigma, rays_o, rays_d, z_vals, rcfg,
+                                        draws.get("noise_coarse"))
         else:
-            coarse_vars = dict(variables, coarse_or_fine=variables["coarse"])
-            result = _raw2outputs(coarse_vars, consts, rays_o, rays_d, z_vals,
+            result = _raw2outputs(q, variables, consts, rays_o, rays_d, z_vals,
                                   z_vals_constant, near, far, rcfg, gt_values,
                                   draws.get("noise_coarse"))
 
@@ -732,19 +768,15 @@ def render_rays(variables, consts, batch, rcfg: RenderConfig,
                                        u=draws["pdf"] if rcfg.perturb else None)
             z_all, _ = torch.sort(torch.cat([z_vals, z_samples], -1), dim=-1)
 
-        fine_params = variables.get("fine", variables["coarse"])
-        # Distinct fine architecture: swap the field config for the fine
-        # pass only (multires/K are shared, so every shape is unchanged).
-        rcfg_f = rcfg
-        if rcfg.field_fine is not None:
-            rcfg_f = rcfg.replace(field=rcfg.field_fine, field_fine=None)
-
+        rcfg_f = _fine_config(rcfg)
         with span("render.fine"):
+            q = queries[1] if queries else FieldQueries(
+                variables.get("fine", variables["coarse"]), rcfg_f)
             if is_depth_only:
-                result_fine = depth_only(fine_params, rcfg_f, z_all, draws.get("noise_fine"))
+                result_fine = _render_depth_only(q.sigma, rays_o, rays_d, z_all, rcfg_f,
+                                                 draws.get("noise_fine"))
             else:
-                fine_vars = dict(variables, coarse_or_fine=fine_params)
-                result_fine = _raw2outputs(fine_vars, consts, rays_o, rays_d,
+                result_fine = _raw2outputs(q, variables, consts, rays_o, rays_d,
                                            z_all, z_vals_constant, near, far,
                                            rcfg_f, gt_values, draws.get("noise_fine"))
         for k, v in result.items():
@@ -766,15 +798,9 @@ def render_rays(variables, consts, batch, rcfg: RenderConfig,
 # Whole-frame rendering (inference fast path)
 # ---------------------------------------------------------------------------
 
-def _static_viewdirs(batch: dict, viewdirs: torch.Tensor) -> dict:
-    """The batch with its viewdirs taken from another camera's rays."""
-    return dict(batch, viewdirs=viewdirs / torch.linalg.vector_norm(
-        viewdirs, dim=-1, keepdim=True))
-
-
 def make_frame_render_fn(variables, consts, rcfg: RenderConfig,
                          output_keys: tuple[str, ...] | None = None,
-                         staticcam: bool = False):
+                         staticcam: bool = False, render_fn=None):
     """A function that renders a frame pre-tiled as (n_chunks, chunk, 3)
     ray tensors, one chunk after another, keeping only `output_keys`.
 
@@ -782,19 +808,29 @@ def make_frame_render_fn(variables, consts, rcfg: RenderConfig,
     -> {name: (n_chunks, chunk, C?)}; gt_t is a dict of (n_chunks, chunk,
     C) gt buffers, tiled as the rays are. viewdirs_t is consulted only
     when staticcam=True: the batch's viewdirs come from it (the rays of
-    another camera), as JAX's render_decomp takes c2w_staticcam.
+    another camera), as JAX's render_decomp takes c2w_staticcam. Each
+    call prepares the field queries once (`frame_queries`) for all its
+    chunks. `render_fn(batch, gt)` renders a chunk in place of
+    render_rays (e.g. parallel.mesh.make_sharded_render_fn).
     """
     _check_supported(rcfg)
 
     @torch.no_grad()
     def run(rays_o_t, rays_d_t, near, far, gt_t=None, viewdirs_t=None):
+        render = render_fn
+        if render is None:
+            queries = frame_queries(variables, rcfg)
+
+            def render(batch, gt):
+                return render_rays(variables, consts, batch, rcfg, gt_values=gt, queries=queries)
         outs = []
         for i, (ro, rd) in enumerate(zip(rays_o_t, rays_d_t)):
             gt = {k: v[i] for k, v in gt_t.items()} if gt_t else None
             batch = make_ray_batch(ro, rd, near, far)
-            if staticcam:
-                batch = _static_viewdirs(batch, viewdirs_t[i])
-            out = render_rays(variables, consts, batch, rcfg, gt_values=gt)
+            if staticcam:   # the viewdirs of another camera's rays
+                vd = viewdirs_t[i]
+                batch["viewdirs"] = vd / torch.linalg.vector_norm(vd, dim=-1, keepdim=True)
+            out = render(batch, gt)
             if output_keys is not None:
                 out = {k: out[k] for k in output_keys if k in out}
             outs.append(out)
@@ -824,36 +860,21 @@ def render_frame(fn, rays_o, rays_d, near, far, chunk: int, gt_values: dict | No
     return {k: v.reshape(-1, *v.shape[2:])[:n] for k, v in out.items()}
 
 
-@torch.no_grad()
 def render_image(variables, consts, H, W, K, c2w, near, far,
                  rcfg: RenderConfig, gt_values: dict | None = None, chunk: int = 2048,
                  c2w_staticcam: torch.Tensor | None = None, render_fn=None):
-    """Render a full image chunk by chunk; gt_values entries are flat
-    (H*W, C). Every per-ray map comes back as (H, W, C?). With
-    c2w_staticcam the rays come from that camera while the viewdirs
-    keep c2w's, which shows the view dependence. `render_fn(batch, gt)`
-    renders a chunk in place of render_rays (e.g.
-    parallel.mesh.make_sharded_render_fn)."""
+    """Render a full image chunk by chunk through make_frame_render_fn and
+    render_frame; gt_values entries are flat (H*W, C). Every per-ray map
+    comes back as (H, W, C?). With c2w_staticcam the rays come from that
+    camera while the viewdirs keep c2w's, which shows the view
+    dependence. `render_fn(batch, gt)` renders a chunk in place of
+    render_rays (e.g. parallel.mesh.make_sharded_render_fn)."""
     rays_o, rays_d = get_rays_full_image(H, W, K, c2w)
     viewdirs = rays_d.reshape(-1, 3)
     if c2w_staticcam is not None:
         rays_o, rays_d = get_rays_full_image(H, W, K, c2w_staticcam)
-    rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
-    n = rays_o.shape[0]
-    gt_t = {k: _pad_tile(v, chunk) for k, v in (gt_values or {}).items()}
-    outs = []
-    for i, (ro, rd, vd) in enumerate(zip(_pad_tile(rays_o, chunk), _pad_tile(rays_d, chunk),
-                                         _pad_tile(viewdirs, chunk))):
-        batch = make_ray_batch(ro, rd, near, far)
-        if c2w_staticcam is not None:
-            batch = _static_viewdirs(batch, vd)
-        gt_i = {k: v[i] for k, v in gt_t.items()} or None
-        if render_fn is not None:
-            outs.append(render_fn(batch, gt_i))
-        else:
-            outs.append(render_rays(variables, consts, batch, rcfg, gt_values=gt_i))
-    merged = {}
-    for k in outs[0]:
-        v = torch.cat([o[k] for o in outs], dim=0)[:n]
-        merged[k] = v.reshape(H, W, *v.shape[1:]) if v.shape[0] == n else v
-    return merged
+    fn = make_frame_render_fn(variables, consts, rcfg, staticcam=c2w_staticcam is not None,
+                              render_fn=render_fn)
+    out = render_frame(fn, rays_o.reshape(-1, 3), rays_d.reshape(-1, 3), near, far, chunk,
+                       gt_values=gt_values, viewdirs=viewdirs)
+    return {k: v.reshape(H, W, *v.shape[1:]) for k, v in out.items()}

@@ -28,7 +28,7 @@ from ibl_nerf_tpu_torch.models import field as tfield
 from ibl_nerf_tpu_torch.ops.embedding import positional_encoding
 from ibl_nerf_tpu_torch.render import RenderConfig
 from ibl_nerf_tpu_torch.render import normals as tnormals
-from ibl_nerf_tpu_torch.render.renderer import _make_queries
+from ibl_nerf_tpu_torch.render.renderer import FieldQueries
 from ibl_nerf_tpu_torch.train import losses as tlosses
 from ibl_nerf_tpu_torch.train.step import (
     _group_schedule,
@@ -264,7 +264,7 @@ def test_uncovered_sampling_modes_raise():
 def _queries(jp, tp, jcfg, tcfg, **kw):
     jr = JRenderConfig(field=jcfg, **kw)
     tr = RenderConfig(field=tcfg, **kw)
-    return j_make_queries(jp, jr)[1], _make_queries(tp, tr)[1]
+    return j_make_queries(jp, jr)[1], FieldQueries(tp, tr).sigma
 
 
 @pytest.mark.parametrize("multires,atol", [(4, 1e-5), (10, 2e-3)], ids=["mr4", "mr10"])
