@@ -12,9 +12,13 @@ Phases, one JSON line each; any failure exits non-zero:
           with its shared memory per block, resident blocks per SM (at
           least 2 for f32) and ptxas registers and spills; K1 full at f32
           also at the train step's 512 x 64 points and with 0, 1 and 2
-          coarse heads, and as a row of its own at the Monte-Carlo
-          incident march of a chunk, 18,432 rays x 64 samples with a view
-          direction per ray; K1 at bf16 weights also against K2's raw;
+          coarse heads; its head sets as rows of their own, "incident" at
+          the Monte-Carlo incident march of a chunk (18,432 rays x 64
+          samples, a view direction per ray) and "reflected" at the
+          reflected march of a chunk and of the CLI's 4096-ray update,
+          each kept column bit-equal to K1 full's, a rerun bit-identical,
+          timed in turns with K1 full at the same points; K1 at bf16
+          weights also against K2's raw;
           K1 at f64 weights, `fused_field_*_f64`, within 1e-7 (full) and
           2e-7 (density) relative norm of its plain version, also at
           K = 0, 1 and 4, two runs bit-identical, the outputs not
@@ -324,16 +328,21 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def field_macs(cfg: FieldConfig, density_only: bool) -> int:
+def field_macs(cfg: FieldConfig, density_only: bool, heads: str = "all") -> int:
     """Multiply-adds per point that the field needs (zero padding and
-    the packed heads' zero columns not counted)."""
+    the packed heads' zero columns not counted) for the density or a full
+    query's head set (kernels/fused_field.HEAD_SETS)."""
     w, half, k = cfg.width, cfg.width // 2, cfg.coarse_radiance_number
     trunk = cfg.input_ch * w + 4 * w * w + (cfg.input_ch + w) * w + 2 * w * w
     if density_only:
         return trunk + w
-    heads = (w * w + w * w + (w + cfg.input_ch_views) * w + w * k * half
-             + w + w + 3 * half + half + 3 * w + 3 * k * half)
-    return trunk + heads
+    macs = trunk + (w * w + w * w + (w + cfg.input_ch_views) * w + w * k * half
+                    + w + w + 3 * half + half + 3 * w + 3 * k * half)
+    if heads != "all":      # no pos_feat, B or A's ρ column
+        macs -= w * w + 3 * half + half + w
+    if heads == "incident":  # no view_feat or D
+        macs -= w * k * half + 3 * k * half
+    return macs
 
 
 def time_ms(fn, iters: int) -> float:
@@ -387,22 +396,31 @@ K1_TRAIN_SHAPE = (N_RAND, 64)
 # mc_samples_axis² = 9 hemisphere directions a ray, each a ray of its own
 # with its own view direction, over the 64 coarse samples.
 MC_DIRS = 9
-K1_MC_NAME = "fused_field_apply_mc_march"
 K1_MC_SHAPE = (CHUNK * MC_DIRS, 64)
-# Resident blocks per SM that the f32 K1's design promises for both variants
+# The f32 K1's head-set rows (kernels/fused_field.HEAD_SETS), named as their
+# launch counters: (head set, point counts). The incident march of a
+# Monte-Carlo chunk; the reflected march of a serving chunk and of the
+# CLI's 4096-ray update.
+K1_HEAD_ROWS = [("incident", [K1_MC_SHAPE]),
+                ("reflected", [(CHUNK, 64), (CLI_RAYS, 64)])]
+# Resident blocks per SM that the f32 K1's design promises for every variant
 # (csrc/fused_field.cu: shared memory and registers sized for two).
 K1_BLOCKS_PER_SM = 2
+# the f32 kernel's HeadSet template argument (its mangled name) -> ptxas key
+K1_PTXAS_SETS = {"0": "full", "1": "full_reflected", "2": "full_incident"}
 
 
 def k1_ptxas(log: str, kernel: str = "fused_field_kernel") -> dict:
-    """{"density" | "full": {registers, spill_stores, spill_loads}} of the
-    two variants of a K1 kernel (the f32 one, or "k1_bf16_field"), from
-    nvcc's -Xptxas -v output of its source."""
+    """{"density" | "full" | "full_<set>": {registers, spill_stores,
+    spill_loads}} of the variants of a K1 kernel (the f32 one, or
+    "k1_bf16_field"), from nvcc's -Xptxas -v output of its source."""
     out, entry = {}, None
     for ln in log.splitlines():
         m = re.search(r"entry function '(\w+)'", ln)
         if m:
-            entry = (("density" if "ILb1E" in m.group(1) else "full")
+            heads = re.search(r"HeadSetE(\d)E", m.group(1))
+            entry = (("density" if "ILb1E" in m.group(1)
+                      else K1_PTXAS_SETS[heads.group(1) if heads else "0"])
                      if kernel in m.group(1) else None)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and entry:
@@ -460,49 +478,79 @@ def k1_head_counts(cfg, gen) -> dict:
     return errs
 
 
-def k1_bound(cfg, packed, with_dirs: bool, points: int, peak: float = PEAK_F32_FLOPS):
+def k1_bound(cfg, packed, with_dirs: bool, points: int, peak: float = PEAK_F32_FLOPS,
+             heads: str = "all"):
     """(FLOPs, bytes, ms at the `peak` rate, ms at the memory rate) of one
-    K1 launch on `points` points: each input row, weight it reads (in the
-    pack's dtype) and output row once."""
-    n_cols = 9 + 3 * cfg.coarse_radiance_number if with_dirs else 1
-    read = (ff._WEIGHT_ORDER if with_dirs else
+    K1 launch on `points` points (of head set `heads` if full): each
+    input row, weight it reads (in the pack's dtype) and output row once."""
+    n_cols = len(ff.head_columns(heads, cfg.coarse_radiance_number)) if with_dirs else 1
+    skip = {"all": (), "reflected": ("wpf", "bpf", "B"),
+            "incident": ("wpf", "bpf", "B", "wcf", "bcf", "D")}[heads]
+    read = ([k for k in ff._WEIGHT_ORDER if k not in skip] if with_dirs else
             ["emb_E", "emb_phase", "emb_id", "w0", "w1", "w2", "w3", "w4",
              "w5x", "w5h", "w6", "w7", "tb", "A", "bias"])
     weight_bytes = sum(packed[k].numel() * packed[k].element_size() for k in read)
-    flops = 2 * field_macs(cfg, density_only=not with_dirs) * points
+    flops = 2 * field_macs(cfg, density_only=not with_dirs, heads=heads) * points
     nbytes = points * (ff.IN_COLS + n_cols) * 4 + weight_bytes
     return flops, nbytes, flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
-def k1_mc_row(cfg, packed, gen) -> dict:
-    """K1 full at f32 weights at the Monte-Carlo incident march's shape
-    (K1_MC_SHAPE, a view direction per ray) against its plain version
-    within K1's gate, timed in turns; its launches come from aux_cli."""
-    kern, plain = k1_calls(packed, cfg, *k1_inputs(K1_MC_SHAPE, gen), True)
-    max_abs, max_rel = k1_check(K1_MC_NAME, kern, plain, K1_MC_SHAPE)
-    iters = 5
-    kern(), plain()
-    p1, k1, k2, p2 = (time_ms(plain, iters), time_ms(kern, iters),
-                      time_ms(kern, iters), time_ms(plain, iters))
-    n_pts = K1_MC_SHAPE[0] * K1_MC_SHAPE[1]
-    flops, nbytes, t_ops, t_bytes = k1_bound(cfg, packed, True, n_pts)
-    emit("kernel", name=K1_MC_NAME, points=n_pts, rays=K1_MC_SHAPE[0], flops=flops,
-         bytes=nbytes, max_abs_err=max_abs, max_rel_err=max_rel, atol=KERNEL_ATOL,
-         rtol=KERNEL_RTOL, ms=[k1, k2], plain_ms=[p1, p2], bound_ms=max(t_ops, t_bytes),
-         tflops=flops / ((k1 + k2) / 2) / 1e9)
-    torch.cuda.empty_cache()
-    return {"name": K1_MC_NAME, "route": "cuda",
+def k1_head_row(cfg, packed, gen, heads: str, shapes: list, ptxas: dict) -> dict:
+    """K1 full at f32 weights on head set `heads` at each of `shapes`: every
+    kept column bit-equal to the "all" kernel's, a rerun bit-identical,
+    within K1's gate of the plain version; timed in turns with "all" at the
+    same points, each against the bound of the work it does."""
+    occupancy = ff.occupancy(cfg, density_only=False, heads=heads)
+    if occupancy["blocks_per_sm"] < K1_BLOCKS_PER_SM:
+        fail("kernel", f"K1 {heads}: {occupancy['blocks_per_sm']} resident blocks per SM, "
+             f"the design needs {K1_BLOCKS_PER_SM}")
+    name = f"fused_field_apply_{heads}"
+    cols = ff.head_columns(heads, cfg.coarse_radiance_number)
+    at, max_abs = [], 0.0
+    for lead in [(shapes[0][0] * shapes[0][1] + 37, 1), *shapes]:
+        pts, dirs = k1_inputs(lead, gen)
+        kern = lambda: ff.fused_field_apply(packed, pts, dirs, cfg, heads)  # noqa: E731
+        full = lambda: ff.fused_field_apply(packed, pts, dirs, cfg)         # noqa: E731
+        plain = lambda: ff.fused_field_apply_plain(packed, pts, dirs, cfg, heads)  # noqa: E731
+        max_abs = max(max_abs, k1_check(name, kern, plain, lead)[0])
+        out, again, every = kern(), kern(), full()
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            fail("kernel", f"{name} at {lead}: a rerun differs")
+        off = int((out != every[..., cols]).sum())
+        if off:
+            fail("kernel", f"{name} at {lead}: {off} values differ from K1 full's columns")
+        del out, again, every
+        if lead not in shapes:
+            continue
+        iters = 5
+        a1, k1, k2, a2 = (time_ms(full, iters), time_ms(kern, iters),
+                          time_ms(kern, iters), time_ms(full, iters))
+        n_pts = lead[0] * lead[1]
+        flops, nbytes, t_ops, t_bytes = k1_bound(cfg, packed, True, n_pts, heads=heads)
+        at.append(dict(points=n_pts, ms=[k1, k2], all_ms=[a1, a2],
+                       bound_ms=max(t_ops, t_bytes),
+                       all_bound_ms=max(k1_bound(cfg, packed, True, n_pts)[2:]),
+                       flops=flops, bytes=nbytes, tflops=flops / ((k1 + k2) / 2) / 1e9))
+        del pts, dirs
+        torch.cuda.empty_cache()
+    emit("kernel", name=name, heads=heads, columns=len(cols), at=at, max_abs_err=max_abs,
+         atol=KERNEL_ATOL, rtol=KERNEL_RTOL, kept_columns_bit_equal=True,
+         rerun_bit_identical=True, **occupancy,
+         ptxas=ptxas.get(f"full_{heads}", "not built in this run"))
+    main = at[0]
+    return {"name": name, "route": "cuda",
             "source": "ibl_nerf_tpu_torch/csrc/fused_field.cu", "replaces": K1_SOURCE,
-            "launches": None, "max_abs_err": max_abs,
-            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
+            "launches": None, "max_abs_err": max_abs, "points": main["points"],
+            "ms": sum(main["ms"]) / 2, "all_ms": sum(main["all_ms"]) / 2,
+            "plain_ms": None, "bound_ms": main["bound_ms"], "bound_by": "operations",
+            "library_ms": None}
 
 
 def kernel_phase(cfg, packed, gen) -> list[dict]:
     """Both variants of K1 against the plain version, with their shared
     memory, resident blocks per SM and registers; K1 full also at the
-    train step's shape, and as its own row at the Monte-Carlo march's."""
+    train step's shape, and its head sets as rows of their own."""
     ptxas = k1_ptxas(kernel_build.build_logs.get("fused_field", ""))
     report = []
     for name, shape, with_dirs in K1_VARIANTS:
@@ -557,7 +605,8 @@ def kernel_phase(cfg, packed, gen) -> list[dict]:
              ptxas=ptxas.get("density" if not with_dirs else "full", "not built in this run"),
              train_shape=train,
              other_head_counts_max_abs_err=k1_head_counts(cfg, gen) if with_dirs else None)
-    report.append(k1_mc_row(cfg, packed, gen))
+    report += [k1_head_row(cfg, packed, gen, heads, shapes, ptxas)
+               for heads, shapes in K1_HEAD_ROWS]
     return report
 
 
@@ -1087,7 +1136,11 @@ def serve(phase: str, variables, consts, scene, rcfg, kernels, expect: dict) -> 
     for k in ("rgb", "target_normal_map", "reflected_radiance", "depth", "acc"):
         if k not in results:
             fail(phase, f"buffer {k} missing")
-    k1_ms = sum(r["ms"] for r in kernels if r["name"] in expect)
+    # "fused_field_apply" counts the head-set launches too: their rows stand for it
+    rows = {r["name"]: r["ms"] for r in kernels if r["name"] in expect}
+    if "fused_field_apply_reflected" in rows:
+        del rows["fused_field_apply"]
+    k1_ms = sum(rows.values())
     return dict(poses=N_POSES, height=H, width=W, chunk=CHUNK, chunks=n_chunks,
                 seconds=seconds, rays_per_s=N_POSES * H * W / seconds,
                 ms_per_chunk=seconds / n_chunks * 1e3,
@@ -1115,7 +1168,8 @@ def slice_phase(cfg, variables, consts, kernels, card: str) -> None:
     events_ms = chunk_ms_events(variables, consts, batch, rcfg)
 
     served = serve("slice", variables, consts, scene, rcfg, kernels,
-                   {"fused_field_density": 1, "fused_field_apply": 1})
+                   {"fused_field_density": 1, "fused_field_apply": 1,
+                    "fused_field_apply_reflected": 1})
     emit("slice", card=card, compute_dtype=rcfg.compute_dtype, **served,
          chunk_ms_cuda_events=events_ms, chunk_vs_eager_max_abs_err=chunk_err,
          atol=SLICE_ATOL, rtol=SLICE_RTOL)
@@ -1356,7 +1410,7 @@ def train_phase(cfg, variables, consts, kernels, card: str) -> dict:
     seconds = sum(w["ms_per_step"] for w in windows) * WINDOW_STEPS / 1e3
 
     want = {"fused_field_train_fwd": 2 * steps, "fused_field_train_bwd": 2 * steps,
-            "fused_field_apply": 2 * steps}
+            "fused_field_apply": 2 * steps, "fused_field_apply_reflected": 2 * steps}
     for k, n in launches.items():
         if n != want.get(k, 0):
             fail("train", f"{k} launched {n} times in {steps} steps, "
@@ -1629,7 +1683,8 @@ def train_cli_phase(kernels, card: str) -> dict:
              f"expected 0..{CLI_N_ITER}")
     for e, i in zip(steps, updates):
         k1 = 2 if i >= CLI_SWITCH else 0
-        want = {"fused_field_train_fwd": 2, "fused_field_train_bwd": 2, "fused_field_apply": k1}
+        want = {"fused_field_train_fwd": 2, "fused_field_train_bwd": 2, "fused_field_apply": k1,
+                "fused_field_apply_reflected": k1}
         got = {k: v for k, v in e["launches"].items() if v}
         if got != {k: v for k, v in want.items() if v}:
             fail("train_cli", f"update {i} launched {got}, expected {want}")
@@ -1638,7 +1693,8 @@ def train_cli_phase(kernels, card: str) -> dict:
     # per chunk: the fine pass's primary march on K2 (the gradient-path
     # query, as in JAX's render; no backward, so without residual stores)
     # and its reflected march on K1 full
-    want = {"fused_field_apply": n_chunks, "fused_field_train_fwd_nores": n_chunks}
+    want = {"fused_field_apply": n_chunks, "fused_field_apply_reflected": n_chunks,
+            "fused_field_train_fwd_nores": n_chunks}
     if {k: v for k, v in render["launches"].items() if v} != want:
         fail("train_cli", f"the test-set render launched {render['launches']}, expected "
              f"{want} (one of each per chunk) and nothing else")
@@ -1820,7 +1876,8 @@ def eval_cli_phase(kernels, card: str) -> dict:
 
     full_chunks = -(-TRAIN_H * TRAIN_W // CLI_CHUNK)
     # reflected march + primary march (K2 without residual stores: no backward)
-    primary = {"fused_field_apply": 1, "fused_field_train_fwd_nores": 1}
+    primary = {"fused_field_apply": 1, "fused_field_apply_reflected": 1,
+               "fused_field_train_fwd_nores": 1}
 
     # cli.test at 480x640 with the mesh: one K1 full and one K2 (no residual
     # stores) a chunk, no K1 density
@@ -2048,7 +2105,7 @@ def tools_phase(kernels, card: str, eval_report: dict, device="cuda") -> dict:
                       device=device)
         seconds["profiled_test"] = time.perf_counter() - t0
     launches = {k: v for k, v in _launch_counts().items() if v}
-    want_launches = {"fused_field_apply": len(names),
+    want_launches = {"fused_field_apply": len(names), "fused_field_apply_reflected": len(names),
                      "fused_field_train_fwd_nores": len(names)}
     names_in_trace = trace_kernels(TOOLS_DIR / "trace" / timing.TRACE_NAME)
     seen = {sym: sum(sym in n for n in names_in_trace)
@@ -2134,10 +2191,10 @@ def k1_full_points(points: list):
     (or f64) weights is appended to `points`."""
     original = ff._launch
 
-    def launch(packed, x, cfg, density_only):
+    def launch(packed, x, cfg, density_only, *heads):
         if not density_only:
             points.append(x.shape[0])
-        return original(packed, x, cfg, density_only)
+        return original(packed, x, cfg, density_only, *heads)
 
     ff._launch = launch
     try:
@@ -2191,8 +2248,9 @@ def aux_cli_phase(kernels, card: str) -> dict:
     for e, i in zip(steps, updates):
         # K2/K3 on both passes' primary march; past the switch K1 full on
         # both reflected marches; the aux heads and the depth-volume pass eager
+        k1 = 2 if i >= CLI_SWITCH else 0
         want = {"fused_field_train_fwd": 2, "fused_field_train_bwd": 2,
-                "fused_field_apply": 2 if i >= CLI_SWITCH else 0}
+                "fused_field_apply": k1, "fused_field_apply_reflected": k1}
         got = {k: v for k, v in e["launches"].items() if v}
         if got != {k: v for k, v in want.items() if v}:
             fail(phase, f"update {i} launched {got}, expected {want}")
@@ -2234,7 +2292,8 @@ def aux_cli_phase(kernels, card: str) -> dict:
         fail(phase, f"the Monte-Carlo resume ran updates {second['updates']} to step "
              f"{resumed.step}; expected {mc_updates}")
     for e, i in zip(second["steps"], second["updates"]):
-        want = {"fused_field_train_fwd": 2, "fused_field_train_bwd": 2, "fused_field_apply": 2}
+        want = {"fused_field_train_fwd": 2, "fused_field_train_bwd": 2, "fused_field_apply": 2,
+                "fused_field_apply_incident": 2}
         if {k: v for k, v in e["launches"].items() if v} != want:
             fail(phase, f"Monte-Carlo update {i} launched {e['launches']}, expected {want}")
     mc_pts = AUX_RAYS * MC_DIRS * K1_MC_SHAPE[1]
@@ -2267,7 +2326,8 @@ def aux_cli_phase(kernels, card: str) -> dict:
     # per chunk: the fine pass's primary march on K2 (without residual
     # stores) and its incident march on K1 full; the coarse pass
     # density-only, no ε sweep
-    want = {"fused_field_apply": n_chunks, "fused_field_train_fwd_nores": n_chunks}
+    want = {"fused_field_apply": n_chunks, "fused_field_apply_incident": n_chunks,
+            "fused_field_train_fwd_nores": n_chunks}
     if test_launches != want:
         fail(phase, f"cli.test launched {test_launches}, expected {want}")
     if test_points != [CHUNK * MC_DIRS * K1_MC_SHAPE[1]] * n_chunks:
@@ -2287,9 +2347,6 @@ def aux_cli_phase(kernels, card: str) -> dict:
 
     for row in kernels:
         row.setdefault("launches_by_phase", {})[phase] = totals.get(row["name"], 0)
-        if row["name"] == K1_MC_NAME:
-            row["launches"] = len(mc_points) + len(test_points)
-            row["launches_by_phase"][phase] = row["launches"]
     n_updates = AUX_N_ITER + 1
     report = dict(
         card=card, rays=AUX_RAYS, height=TRAIN_H, width=TRAIN_W, heads=list(AUX_TRAINED),
@@ -2443,8 +2500,9 @@ def patch_leg(cfg: FieldConfig, dead: bool) -> dict:
         return dict(updates=n_iter + 1, run_s=run_s, fine_sigma_bias_max=fine_bias,
                     dead_init_log=dead_log[0], losses=losses, patch_depth_smoothness=smooth)
     for e, i in zip(steps, updates):
+        k1 = 2 if i >= CLI_SWITCH else 0
         want = {"fused_field_train_fwd": 2, "fused_field_train_bwd": 2,
-                "fused_field_apply": 2 if i >= CLI_SWITCH else 0}
+                "fused_field_apply": k1, "fused_field_apply_reflected": k1}
         if {k: v for k, v in e["launches"].items() if v} != {k: v for k, v in want.items() if v}:
             fail(phase, f"{name}: update {i} launched {e['launches']}, expected {want}")
     clamp = [m for _, m in logs if m.startswith("--mesh_devices 2")]
@@ -2522,7 +2580,8 @@ def mesh_leg(cfg: FieldConfig, consts: dict, device) -> dict:
         fail(phase, f"mesh against unsharded: loss rel {loss_rel}, params rel {param_rel}")
     # per update: each shard runs both passes' K2/K3 and K1 full
     want = {"fused_field_train_fwd": 6 * MESH_UPDATES, "fused_field_train_bwd": 6 * MESH_UPDATES,
-            "fused_field_apply": 6 * MESH_UPDATES}
+            "fused_field_apply": 6 * MESH_UPDATES,
+            "fused_field_apply_reflected": 6 * MESH_UPDATES}
     if {k: v for k, v in launches.items() if v} != want:
         fail(phase, f"mesh leg launched {launches}, expected {want}")
     return dict(shards=2, rays=CLI_RAYS, updates=MESH_UPDATES, losses=ref["losses"],

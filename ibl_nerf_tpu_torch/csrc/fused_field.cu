@@ -4,20 +4,28 @@
 // TPU kernel reached by pl.pallas_call in _fused_call). Per point it computes
 //   emb = where(id, t, sin(t + phase)),  t = x @ E          (x = [pts|dirs|0])
 //   h   = the 8-layer ReLU trunk, layer 5 as emb@w5x + h@w5h
-// and then either the density only, out = h@A[:, 0] + bias[0], or every head:
+// and then either the density only, out = h@A[:, 0] + bias[0], or the heads
+// of one head set (`HeadSet`, chosen by the march that reads them):
 //   pos_feat  = relu(h@wpf + bpf)          feature = h@wfeat + bfeat
 //   h2        = relu(feature@wv_f + emb@wv_d + bv)
 //   view_feat = relu(h2@wcf + bcf)
 //   out = h@A + pos_feat@B + h2@C + view_feat@D + bias  (cols [σ, albedo3, ρ,
 //   irr, rad3, coarse3K]).
+// `all` computes every column. `reflected` (the split-sum reflected march)
+// drops pos_feat and B and projects A onto σ only: out [σ, rad3, coarse3K].
+// `incident` (the Monte-Carlo incident march) also drops view_feat and D:
+// out [σ, rad3]. A kept column is summed by the same lanes in the same order
+// under every set, so it is bit-equal to `all`'s. At 8x256 and K = 3 a point
+// costs 795,776 multiply-adds under `all`, 729,472 under `reflected` (-8.3%)
+// and 630,016 under `incident` (-20.8%).
 //
 // What bounds it: the f32 FMA rate. A point brings 32 B and takes at most
-// 4(9+3K) B away, but costs ~0.98 MFLOP (density) or ~1.59 MFLOP (full) at
-// 8x256: ~10^4 operations per byte, far above the card's 67 TFLOP/s f32 over
-// 3.35 TB/s (~20 per byte). The weights (~2.6 MB f32) do not fit an SM's
-// 227 KB of shared memory, so every block streams them from L2 through L1,
-// and the loads that feed the FMAs (weights and activations) compete with
-// them for issue slots and L1 bandwidth.
+// 4(9+3K) B away, but costs ~0.98 MFLOP (density), ~1.26 (`incident`) or
+// ~1.59 (`all`) at 8x256: ~10^4 operations per byte, far above the card's
+// 67 TFLOP/s f32 over 3.35 TB/s (~20 per byte). The weights (~2.6 MB f32) do
+// not fit an SM's 227 KB of shared memory, so every block streams them from
+// L2 through L1, and the loads that feed the FMAs (weights and activations)
+// compete with them for issue slots and L1 bandwidth.
 //
 // What the design does about it: a block owns a tile of 64 points and keeps
 // their activations on chip, in shared memory, transposed ([feature][point],
@@ -47,17 +55,21 @@
 // in_ch and of wv_d outside the direction lanes are zero).
 //
 // Shared memory per block: the full variant X (in_ch + in_views rows) + H
-// (256) + O (4 x (9+3K)): 418 rows x 68 floats x 4 B = 113,696 B at K=3; the
-// density variant X (in_ch) + H: 319 rows, 86,768 B (σ's 4 partial sums go
-// to X, read no more by then). Both fit two blocks (16 warps) per SM under
-// 128 registers a thread. Arithmetic is f32 FMA with f32 accumulation, sinf
-// (not __sinf; no fast math) on the full range. The ragged last tile is
-// masked in the kernel; offsets are 64-bit.
+// (256) + O (4 x the kept columns): 418 rows x 68 floats x 4 B = 113,696 B
+// for `all` at K=3 (9+3K columns), 398 rows, 108,256 B for `reflected`
+// (4+3K), 362 rows, 98,464 B for `incident` (4); the density variant X
+// (in_ch) + H: 319 rows, 86,768 B (σ's 4 partial sums go to X, read no more
+// by then). Every variant fits two blocks (16 warps) per SM under 128
+// registers a thread. Arithmetic is f32 FMA with f32 accumulation, sinf (not
+// __sinf; no fast math) on the full range. The ragged last tile is masked in
+// the kernel; offsets are 64-bit.
 //
 // On an NVIDIA H100 80GB HBM3 at a 700 W power limit (k3_knockout.py k1):
 // the full variant takes 4.83 ms at 131,072 points against its 3.11 ms
 // bound (67 TFLOP/s f32), the density variant 33.7 ms at 1,572,864 points
-// against 23.07 ms.
+// against 23.07 ms; in turns with `all` (chip_smoke.py's kernel phase),
+// `reflected` 4.55 ms against `all`'s 4.93 at 131,072 points (bound 2.85 ms)
+// and `incident` 35.4 ms against 42.1 at 1,179,648 (bound 22.18 ms).
 
 #include <cuda_runtime.h>
 
@@ -74,6 +86,16 @@ constexpr int kInCols = 8;
 constexpr int kLane = 128;
 constexpr int kMaxCoarse = 39;      // n_out = 9 + 3K <= 128, as the JAX kernel's lanes
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kDropped = 5;         // albedo3, ρ, irr: raw columns 1..5
+
+// The heads a full variant computes: every one, those the reflected march
+// reads (σ, rad3, coarse3K) or those the incident march reads (σ, rad3).
+// The kept columns keep their raw order, so raw column c >= 6 is kept
+// column c - kDropped.
+enum HeadSet { kAll, kReflected, kIncident };
+
+// The entry points' `variant`: a full head set or the density only.
+enum Variant { kVariantAll, kVariantDensity, kVariantReflected, kVariantIncident };
 
 // Same names, same order as _WEIGHT_ORDER in kernels/fused_field.py.
 enum WeightIndex {
@@ -94,6 +116,12 @@ struct Dims {
   int n_coarse;  // K coarse-radiance heads
   int n_out;     // 9 + 3K
 };
+
+// The columns of a head set's output (and rows of each warp's O plane).
+template <HeadSet H>
+__host__ __device__ __forceinline__ int n_kept(const Dims& d) {
+  return H == kAll ? d.n_out : H == kReflected ? d.n_out - kDropped : 4;
+}
 
 // The raw columns [lo[r], hi[r]) (r < 2) a projection may be nonzero in:
 // A, B, C, then D_k for head k (kernels/fused_field.projection_columns).
@@ -236,25 +264,30 @@ __device__ __forceinline__ float project_col(const float (&v)[8][NCOL],
   return group_sum_scatter(s, t.lane);
 }
 
-// O[wq][c][point] += this warp's share of (v @ P)[point][c] for every raw
-// column c of the projection. Each (wq, c, point) is written by the same
-// lane on every call, so O needs no synchronisation until it is read.
-template <int NCOL>
-__device__ __forceinline__ void project(float* O, const float (&v)[8][NCOL],
+// O[wq][c'][point] += this warp's share of (v @ P)[point][c] for every raw
+// column c of the projection, c' its column in head set H's output (n_keep
+// of them). Each (wq, c', point) is written by the same lane on every call,
+// so O needs no synchronisation until it is read.
+template <int NCOL, HeadSet H>
+__device__ __forceinline__ void project(float* O, int n_keep,
+                                        const float (&v)[8][NCOL],
                                         const float* __restrict__ P,
                                         int n_out, const Proj& pr,
                                         const Place& t) {
-  float* o = O + t.wq * n_out * kStride + t.prow + (t.lane >> 2);
+  float* o0 = O + t.wq * n_keep * kStride + t.prow + (t.lane >> 2);
 #pragma unroll 1
-  for (int r = 0; r < 2; ++r)
+  for (int r = 0; r < 2; ++r) {
+    // a range past the dropped heads sits kDropped columns lower
+    float* o = o0 - (H != kAll && pr.lo[r] > 0 ? kDropped * kStride : 0);
 #pragma unroll 1
     for (int c = pr.lo[r]; c < pr.hi[r]; ++c) {
       const float s = project_col<NCOL>(v, P, n_out, c, t);
       o[c * kStride] += s;
     }
+  }
 }
 
-template <bool kDensityOnly>
+template <bool kDensityOnly, HeadSet kHeads>
 __global__ void __launch_bounds__(kThreads, 2)
     fused_field_kernel(const float* __restrict__ x, long long n, Weights w,
                        Dims d, const __grid_constant__ Projs ps,
@@ -263,7 +296,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int n_emb = kDensityOnly ? d.in_ch : d.in_ch + d.in_views;
   float* X = smem;                  // embedding, n_emb features
   float* H = X + n_emb * kStride;   // trunk activations, then feature, h2
-  float* O = H + kWidth * kStride;  // raw output sums of each wq (full)
+  float* O = H + kWidth * kStride;  // kept output sums of each wq (full)
+  const int n_keep = n_kept<kHeads>(d);
 
   Place t;
   t.lane = threadIdx.x & 31;
@@ -285,8 +319,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     H[c * kStride + q0 + pt] = p < n ? __ldg(x + p * kInCols + c) : 0.f;
   }
   if (!kDensityOnly)
-    for (int idx = t.lane; idx < d.n_out * 32; idx += 32)
-      O[(t.wq * d.n_out + (idx >> 5)) * kStride + q0 + (idx & 31)] = 0.f;
+    for (int idx = t.lane; idx < n_keep * 32; idx += 32)
+      O[(t.wq * n_keep + (idx >> 5)) * kStride + q0 + (idx & 31)] = 0.f;
   quad_sync(t.quad);
   for (int idx = qt; idx < n_emb * 32; idx += 128) {
     const int l = idx >> 5, pt = idx & 31;
@@ -334,10 +368,15 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 
   store<8>(H, v, t);
-  project<8>(O, v, w.p[kA], d.n_out, ps.p[0], t);
-  dense<8>(v, H, kWidth, w.p[kWpf], nullptr, 0, nullptr, kWidth, w.p[kBpf],
-           true, t);  // pos_feat, projected and dropped
-  project<8>(O, v, w.p[kB], d.n_out, ps.p[1], t);
+  if (kHeads == kAll) {
+    project<8, kHeads>(O, n_keep, v, w.p[kA], d.n_out, ps.p[0], t);
+    dense<8>(v, H, kWidth, w.p[kWpf], nullptr, 0, nullptr, kWidth, w.p[kBpf],
+             true, t);  // pos_feat, projected and dropped
+    project<8, kHeads>(O, n_keep, v, w.p[kB], d.n_out, ps.p[1], t);
+  } else {
+    const Proj sigma{{0, 0}, {1, 0}};  // A onto σ alone
+    project<8, kHeads>(O, n_keep, v, w.p[kA], d.n_out, sigma, t);
+  }
   dense<8>(v, H, kWidth, w.p[kWfeat], nullptr, 0, nullptr, kWidth,
            w.p[kBfeat], false, t);
   store<8>(H, v, t);  // feature overwrites h
@@ -347,76 +386,81 @@ __global__ void __launch_bounds__(kThreads, 2)
            w.p[kWvD] + static_cast<size_t>(d.in_ch) * kWidth, kWidth,
            w.p[kBv], true, t);
   store<8>(H, v, t);
-  project<8>(O, v, w.p[kC], d.n_out, ps.p[2], t);
+  project<8, kHeads>(O, n_keep, v, w.p[kC], d.n_out, ps.p[2], t);
 
   // view_feat, two heads (256 columns) at a time, each tile projected onto
-  // its heads' columns of D with the tile's rows of D and dropped.
+  // its heads' columns of D with the tile's rows of D and dropped; none for
+  // the incident march.
+  const int n_coarse = kHeads == kIncident ? 0 : d.n_coarse;
   const int ldcf = d.n_coarse * kHalf;
   int k = 0;
 #pragma unroll 1
-  for (; k + 2 <= d.n_coarse; k += 2) {
+  for (; k + 2 <= n_coarse; k += 2) {
     dense<8>(v, H, kWidth, w.p[kWcf] + k * kHalf, nullptr, 0, nullptr, ldcf,
              w.p[kBcf] + k * kHalf, true, t);
     const float* Dk = w.p[kD] + static_cast<size_t>(k) * kHalf * d.n_out;
-    project<8>(O, v, Dk, d.n_out, ps.p[3 + k], t);
-    project<8>(O, v, Dk, d.n_out, ps.p[4 + k], t);
+    project<8, kHeads>(O, n_keep, v, Dk, d.n_out, ps.p[3 + k], t);
+    project<8, kHeads>(O, n_keep, v, Dk, d.n_out, ps.p[4 + k], t);
   }
-  if (k < d.n_coarse) {
+  if (k < n_coarse) {
     float v4[8][4];
     dense<4>(v4, H, kWidth, w.p[kWcf] + k * kHalf, nullptr, 0, nullptr, ldcf,
              w.p[kBcf] + k * kHalf, true, t);
-    project<4>(O, v4, w.p[kD] + static_cast<size_t>(k) * kHalf * d.n_out,
-               d.n_out, ps.p[3 + k], t);
+    project<4, kHeads>(O, n_keep, v4,
+                       w.p[kD] + static_cast<size_t>(k) * kHalf * d.n_out,
+                       d.n_out, ps.p[3 + k], t);
   }
 
-  // raw = the 4 warps' sums + bias; warp wq writes the quad's points
-  // 8 wq .. 8 wq + 7.
+  // out = the 4 warps' sums + bias of the kept columns; warp wq writes the
+  // quad's points 8 wq .. 8 wq + 7.
   quad_sync(t.quad);
-  const int ldo = d.n_out * kStride;
-  for (int idx = t.lane; idx < 8 * d.n_out; idx += 32) {
-    const int i = idx / d.n_out, c = idx % d.n_out;
+  const int ldo = n_keep * kStride;
+  for (int idx = t.lane; idx < 8 * n_keep; idx += 32) {
+    const int i = idx / n_keep, c = idx % n_keep;
+    const int raw = kHeads == kAll || c == 0 ? c : c + kDropped;
     const float* o = O + c * kStride + q0 + 8 * t.wq + i;
     const long long p = base + 8 * t.wq + i;
     if (p < n)
-      out[p * d.n_out + c] =
-          o[0] + o[ldo] + o[2 * ldo] + o[3 * ldo] + __ldg(w.p[kBias] + c);
+      out[p * n_keep + c] =
+          o[0] + o[ldo] + o[2 * ldo] + o[3 * ldo] + __ldg(w.p[kBias] + raw);
   }
 }
 
-template <bool kDensityOnly>
+template <bool kDensityOnly, HeadSet kHeads>
 size_t smem_bytes(const Dims& d) {
   const int n_emb = kDensityOnly ? d.in_ch : d.in_ch + d.in_views;
-  const int rows = n_emb + kWidth + (kDensityOnly ? 0 : 4 * d.n_out);
+  const int rows = n_emb + kWidth + (kDensityOnly ? 0 : 4 * n_kept<kHeads>(d));
   return static_cast<size_t>(rows) * kStride * sizeof(float);
 }
 
-template <bool kDensityOnly>
+template <bool kDensityOnly, HeadSet kHeads>
 cudaError_t set_smem(size_t smem) {
-  return cudaFuncSetAttribute(fused_field_kernel<kDensityOnly>,
+  return cudaFuncSetAttribute(fused_field_kernel<kDensityOnly, kHeads>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-template <bool kDensityOnly>
+template <bool kDensityOnly, HeadSet kHeads>
 int launch(const float* x, long long n, const Weights& w, const Dims& d,
            const Projs& ps, float* out, cudaStream_t stream) {
-  const size_t smem = smem_bytes<kDensityOnly>(d);
-  cudaError_t err = set_smem<kDensityOnly>(smem);
+  const size_t smem = smem_bytes<kDensityOnly, kHeads>(d);
+  cudaError_t err = set_smem<kDensityOnly, kHeads>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = (n + kTile - 1) / kTile;
-  fused_field_kernel<kDensityOnly>
+  fused_field_kernel<kDensityOnly, kHeads>
       <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(x, n, w, d,
                                                                    ps, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kDensityOnly>
+template <bool kDensityOnly, HeadSet kHeads>
 int occupancy(const Dims& d, int* blocks_per_sm, long long* smem) {
-  const size_t bytes = smem_bytes<kDensityOnly>(d);
-  cudaError_t err = set_smem<kDensityOnly>(bytes);
+  const size_t bytes = smem_bytes<kDensityOnly, kHeads>(d);
+  cudaError_t err = set_smem<kDensityOnly, kHeads>(bytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, fused_field_kernel<kDensityOnly>, kThreads, bytes);
+        blocks_per_sm, fused_field_kernel<kDensityOnly, kHeads>, kThreads,
+        bytes);
   *smem = static_cast<long long>(bytes);
   return static_cast<int>(err);
 }
@@ -426,22 +470,27 @@ bool dims_ok(int in_ch, int in_views, int n_coarse) {
          n_coarse >= 0 && n_coarse <= kMaxCoarse;
 }
 
+bool variant_ok(int variant) {
+  return variant >= kVariantAll && variant <= kVariantIncident;
+}
+
 }  // namespace
 
 // Launches K1 on `stream`. weights: kNumWeights device pointers in the order
-// of WeightIndex. proj: 4 ints (lo0, hi0, lo1, hi1) per projection, A, B, C,
-// then D_k for each of the n_coarse heads: the raw columns each may be
-// nonzero in. Returns 0, a cudaError_t, or -1 for arguments the kernel does
-// not take.
+// of WeightIndex. variant (`Variant`): 0 every head, 1 the density only, 2
+// the reflected march's heads, 3 the incident march's; `out` holds that
+// many columns (9+3K, 1, 4+3K, 4). proj: 4 ints (lo0, hi0, lo1, hi1) per
+// projection, A, B, C, then D_k for each of the n_coarse heads: the raw
+// columns each may be nonzero in. Returns 0, a cudaError_t, or -1 for
+// arguments the kernel does not take.
 extern "C" int fused_field_launch(const float* x, long long n,
                                   const float* const* weights, int n_weights,
                                   int width, int in_ch, int in_views,
-                                  int n_coarse, int density_only,
-                                  const int* proj, int n_proj, float* out,
-                                  void* stream) {
+                                  int n_coarse, int variant, const int* proj,
+                                  int n_proj, float* out, void* stream) {
   if (n_weights != kNumWeights || width != kWidth ||
-      !dims_ok(in_ch, in_views, n_coarse) || n_proj != 3 + n_coarse || n < 0 ||
-      (n + kTile - 1) / kTile > INT_MAX)
+      !dims_ok(in_ch, in_views, n_coarse) || !variant_ok(variant) ||
+      n_proj != 3 + n_coarse || n < 0 || (n + kTile - 1) / kTile > INT_MAX)
     return -1;
   const Dims d{in_ch, in_views, n_coarse, 9 + 3 * n_coarse};
   Projs ps{};
@@ -456,17 +505,30 @@ extern "C" int fused_field_launch(const float* x, long long n,
   Weights w;
   for (int i = 0; i < kNumWeights; ++i) w.p[i] = weights[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return density_only ? launch<true>(x, n, w, d, ps, out, s)
-                      : launch<false>(x, n, w, d, ps, out, s);
+  switch (variant) {
+    case kVariantDensity: return launch<true, kAll>(x, n, w, d, ps, out, s);
+    case kVariantReflected:
+      return launch<false, kReflected>(x, n, w, d, ps, out, s);
+    case kVariantIncident:
+      return launch<false, kIncident>(x, n, w, d, ps, out, s);
+    default: return launch<false, kAll>(x, n, w, d, ps, out, s);
+  }
 }
 
-// The dynamic shared memory a block of one variant takes and how many of its
-// blocks an SM holds at once. Returns 0, a cudaError_t, or -1.
+// The dynamic shared memory a block of one variant (as fused_field_launch
+// takes it) takes and how many of its blocks an SM holds at once. Returns 0,
+// a cudaError_t, or -1.
 extern "C" int fused_field_occupancy(int in_ch, int in_views, int n_coarse,
-                                     int density_only, int* blocks_per_sm,
+                                     int variant, int* blocks_per_sm,
                                      long long* smem) {
-  if (!dims_ok(in_ch, in_views, n_coarse)) return -1;
+  if (!dims_ok(in_ch, in_views, n_coarse) || !variant_ok(variant)) return -1;
   const Dims d{in_ch, in_views, n_coarse, 9 + 3 * n_coarse};
-  return density_only ? occupancy<true>(d, blocks_per_sm, smem)
-                      : occupancy<false>(d, blocks_per_sm, smem);
+  switch (variant) {
+    case kVariantDensity: return occupancy<true, kAll>(d, blocks_per_sm, smem);
+    case kVariantReflected:
+      return occupancy<false, kReflected>(d, blocks_per_sm, smem);
+    case kVariantIncident:
+      return occupancy<false, kIncident>(d, blocks_per_sm, smem);
+    default: return occupancy<false, kAll>(d, blocks_per_sm, smem);
+  }
 }

@@ -5,8 +5,15 @@ the Pallas TPU kernel). One launch runs the positional encoding, the
 8-layer trunk and either every head or the density only, for a flat
 list of points, reading the (N, 8) packed input [pts | dirs | 0-pad]
 and writing only the (N, 9+3K) or (N, 1) f32 raw output. The renderer
-uses it for the no-gradient sweeps: the 4 ε-offset density sweeps and
-the reflected march.
+uses it for the no-gradient sweeps: the 4 ε-offset density sweeps, the
+split-sum reflected march and the Monte-Carlo incident march.
+
+A full query takes a head set (`HEAD_SETS`), the raw columns its caller
+reads: "all"; "reflected", σ, the radiance and the coarse heads (the
+reflected march); "incident", σ and the radiance (the incident march).
+The f32 kernel computes only the heads of its set, each kept column
+bit-equal to "all"'s; at bf16 and f64 weights, and in the plain versions,
+every head is computed and the set's columns returned.
 
 Like the JAX kernel, it computes in the dtype of the packed weights
 (`pack_field_weights(..., dtype=)`):
@@ -62,12 +69,45 @@ _WEIGHT_ORDER = ["emb_E", "emb_phase", "emb_id",
                  "wcf", "bcf", "A", "B", "C", "D", "bias"]
 
 # Launches of the kernel per wrapper and packed dtype; the plain versions
-# never count.
+# never count. "fused_field_apply" counts every f32 full launch, and
+# "fused_field_apply_<set>" those that computed only that head set.
 LAUNCHES = {"fused_field_apply": 0, "fused_field_density": 0,
             "fused_field_apply_bf16": 0, "fused_field_density_bf16": 0,
-            "fused_field_apply_f64": 0, "fused_field_density_f64": 0}
+            "fused_field_apply_f64": 0, "fused_field_density_f64": 0,
+            "fused_field_apply_incident": 0, "fused_field_apply_reflected": 0}
 _DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float64: "f64"}
 MAX_COARSE = 39   # n_out = 9 + 3K <= 128 output lanes, as in the JAX kernel
+
+# The full query's head sets and the f32 entry point's `variant` of each
+# (1 is the density only): csrc/fused_field.cu's `Variant`.
+HEAD_SETS = {"all": 0, "reflected": 2, "incident": 3}
+_DENSITY_VARIANT = 1
+_DROPPED = 5   # albedo3, ρ, irr: raw columns 1..5, which no march reads
+
+
+def head_columns(heads: str, n_coarse: int) -> list[int]:
+    """The raw columns of head set `heads`, in raw order, from the layout
+    [σ, albedo3, ρ, irr, rad3, coarse3K]: every one; σ, rad3 and coarse3K
+    ("reflected"); σ and rad3 ("incident")."""
+    n_out = 9 + 3 * n_coarse
+    if heads == "all":
+        return list(range(n_out))
+    return [0, *range(1 + _DROPPED, n_out if heads == "reflected" else 9)]
+
+
+def radiance_column(heads: str) -> int:
+    """The first of the three radiance columns of `heads`' output; σ is
+    column 0 and the coarse heads follow the radiance."""
+    return 1 + _DROPPED if heads == "all" else 1
+
+
+def select_heads(raw: torch.Tensor, heads: str) -> torch.Tensor:
+    """The columns of head set `heads` (`head_columns`) of a raw
+    (..., 9+3K) output, bit for bit."""
+    if heads == "all":
+        return raw
+    stop = raw.shape[-1] if heads == "reflected" else 9
+    return torch.cat([raw[..., :1], raw[..., 1 + _DROPPED:stop]], dim=-1)
 
 
 def projection_columns(n_coarse: int) -> list[tuple[tuple[int, int], tuple[int, int]]]:
@@ -331,33 +371,38 @@ def _proj_table(n_coarse: int):
     return (ctypes.c_int * len(flat))(*flat)
 
 
-def occupancy(cfg: FieldConfig, density_only: bool) -> dict[str, int]:
+def occupancy(cfg: FieldConfig, density_only: bool, heads: str = "all") -> dict[str, int]:
     """The f32 kernel's dynamic shared memory per block and the blocks of
     it an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-    for the current CUDA device."""
+    for the current CUDA device; `heads` picks a full variant."""
     fn = _build.load("fused_field").fused_field_occupancy
     fn.restype = ctypes.c_int
     blocks, smem = ctypes.c_int(), ctypes.c_longlong()
+    variant = _DENSITY_VARIANT if density_only else HEAD_SETS[heads]
     err = fn(cfg.input_ch, cfg.input_ch_views, cfg.coarse_radiance_number,
-             int(density_only), ctypes.byref(blocks), ctypes.byref(smem))
+             variant, ctypes.byref(blocks), ctypes.byref(smem))
     if err != 0:
         raise RuntimeError(f"fused_field occupancy query failed: error {err}")
     return {"smem_bytes_per_block": smem.value, "blocks_per_sm": blocks.value}
 
 
 def _launch(packed: dict, x: torch.Tensor, cfg: FieldConfig,
-            density_only: bool) -> torch.Tensor:
+            density_only: bool, heads: str = "all") -> torch.Tensor:
     """The f32 or the f64 kernel, by the packed dtype: both take the same
-    arguments."""
+    arguments. The f32 kernel computes only the heads of `heads`; the f64
+    one computes every head (its `variant` is 0 or 1)."""
     _check(packed, x, cfg)
     f64 = _packed_dtype(packed) == torch.float64
     if f64:
         from ibl_nerf_tpu_torch.kernels import fused_field_f64  # it imports this module
         entry = fused_field_f64._entries()[0]
+        variant = int(density_only)
     else:
         entry = _entry()
+        variant = _DENSITY_VARIANT if density_only else HEAD_SETS[heads]
     n = x.shape[0]
-    n_cols = 1 if density_only else 9 + 3 * cfg.coarse_radiance_number
+    n_cols = (1 if density_only else
+              len(head_columns("all" if f64 else heads, cfg.coarse_radiance_number)))
     out = torch.empty((n, n_cols), dtype=torch.float32, device=x.device)
     ptrs = (ctypes.c_void_p * len(_WEIGHT_ORDER))(
         *[packed[k].data_ptr() for k in _WEIGHT_ORDER])
@@ -366,13 +411,17 @@ def _launch(packed: dict, x: torch.Tensor, cfg: FieldConfig,
         err = entry(x.data_ptr(), n, ctypes.cast(ptrs, ctypes.c_void_p),
                     len(_WEIGHT_ORDER), cfg.width, cfg.input_ch,
                     cfg.input_ch_views, cfg.coarse_radiance_number,
-                    int(density_only), ctypes.cast(table, ctypes.c_void_p),
+                    variant, ctypes.cast(table, ctypes.c_void_p),
                     len(table) // 4, out.data_ptr(),
                     torch.cuda.current_stream(x.device).cuda_stream)
     suffix = "_f64" if f64 else ""
     if err != 0:
         raise RuntimeError(f"fused_field{suffix} kernel launch failed: error {err}")
     LAUNCHES[("fused_field_density" if density_only else "fused_field_apply") + suffix] += 1
+    if f64:
+        return select_heads(out, heads)
+    if heads != "all":
+        LAUNCHES[f"fused_field_apply_{heads}"] += 1
     return out
 
 
@@ -385,23 +434,25 @@ def _launch_bf16(packed: dict, x: torch.Tensor, cfg: FieldConfig,
     return out
 
 
-def _run(packed, x, cfg, density_only):
+def _run(packed, x, cfg, density_only, heads="all"):
+    if heads not in HEAD_SETS:
+        raise ValueError(f"unknown head set {heads!r}")
     if x.device.type == "cpu":
-        return _field_plain_any(packed, x, density_only)
+        return select_heads(_field_plain_any(packed, x, density_only), heads)
     if x.device.type == "cuda":
         with span("kernel.k1"):
             if _packed_dtype(packed) == torch.bfloat16:
-                return _launch_bf16(packed, x, cfg, density_only)
-            return _launch(packed, x, cfg, density_only)
+                return select_heads(_launch_bf16(packed, x, cfg, density_only), heads)
+            return _launch(packed, x, cfg, density_only, heads)
     raise ValueError(f"no fused field for device {x.device}")
 
 
 def fused_field_apply(packed: dict, pts: torch.Tensor, dirs: torch.Tensor,
-                      cfg: FieldConfig) -> torch.Tensor:
-    """Full field query: pts (..., S, 3), dirs (..., 3) -> raw
-    (..., S, 9+3K). The kernel on CUDA tensors, the plain version on
-    CPU ones."""
-    out = _run(packed, _pack_inputs(pts, dirs), cfg, density_only=False)
+                      cfg: FieldConfig, heads: str = "all") -> torch.Tensor:
+    """Full field query: pts (..., S, 3), dirs (..., 3) -> the raw
+    columns of head set `heads` (..., S, len(head_columns)), (..., S, 9+3K)
+    for "all". The kernel on CUDA tensors, the plain version on CPU ones."""
+    out = _run(packed, _pack_inputs(pts, dirs), cfg, False, heads)
     return out.reshape(*pts.shape[:-1], out.shape[-1])
 
 
@@ -412,10 +463,12 @@ def fused_field_density(packed: dict, pts: torch.Tensor,
     return out.reshape(*pts.shape[:-1], 1)
 
 
-def fused_field_apply_plain(packed: dict, pts: torch.Tensor,
-                            dirs: torch.Tensor, cfg: FieldConfig) -> torch.Tensor:
-    """The plain PyTorch version of `fused_field_apply`, on any device."""
-    out = _field_plain_any(packed, _pack_inputs(pts, dirs), density_only=False)
+def fused_field_apply_plain(packed: dict, pts: torch.Tensor, dirs: torch.Tensor,
+                            cfg: FieldConfig, heads: str = "all") -> torch.Tensor:
+    """The plain PyTorch version of `fused_field_apply`, on any device:
+    every head, then the columns of `heads`."""
+    out = select_heads(_field_plain_any(packed, _pack_inputs(pts, dirs), density_only=False),
+                       heads)
     return out.reshape(*pts.shape[:-1], out.shape[-1])
 
 

@@ -23,10 +23,11 @@ no-grad sweeps run under `torch.no_grad()`.
 Every field query goes through `FieldQueries`, which picks the
 implementation and dtype of each: with `use_pallas` the no-grad sweeps
 (ε-offset density sweeps, reflected march, Monte-Carlo incident march)
-run the fused-field kernel K1 (`kernels/fused_field.py`); with
-`use_pallas_train` and bf16 gradients the gradient-path full query runs
-K2/K3 (`kernels/fused_field_train.py`), as the JAX renderer routes them
-through its Pallas kernels. A training pass builds its own; a frame
+run the fused-field kernel K1 (`kernels/fused_field.py`), each march on
+the heads it reads; with `use_pallas_train` and bf16 gradients the
+gradient-path full query runs K2/K3 (`kernels/fused_field_train.py`), as
+the JAX renderer routes them through its Pallas kernels. A training
+pass builds its own; a frame
 (`make_frame_render_fn` + `render_frame`, which `render_image` runs too)
 renders under no-grad, one chunk after another, on queries built once
 for the frame. Random draws (the `perturb` jitter and
@@ -52,6 +53,8 @@ from ibl_nerf_tpu_torch.kernels.fused_field import (
     fused_field_apply,
     fused_field_density,
     pack_field_weights,
+    radiance_column,
+    select_heads,
 )
 from ibl_nerf_tpu_torch.kernels.fused_field_train import fused_field_apply_train, to_bf16
 from ibl_nerf_tpu_torch.models.aux_mlp import apply_position_direction_mlp, apply_position_mlp
@@ -129,7 +132,9 @@ def pallas_train_refusal(rcfg: RenderConfig) -> str | None:
 class FieldQueries:
     """The four queries of one field under `rcfg`: `full(pts, viewdirs)`
     and `sigma(pts)` on the gradient path, `full_ng` and `sigma_ng` for
-    the no-grad sweeps (call those under torch.no_grad()).
+    the no-grad sweeps (call those under torch.no_grad()). `full_ng` takes
+    the head set its march reads (`kernels/fused_field.HEAD_SETS`) and
+    returns those raw columns; K1 at f32 weights computes only them.
 
     compute_dtype, as in the JAX renderer: "float32" everything f32;
     "bfloat16" every query in bf16 (f32 raw heads); "mixed" the gradient
@@ -167,10 +172,10 @@ class FieldQueries:
     def sigma(self, pts):
         return self._eager(self.dt_grad, self.amp, pts)
 
-    def full_ng(self, pts, viewdirs):
+    def full_ng(self, pts, viewdirs, heads: str = "all"):
         if self.rcfg.use_pallas:
-            return fused_field_apply(self._k1_pack, pts, viewdirs, self.fcfg)
-        return self._eager(self.dt_ng, False, pts, viewdirs)
+            return fused_field_apply(self._k1_pack, pts, viewdirs, self.fcfg, heads)
+        return select_heads(self._eager(self.dt_ng, False, pts, viewdirs), heads)
 
     def sigma_ng(self, pts):
         if self.rcfg.use_pallas:
@@ -255,15 +260,18 @@ def _radiance_f(rcfg: RenderConfig):
 # Sub-renderers
 # ---------------------------------------------------------------------------
 
-def _composite_radiance_stack(raw, z_vals, rays_d, rcfg: RenderConfig):
-    """radiance + K coarse-radiance maps from a raw field output.
+def _composite_radiance_stack(raw, z_vals, rays_d, rcfg: RenderConfig, heads: str = "all"):
+    """radiance + K coarse-radiance maps from a raw field output holding
+    the columns of head set `heads`; under "incident" the radiance alone.
     Returns (radiance_map (B,3), [coarse maps (B,3)])."""
     rf = _radiance_f(rcfg)
     weights = weights_from_alpha(
         alpha_from_sigma(raw[..., 0], dists_from_z_vals(z_vals, rays_d)))
-    radiance_map = accumulate(weights, rf(raw[..., 6:9]))
-    coarse_maps = [accumulate(weights, rf(raw[..., 9 + 3 * k: 12 + 3 * k]))
-                   for k in range(rcfg.field.coarse_radiance_number)]
+    rad = radiance_column(heads)
+    radiance_map = accumulate(weights, rf(raw[..., rad:rad + 3]))
+    n_coarse = 0 if heads == "incident" else rcfg.field.coarse_radiance_number
+    coarse_maps = [accumulate(weights, rf(raw[..., rad + 3 + 3 * k: rad + 6 + 3 * k]))
+                   for k in range(n_coarse)]
     return radiance_map, coarse_maps
 
 
@@ -492,9 +500,10 @@ def _raw2outputs(q: FieldQueries, variables, consts, rays_o, rays_d, z_vals,
                     r_raw, z_vals_constant, reflected_dirs, rcfg)
             else:
                 with torch.no_grad():
-                    r_raw = q.full_ng(reflected_pts.detach(), reflected_dirs.detach())
+                    r_raw = q.full_ng(reflected_pts.detach(), reflected_dirs.detach(),
+                                      "reflected")
                     reflected_radiance_map, reflected_coarse_maps = _composite_radiance_stack(
-                        r_raw, z_vals_constant, reflected_dirs, rcfg)
+                        r_raw, z_vals_constant, reflected_dirs, rcfg, "reflected")
             prefiltered = torch.stack(
                 [reflected_radiance_map] + list(reflected_coarse_maps), dim=1)
 
@@ -617,8 +626,9 @@ def _monte_carlo_shading(query_full_ng, rays_d, x_surface, z_vals_constant,
                          normal_map, albedo_map, roughness_map, rcfg: RenderConfig):
     """GGX microfacet Monte-Carlo shading: M = mc_samples_axis² fixed
     low-discrepancy hemisphere directions about the shading normal, each
-    marched through the no-grad field (K1 full under use_pallas: B·M
-    rays of the constant coarse z) for its incident radiance, weighted by
+    marched through the no-grad field, `query_full_ng(pts, dirs,
+    "incident")` (K1 full on σ and the radiance under use_pallas: B·M
+    rays of the constant coarse z), for its incident radiance, weighted by
     the GGX glossy and Lambert diffuse BRDF and the uniform-hemisphere
     weight 2π/M. The incident radiance and the directions carry no
     gradient; the BRDF terms carry it to the normal, albedo and roughness
@@ -637,9 +647,9 @@ def _monte_carlo_shading(query_full_ng, rays_d, x_surface, z_vals_constant,
             flat_dirs = wdirs.reshape(b * m, 3)
             pts = (x_surface[:, None, None, :] + wdirs[:, :, None, :]
                    * z.reshape(b, m, s)[..., None]).reshape(b * m, s, 3)
-            raw = query_full_ng(pts, flat_dirs)
+            raw = query_full_ng(pts, flat_dirs, "incident")
             COUNTERS["mc_incident_points"] += b * m * s
-            incident, _ = _composite_radiance_stack(raw, z, flat_dirs, rcfg)
+            incident, _ = _composite_radiance_stack(raw, z, flat_dirs, rcfg, "incident")
             incident = incident.reshape(b, m, 3)
 
     with span("render.mc_brdf"):

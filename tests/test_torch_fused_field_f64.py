@@ -392,9 +392,9 @@ def render_f64_both(s, **kw):
     calls = []
     run = tff._run
 
-    def counting_run(packed, x, cfg, density_only):
+    def counting_run(packed, x, cfg, density_only, *heads):
         calls.append((tff._packed_dtype(packed), density_only))
-        return run(packed, x, cfg, density_only)
+        return run(packed, x, cfg, density_only, *heads)
 
     tff._run = counting_run
     try:

@@ -236,11 +236,13 @@ def _logit(p):
 
 
 def _constant_query(level, s):
-    """A field opaque at its first sample with radiance `level`."""
-    def query(pts, dirs):
-        raw = torch.zeros((pts.shape[0], s, 9))
+    """A field opaque at its first sample with radiance `level`, as the
+    incident march queries it: the "incident" head set's [σ, rad3]."""
+    def query(pts, dirs, heads):
+        assert heads == "incident"
+        raw = torch.zeros((pts.shape[0], s, 4))
         raw[..., 0] = 1e4
-        raw[..., 6:9] = _logit(level)
+        raw[..., 1:4] = _logit(level)
         return raw
     return query
 

@@ -283,8 +283,9 @@ def test_train_step_uncovered_modes_raise(scene, monkeypatch):
     step = tstep.make_train_step(tr.replace(compute_dtype="float64", use_pallas=True), tl,
                                  phase, opt, tc, H, W, B, 0.7, NEAR, FAR)
     calls, run = [], tff._run
-    monkeypatch.setattr(tff, "_run", lambda packed, x, cfg, density_only: (
-        calls.append((packed["w0"].dtype, density_only)) or run(packed, x, cfg, density_only)))
+    monkeypatch.setattr(tff, "_run", lambda packed, x, cfg, density_only, *heads: (
+        calls.append((packed["w0"].dtype, density_only))
+        or run(packed, x, cfg, density_only, *heads)))
     state, scalars = step(tstep.init_train_state(tv, opt), tarr,
                           generator=torch.Generator().manual_seed(0))
     assert state.step == 1
