@@ -39,7 +39,8 @@ spans `render.coarse`, `render.importance` and `render.fine`, and inside
 a shaded pass `render.aux_heads`, `render.normal` and `render.shading`
 (under Monte-Carlo shading `render.mc_incident` and `render.mc_brdf`
 inside it); the inferred depth head is `render.depth_head`. `COUNTERS`
-counts the points of the Monte-Carlo incident marches, on every device.
+counts the points of the Monte-Carlo incident marches and of the ε-normal
+density sweeps, on every device.
 """
 
 from __future__ import annotations
@@ -82,9 +83,10 @@ from ibl_nerf_tpu_torch.utils.timing import span
 _AUTOGRAD_NORMALS = ("normal_map_from_depth_gradient",
                      "normal_map_from_depth_gradient_direction")
 
-# points queried by the Monte-Carlo incident marches (B·M·S a march), kept
-# beside the kernels' launch counters (`kernels/*.LAUNCHES`)
-COUNTERS = {"mc_incident_points": 0}
+# points queried by the Monte-Carlo incident marches (B·M·S a march) and by
+# the ε-normal density sweeps (4·B·S a sweep), kept beside the kernels'
+# launch counters (`kernels/*.LAUNCHES`)
+COUNTERS = {"mc_incident_points": 0, "eps_normal_points": 0}
 
 # compute_dtype -> (gradient-path dtype, no-grad sweep dtype)
 _QUERY_DTYPES = {"float32": (torch.float32, torch.float32),
@@ -587,7 +589,8 @@ def _estimate_normal(query_sigma, query_sigma_ng, rays_o, rays_d, z_vals,
     under bf16_grad, as in the JAX renderer), each carrying no gradient;
     or the inferred normal map as it is, with its gradient to the normal
     head. The gradient-path query stays eager: K2/K3 have no forward
-    mode."""
+    mode. The ε sweeps add the points they query to
+    COUNTERS["eps_normal_points"]."""
     nt = rcfg.normal_type
     if nt == "ground_truth":
         return _gt_normal(gt["normal"])
@@ -604,16 +607,24 @@ def _estimate_normal(query_sigma, query_sigma_ng, rays_o, rays_d, z_vals,
         return normals_mod.normal_from_sigma_gradient_surface(query_sigma, x_surface)
     if nt == "normal_map_from_sigma_gradient":
         return normals_mod.normal_from_sigma_gradient(query_sigma, pts, weights_det)
+    sweep = _counted_sweep(query_sigma_ng)
     with torch.no_grad():
         if nt == "normal_map_from_depth_gradient_epsilon":
             return normals_mod.normal_from_depth_gradient_epsilon(
-                query_sigma_ng, rays_o, rays_d, z_vals, rcfg.epsilon,
-                scan=rcfg.sweep_scan)
+                sweep, rays_o, rays_d, z_vals, rcfg.epsilon, scan=rcfg.sweep_scan)
         if nt == "normal_map_from_depth_gradient_direction_epsilon":
             return normals_mod.normal_from_depth_gradient_direction_epsilon(
-                query_sigma_ng, rays_o, rays_d, z_vals, rcfg.epsilon_direction,
-                scan=rcfg.sweep_scan)
+                sweep, rays_o, rays_d, z_vals, rcfg.epsilon_direction, scan=rcfg.sweep_scan)
     raise ValueError(nt)
+
+
+def _counted_sweep(query_sigma):
+    """`query_sigma` adding the points of each call, from their shape, to
+    COUNTERS["eps_normal_points"]."""
+    def query(pts):
+        COUNTERS["eps_normal_points"] += pts.numel() // 3
+        return query_sigma(pts)
+    return query
 
 
 @functools.cache
