@@ -10,7 +10,11 @@ Phases, one JSON line each; any failure exits non-zero:
           shapes the main paths give it, and at ragged point counts:
           K1 (both variants, at f32 weights and at bf16 weights, each
           with its shared memory per block, resident blocks per SM (at
-          least 2 for f32) and ptxas registers and spills; K1 full at f32
+          least 2 for f32) and ptxas registers and spills; K1 density at
+          f32 with no spill store, also at a 4096-ray update's two ε
+          sweeps (1,048,576 and 3,145,728 points), within 2e-7 relative
+          norm of its plain version at each of its three shapes and
+          timed in turns with it; K1 full at f32
           also at the train step's 512 x 64 points and with 0, 1 and 2
           coarse heads; its head sets as rows of their own, "incident" at
           the Monte-Carlo incident march of a chunk (18,432 rays x 64
@@ -403,9 +407,20 @@ K1_MC_SHAPE = (CHUNK * MC_DIRS, 64)
 # CLI's 4096-ray update.
 K1_HEAD_ROWS = [("incident", [K1_MC_SHAPE]),
                 ("reflected", [(CHUNK, 64), (CLI_RAYS, 64)])]
-# Resident blocks per SM that the f32 K1's design promises for every variant
-# (csrc/fused_field.cu: shared memory and registers sized for two).
+# Resident blocks per SM that the f32 K1's designs promise (csrc/fused_field.cu):
+# the full variants' 256-thread blocks at 128 registers a thread; the density
+# variant's 128-thread blocks at up to 255 registers (its 128-accumulator lane
+# tile) and 86,768 B of shared memory, two of them so that one block's
+# barriers overlap the other's FMAs.
 K1_BLOCKS_PER_SM = 2
+K1_DENSITY_BLOCKS_PER_SM = 2
+# K1 density at f32 weights against its plain version, in relative norm:
+# the trunk sums each activation in one FMA chain and σ's 256 products in
+# another order than cuBLAS (2.5e-8 at 1,572,864 points on an H100).
+K1_DENSITY_REL = 2e-7
+# K1 density's ε sweeps beside the serving chunk's (K1_VARIANTS): a 4096-ray
+# training update's coarse (64 samples) and fine (64 + 128) passes.
+K1_DENSITY_SHAPES = [(4 * CLI_RAYS, 64), (4 * CLI_RAYS, 64 + 128)]
 # the f32 kernel's HeadSet template argument (its mangled name) -> ptxas key
 K1_PTXAS_SETS = {"0": "full", "1": "full_reflected", "2": "full_incident"}
 
@@ -547,18 +562,43 @@ def k1_head_row(cfg, packed, gen, heads: str, shapes: list, ptxas: dict) -> dict
             "library_ms": None}
 
 
+def k1_density_at(cfg, packed, gen, lead) -> dict:
+    """K1 density on one ε sweep's shape: within K1's gate and
+    K1_DENSITY_REL of its plain version (the phase fails outside either),
+    timed in turns with it, beside its bound."""
+    name = "fused_field_density"
+    kern, plain = k1_calls(packed, cfg, *k1_inputs(lead, gen), False)
+    max_abs = k1_check(name, kern, plain, lead)[0]
+    rel = rel_err(kern(), plain())
+    if rel > K1_DENSITY_REL:
+        fail("kernel", f"{name} at {lead}: relative error {rel:.3e}, "
+             f"the bound is {K1_DENSITY_REL}")
+    p1, k1, k2, p2 = (time_ms(plain, 5), time_ms(kern, 5), time_ms(kern, 5),
+                      time_ms(plain, 5))
+    n_pts = lead[0] * lead[1]
+    bound_ms = max(k1_bound(cfg, packed, False, n_pts)[2:])
+    return dict(points=n_pts, rel_err=rel, max_abs_err=max_abs, ms=[k1, k2],
+                plain_ms=[p1, p2], bound_ms=bound_ms,
+                share_of_bound=bound_ms / ((k1 + k2) / 2))
+
+
 def kernel_phase(cfg, packed, gen) -> list[dict]:
     """Both variants of K1 against the plain version, with their shared
     memory, resident blocks per SM and registers; K1 full also at the
-    train step's shape, and its head sets as rows of their own."""
+    train step's shape, and its head sets as rows of their own; K1 density
+    also at the training update's ε sweeps, each in relative norm, and
+    with no spill store."""
     ptxas = k1_ptxas(kernel_build.build_logs.get("fused_field", ""))
     report = []
     for name, shape, with_dirs in K1_VARIANTS:
         n_pts = shape[0] * shape[1]
         occupancy = ff.occupancy(cfg, density_only=not with_dirs)
-        if occupancy["blocks_per_sm"] < K1_BLOCKS_PER_SM:
+        need = K1_BLOCKS_PER_SM if with_dirs else K1_DENSITY_BLOCKS_PER_SM
+        if occupancy["blocks_per_sm"] < need:
             fail("kernel", f"{name}: {occupancy['blocks_per_sm']} resident blocks per SM, "
-                 f"the design needs {K1_BLOCKS_PER_SM}")
+                 f"the design needs {need}")
+        if not with_dirs and ptxas.get("density", {}).get("spill_stores", 0):
+            fail("kernel", f"{name}: spill stores {ptxas['density']}")
 
         def bound(points):
             return k1_bound(cfg, packed, with_dirs, points)
@@ -604,7 +644,9 @@ def kernel_phase(cfg, packed, gen) -> list[dict]:
              tflops=flops / ((k1 + k2) / 2) / 1e9, **occupancy,
              ptxas=ptxas.get("density" if not with_dirs else "full", "not built in this run"),
              train_shape=train,
-             other_head_counts_max_abs_err=k1_head_counts(cfg, gen) if with_dirs else None)
+             other_head_counts_max_abs_err=k1_head_counts(cfg, gen) if with_dirs else None,
+             at=None if with_dirs else [k1_density_at(cfg, packed, gen, lead)
+                                        for lead in (shape, *K1_DENSITY_SHAPES)])
     report += [k1_head_row(cfg, packed, gen, heads, shapes, ptxas)
                for heads, shapes in K1_HEAD_ROWS]
     return report

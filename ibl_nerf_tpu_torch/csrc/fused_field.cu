@@ -25,19 +25,45 @@
 // 67 TFLOP/s f32 over 3.35 TB/s (~20 per byte). The weights (~2.6 MB f32) do
 // not fit an SM's 227 KB of shared memory, so every block streams them from
 // L2 through L1, and the loads that feed the FMAs (weights and activations)
-// compete with them for issue slots and L1 bandwidth.
+// compete with them for issue slots and L1 bandwidth. Knocking parts out of
+// the density variant's earlier 8x8 tile (k3_knockout.py k1, 1,572,864
+// points, 33.7 ms) showed which: with its weight loads replaced by a
+// register constant it took 28.1 ms, with its activation loads replaced
+// 32.6 ms, with one FMA in 8 (every load kept) 24.5 ms: the weight loads
+// held it most (they hit L1 when a co-resident block has just read the same
+// rows; loaded past L1, the new tile below takes 5.4 ms longer).
 //
-// What the design does about it: a block owns a tile of 64 points and keeps
-// their activations on chip, in shared memory, transposed ([feature][point],
-// stride 68 floats). Its 8 warps form 2 quads of 4; a quad owns 32 points,
-// and each of its warps a quarter of a layer's columns. A lane keeps an 8x8
-// accumulator tile in registers (8 points x 8 columns; 8x4 for a lone coarse
-// head): per k it loads its 8 activations as two 16-byte shared loads that 8
-// lanes share, and its 8 weights as two 16-byte loads of 4 adjacent columns
-// that 4 lanes share, so a warp reads 128 distinct bytes of activations and
-// 256 of weights per 64 FMAs a lane. Only the quad's warps read each other's
-// activations, so a layer's in-place store sits between two 128-thread named
-// barriers and the block never waits as a whole.
+// What the full variants do about it: a block owns a tile of 64 points and
+// keeps their activations on chip, in shared memory, transposed
+// ([feature][point], stride 68 floats). Its 8 warps form 2 quads of 4; a
+// quad owns 32 points, and each of its warps a quarter of a layer's
+// columns. A lane keeps an 8x8 accumulator tile in registers (8 points x 8
+// columns; 8x4 for a lone coarse head): per k it loads its 8 activations as
+// two 16-byte shared loads that 8 lanes share, and its 8 weights as two
+// 16-byte loads of 4 adjacent columns that 4 lanes share, so a warp reads
+// 128 distinct bytes of activations and 256 of weights per 64 FMAs a lane.
+// Only the quad's warps read each other's activations, so a layer's
+// in-place store sits between two 128-thread named barriers and the block
+// never waits as a whole.
+//
+// What the density variant does about it: more FMAs per loaded operand, on
+// a lane tile of its own. A block is one quad (128 threads) owning the
+// 64-point tile; each warp owns a quarter of a layer's columns for all 64
+// points, and a lane holds 16 points x 8 columns (128 accumulators, 217
+// registers, no spill). Per k a lane loads its 16 activations as four
+// 16-byte shared loads that 8 lanes share and its 8 weights as two 16-byte
+// loads that 4 lanes share: 6 loads for 128 FMAs, where the 8x8 tile took
+// 4 for 64, and each weight is loaded once a tile instead of once a quad.
+// The next k's operands load while this k's FMAs issue (two fragments in
+// registers, the pair loop unrolled twice). Two blocks an SM (8 warps)
+// overlap one block's barriers with the other's FMAs. Each trunk activation
+// is summed over k in order by one lane with fmaf, then biased and
+// rectified, as in the full variants, so it is bit-equal to theirs; only σ's
+// 256-term sum differs in order (lane, xor butterfly over the column
+// groups, then the 4 warps). Timed and dropped: 8 points x 16 columns (two
+// more weight loads a k, 15% slower), the pair loop not unrolled or
+// unrolled 4 times, L1 prefetches of the weights 4-16 rows ahead, two quads
+// a block (in step or not), the FMAs column-major.
 //
 // The narrow output heads never reach shared memory. A layer whose output
 // feeds a head projects it in its epilogue: per raw column, each lane sums
@@ -59,17 +85,19 @@
 // for `all` at K=3 (9+3K columns), 398 rows, 108,256 B for `reflected`
 // (4+3K), 362 rows, 98,464 B for `incident` (4); the density variant X
 // (in_ch) + H: 319 rows, 86,768 B (σ's 4 partial sums go to X, read no more
-// by then). Every variant fits two blocks (16 warps) per SM under 128
-// registers a thread. Arithmetic is f32 FMA with f32 accumulation, sinf (not
+// by then). Every variant fits two blocks per SM: the full variants' 16
+// warps under 128 registers a thread, the density variant's 8 under 255.
+// Arithmetic is f32 FMA with f32 accumulation, sinf (not
 // __sinf; no fast math) on the full range. The ragged last tile is masked in
 // the kernel; offsets are 64-bit.
 //
 // On an NVIDIA H100 80GB HBM3 at a 700 W power limit (k3_knockout.py k1):
 // the full variant takes 4.83 ms at 131,072 points against its 3.11 ms
-// bound (67 TFLOP/s f32), the density variant 33.7 ms at 1,572,864 points
-// against 23.07 ms; in turns with `all` (chip_smoke.py's kernel phase),
-// `reflected` 4.55 ms against `all`'s 4.93 at 131,072 points (bound 2.85 ms)
-// and `incident` 35.4 ms against 42.1 at 1,179,648 (bound 22.18 ms).
+// bound (67 TFLOP/s f32), the density variant 31.1 ms at 1,572,864 points
+// against 23.07 ms (33.7 on the 8x8 tile, in turns); in turns with `all`
+// (chip_smoke.py's kernel phase), `reflected` 4.55 ms against `all`'s 4.93
+// at 131,072 points (bound 2.85 ms) and `incident` 35.4 ms against 42.1 at
+// 1,179,648 (bound 22.18 ms).
 
 #include <cuda_runtime.h>
 
@@ -87,6 +115,14 @@ constexpr int kLane = 128;
 constexpr int kMaxCoarse = 39;      // n_out = 9 + 3K <= 128, as the JAX kernel's lanes
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kDropped = 5;         // albedo3, ρ, irr: raw columns 1..5
+// The density variant's lane tile: a block of 4 warps (one quad) owns the
+// 64-point tile, each warp a quarter of a layer's columns for all 64
+// points, each lane kDPts points x kDCols columns (128 accumulators).
+constexpr int kDensityThreads = 128;
+constexpr int kDPts = 16;            // points a lane holds
+constexpr int kDCols = 128 / kDPts;  // columns a lane holds
+constexpr int kDPg = kTile / kDPts;  // lanes along the points (point groups)
+constexpr int kDCg = 32 / kDPg;      // lanes along the columns (column groups)
 
 // The heads a full variant computes: every one, those the reflected march
 // reads (σ, rad3, coarse3K) or those the incident march reads (σ, rad3).
@@ -287,13 +323,216 @@ __device__ __forceinline__ void project(float* O, int n_keep,
   }
 }
 
-template <bool kDensityOnly, HeadSet kHeads>
-__global__ void __launch_bounds__(kThreads, 2)
-    fused_field_kernel(const float* __restrict__ x, long long n, Weights w,
-                       Dims d, const __grid_constant__ Projs ps,
-                       float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  const int n_emb = kDensityOnly ? d.in_ch : d.in_ch + d.in_views;
+// The density variant's place: warp wq owns columns [64 wq, 64 wq + 64) of
+// a layer for the tile's 64 points; lane l is in point group pg = l % kDPg
+// and column group cg = l / kDPg. Its points are 4 runs of 4 (16x8) or 2
+// (8x16) at 4 pg + 4 kDPg m, so per k a warp's activation loads read
+// 4 kDPg adjacent floats each, shared by kDCg lanes (no bank conflict);
+// its columns are runs of 4 at 4 cg + 4 kDCg q, 16 bytes shared by kDPg
+// lanes.
+struct DPlace {
+  int wq, pg, cg;
+};
+
+// The tile point the lane holds in slot i, and the column in slot j.
+__device__ __forceinline__ int dpoint(const DPlace& t, int i) {
+  return 4 * t.pg + (i & 3) + 4 * kDPg * (i >> 2);
+}
+__device__ __forceinline__ int dcol(const DPlace& t, int j) {
+  return kWidth / 4 * t.wq + 4 * t.cg + (j & 3) + 4 * kDCg * (j >> 2);
+}
+
+// One k's operands of a lane: its activations of row k and weights of row k.
+struct DFrag {
+  float a[kDPts], b[kDCols];
+};
+
+__device__ __forceinline__ void dload(DFrag& f, const float* il,
+                                      const float* __restrict__ wl, int k) {
+#pragma unroll
+  for (int m = 0; m < kDPts / 4; ++m) {
+    const float4 a4 =
+        *reinterpret_cast<const float4*>(il + k * kStride + 4 * kDPg * m);
+    f.a[4 * m] = a4.x;
+    f.a[4 * m + 1] = a4.y;
+    f.a[4 * m + 2] = a4.z;
+    f.a[4 * m + 3] = a4.w;
+  }
+  const float* wk = wl + static_cast<size_t>(k) * kWidth;
+#pragma unroll
+  for (int q = 0; q < kDCols / 4; ++q) {
+    const float4 b4 = __ldg(reinterpret_cast<const float4*>(wk + 4 * kDCg * q));
+    f.b[4 * q] = b4.x;
+    f.b[4 * q + 1] = b4.y;
+    f.b[4 * q + 2] = b4.z;
+    f.b[4 * q + 3] = b4.w;
+  }
+}
+
+__device__ __forceinline__ void dfma(float (&acc)[kDPts][kDCols],
+                                     const DFrag& f) {
+#pragma unroll
+  for (int i = 0; i < kDPts; ++i)
+#pragma unroll
+    for (int j = 0; j < kDCols; ++j) acc[i][j] = fmaf(f.a[i], f.b[j], acc[i][j]);
+}
+
+// acc[i][j] += sum_k in[k][dpoint(i)] * w[k * kWidth + dcol(j)], k in order;
+// the next k's operands load while this k's FMAs issue (two fragments in
+// registers; the last pair reloads row k_dim - 1, unused).
+__device__ __forceinline__ void dmac(float (&acc)[kDPts][kDCols],
+                                     const float* __restrict__ in, int k_dim,
+                                     const float* __restrict__ w,
+                                     const DPlace& t) {
+  const float* il = in + 4 * t.pg;
+  const float* wl = w + kWidth / 4 * t.wq + 4 * t.cg;
+  DFrag f0, f1;
+  dload(f0, il, wl, 0);
+  int k = 0;
+#pragma unroll 2
+  for (; k + 1 < k_dim; k += 2) {
+    dload(f1, il, wl, k + 1);
+    dfma(acc, f0);
+    dload(f0, il, wl, min(k + 2, k_dim - 1));
+    dfma(acc, f1);
+  }
+  if (k < k_dim) dfma(acc, f0);
+}
+
+// v = relu(in1 @ w1 + in2 @ w2 + bias) for the lane's points and columns;
+// every matrix kWidth columns wide.
+__device__ __forceinline__ void ddense(float (&v)[kDPts][kDCols],
+                                       const float* in1, int k1,
+                                       const float* __restrict__ w1,
+                                       const float* in2, int k2,
+                                       const float* __restrict__ w2,
+                                       const float* __restrict__ bias,
+                                       const DPlace& t) {
+#pragma unroll
+  for (int i = 0; i < kDPts; ++i)
+#pragma unroll
+    for (int j = 0; j < kDCols; ++j) v[i][j] = 0.f;
+  dmac(v, in1, k1, w1, t);
+  if (in2 != nullptr) dmac(v, in2, k2, w2, t);
+#pragma unroll
+  for (int j = 0; j < kDCols; ++j) {
+    const float b = __ldg(bias + dcol(t, j));
+#pragma unroll
+    for (int i = 0; i < kDPts; ++i) {
+      v[i][j] += b;
+      v[i][j] = fmaxf(v[i][j], 0.f);
+    }
+  }
+}
+
+// out[dcol(j)][dpoint(i)] = v[i][j], in place of the layer's input once
+// every warp of the block has read it (the block is one quad, so the
+// quad's named barrier serves).
+__device__ __forceinline__ void dstore(float* out,
+                                       const float (&v)[kDPts][kDCols],
+                                       const DPlace& t) {
+  quad_sync(0);
+#pragma unroll
+  for (int j = 0; j < kDCols; ++j) {
+    float* dst = out + dcol(t, j) * kStride + 4 * t.pg;
+#pragma unroll
+    for (int m = 0; m < kDPts / 4; ++m)
+      *reinterpret_cast<float4*>(dst + 4 * kDPg * m) = make_float4(
+          v[4 * m][j], v[4 * m + 1][j], v[4 * m + 2][j], v[4 * m + 3][j]);
+  }
+  quad_sync(0);
+}
+
+// The density variant: out = h @ A[:, 0] + bias[0] for the block's 64 points.
+__device__ __forceinline__ void density_field(const float* __restrict__ x,
+                                              long long n, const Weights& w,
+                                              const Dims& d, float* smem,
+                                              float* __restrict__ out) {
+  float* X = smem;                   // embedding, in_ch features
+  float* H = X + d.in_ch * kStride;  // trunk activations
+  DPlace t;
+  const int lane = threadIdx.x & 31;
+  t.wq = threadIdx.x >> 5;
+  t.pg = lane % kDPg;
+  t.cg = lane / kDPg;
+  const long long base = static_cast<long long>(blockIdx.x) * kTile;
+
+  // Positional encoding of the 64 points, as the full variant's: x staged
+  // in H's first 8 rows, t = x @ E, then t or sin(t + phase).
+  for (int idx = threadIdx.x; idx < kTile * kInCols; idx += kDensityThreads) {
+    const int pt = idx >> 3, c = idx & 7;
+    const long long p = base + pt;
+    H[c * kStride + pt] = p < n ? __ldg(x + p * kInCols + c) : 0.f;
+  }
+  quad_sync(0);
+  for (int idx = threadIdx.x; idx < d.in_ch * kTile; idx += kDensityThreads) {
+    const int l = idx >> 6, pt = idx & (kTile - 1);
+    float u = 0.f;
+#pragma unroll
+    for (int c = 0; c < kInCols; ++c)
+      u = fmaf(H[c * kStride + pt], __ldg(w.p[kEmbE] + c * kLane + l), u);
+    X[l * kStride + pt] =
+        __ldg(w.p[kEmbId] + l) > 0.f ? u : sinf(u + __ldg(w.p[kEmbPhase] + l));
+  }
+  quad_sync(0);
+
+  float v[kDPts][kDCols];
+  const float* tb = w.p[kTb];
+  ddense(v, X, d.in_ch, w.p[kW0], nullptr, 0, nullptr, tb, t);
+  dstore(H, v, t);
+  const int mid[4] = {kW1, kW2, kW3, kW4};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    ddense(v, H, kWidth, w.p[mid[i]], nullptr, 0, nullptr,
+           tb + (i + 1) * kWidth, t);
+    dstore(H, v, t);
+  }
+  ddense(v, X, d.in_ch, w.p[kW5x], H, kWidth, w.p[kW5h], tb + 5 * kWidth, t);
+  dstore(H, v, t);
+  ddense(v, H, kWidth, w.p[kW6], nullptr, 0, nullptr, tb + 6 * kWidth, t);
+  dstore(H, v, t);
+  ddense(v, H, kWidth, w.p[kW7], nullptr, 0, nullptr, tb + 7 * kWidth, t);
+
+  // σ, h never stored: each lane sums its columns' share for its points,
+  // the warp's column groups add theirs (xor butterfly, so every lane of a
+  // point group ends with the same sum), column group 0 writes the warp's
+  // share to X row wq (X is read no more), and the 4 shares are added in
+  // warp order.
+  float s[kDPts];
+#pragma unroll
+  for (int i = 0; i < kDPts; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kDCols; ++j) {
+    const float a = __ldg(w.p[kA] + dcol(t, j) * d.n_out);
+#pragma unroll
+    for (int i = 0; i < kDPts; ++i) s[i] = fmaf(v[i][j], a, s[i]);
+  }
+#pragma unroll
+  for (int off = kDPg; off < 32; off <<= 1)
+#pragma unroll
+    for (int i = 0; i < kDPts; ++i) s[i] += __shfl_xor_sync(kFull, s[i], off);
+  if (t.cg == 0) {
+#pragma unroll
+    for (int i = 0; i < kDPts; ++i) X[t.wq * kStride + dpoint(t, i)] = s[i];
+  }
+  quad_sync(0);
+  if (threadIdx.x < kTile) {
+    const long long p = base + threadIdx.x;
+    const float* xs = X + threadIdx.x;
+    if (p < n)
+      out[p] = xs[0] + xs[kStride] + xs[2 * kStride] + xs[3 * kStride] +
+               __ldg(w.p[kBias]);
+  }
+}
+
+// A full variant: the heads of head set H for the block's 64 points.
+template <HeadSet kHeads>
+__device__ __forceinline__ void full_field(const float* __restrict__ x,
+                                           long long n, const Weights& w,
+                                           const Dims& d, const Projs& ps,
+                                           float* smem,
+                                           float* __restrict__ out) {
+  const int n_emb = d.in_ch + d.in_views;
   float* X = smem;                  // embedding, n_emb features
   float* H = X + n_emb * kStride;   // trunk activations, then feature, h2
   float* O = H + kWidth * kStride;  // kept output sums of each wq (full)
@@ -318,9 +557,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     const long long p = base + pt;
     H[c * kStride + q0 + pt] = p < n ? __ldg(x + p * kInCols + c) : 0.f;
   }
-  if (!kDensityOnly)
-    for (int idx = t.lane; idx < n_keep * 32; idx += 32)
-      O[(t.wq * n_keep + (idx >> 5)) * kStride + q0 + (idx & 31)] = 0.f;
+  for (int idx = t.lane; idx < n_keep * 32; idx += 32)
+    O[(t.wq * n_keep + (idx >> 5)) * kStride + q0 + (idx & 31)] = 0.f;
   quad_sync(t.quad);
   for (int idx = qt; idx < n_emb * 32; idx += 128) {
     const int l = idx >> 5, pt = idx & 31;
@@ -352,20 +590,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   store<8>(H, v, t);
   dense<8>(v, H, kWidth, w.p[kW7], nullptr, 0, nullptr, kWidth,
            tb + 7 * kWidth, true, t);
-
-  if (kDensityOnly) {
-    // σ = h @ A[:, 0] + bias[0], h never stored: each warp's share goes to
-    // X row wq (X is read no more), then warp 0 of the quad adds them.
-    X[t.wq * kStride + t.prow + (t.lane >> 2)] =
-        project_col<8>(v, w.p[kA], d.n_out, 0, t);
-    quad_sync(t.quad);
-    const long long p = base + t.lane;
-    const float* xs = X + q0 + t.lane;
-    if (t.wq == 0 && p < n)
-      out[p] = xs[0] + xs[kStride] + xs[2 * kStride] + xs[3 * kStride] +
-               __ldg(w.p[kBias]);
-    return;
-  }
 
   store<8>(H, v, t);
   if (kHeads == kAll) {
@@ -426,11 +650,29 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// The density variant's blocks are one quad, the full variants' two.
+template <bool kDensityOnly, HeadSet kHeads>
+__global__ void __launch_bounds__(kDensityOnly ? kDensityThreads : kThreads, 2)
+    fused_field_kernel(const float* __restrict__ x, long long n, Weights w,
+                       Dims d, const __grid_constant__ Projs ps,
+                       float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (kDensityOnly)
+    density_field(x, n, w, d, smem, out);
+  else
+    full_field<kHeads>(x, n, w, d, ps, smem, out);
+}
+
 template <bool kDensityOnly, HeadSet kHeads>
 size_t smem_bytes(const Dims& d) {
   const int n_emb = kDensityOnly ? d.in_ch : d.in_ch + d.in_views;
   const int rows = n_emb + kWidth + (kDensityOnly ? 0 : 4 * n_kept<kHeads>(d));
   return static_cast<size_t>(rows) * kStride * sizeof(float);
+}
+
+template <bool kDensityOnly>
+constexpr int threads() {
+  return kDensityOnly ? kDensityThreads : kThreads;
 }
 
 template <bool kDensityOnly, HeadSet kHeads>
@@ -448,8 +690,8 @@ int launch(const float* x, long long n, const Weights& w, const Dims& d,
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = (n + kTile - 1) / kTile;
   fused_field_kernel<kDensityOnly, kHeads>
-      <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(x, n, w, d,
-                                                                   ps, out);
+      <<<static_cast<unsigned>(blocks), threads<kDensityOnly>(), smem,
+         stream>>>(x, n, w, d, ps, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -459,8 +701,8 @@ int occupancy(const Dims& d, int* blocks_per_sm, long long* smem) {
   cudaError_t err = set_smem<kDensityOnly, kHeads>(bytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, fused_field_kernel<kDensityOnly, kHeads>, kThreads,
-        bytes);
+        blocks_per_sm, fused_field_kernel<kDensityOnly, kHeads>,
+        threads<kDensityOnly>(), bytes);
   *smem = static_cast<long long>(bytes);
   return static_cast<int>(err);
 }

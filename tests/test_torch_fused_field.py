@@ -178,6 +178,22 @@ def test_projection_columns_hold_every_nonzero_head_column(k):
     assert all(0 <= lo <= hi <= n_out for ranges in cols for lo, hi in ranges)
 
 
+def _trunk(packed, x):
+    """The embedding and the 8-layer trunk's output h, as every variant of
+    the f32 kernel computes them."""
+    w, relu = packed, torch.relu
+    t = x @ w["emb_E"]
+    emb = torch.where(w["emb_id"] > 0.0, t, torch.sin(t + w["emb_phase"]))
+    tb = w["tb"]
+    h = relu(emb @ w["w0"] + tb[0])
+    for i in (1, 2, 3, 4):
+        h = relu(h @ w[f"w{i}"] + tb[i])
+    h = relu(emb @ w["w5x"] + h @ w["w5h"] + tb[5])
+    for i in (6, 7):
+        h = relu(h @ w[f"w{i}"] + tb[i])
+    return emb, h
+
+
 def _kernel_order(packed, x, n_coarse):
     """The f32 kernel's dataflow in plain PyTorch: each head projected
     straight onto its raw columns from the layer that feeds it, h
@@ -191,15 +207,7 @@ def _kernel_order(packed, x, n_coarse):
         for lo, hi in ranges:
             out[:, lo:hi] += act @ P[:, lo:hi]
 
-    t = x @ w["emb_E"]
-    emb = torch.where(w["emb_id"] > 0.0, t, torch.sin(t + w["emb_phase"]))
-    tb = w["tb"]
-    h = relu(emb @ w["w0"] + tb[0])
-    for i in (1, 2, 3, 4):
-        h = relu(h @ w[f"w{i}"] + tb[i])
-    h = relu(emb @ w["w5x"] + h @ w["w5h"] + tb[5])
-    for i in (6, 7):
-        h = relu(h @ w[f"w{i}"] + tb[i])
+    emb, h = _trunk(packed, x)
     project(h, w["A"], cols[0])
     project(relu(h @ w["wpf"] + w["bpf"]), w["B"], cols[1])
     h = h @ w["wfeat"] + w["bfeat"]
@@ -229,3 +237,50 @@ def test_kernel_dataflow_matches_plain(width, k):
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-6, rtol=0)
     sigma = tff._field_plain(packed, tff._pack_inputs(pts, None), density_only=True)
     np.testing.assert_allclose(out[:, :1].numpy(), sigma.numpy(), atol=1e-6, rtol=0)
+
+
+# The density variant's lane tile (csrc/fused_field.cu: kDPts, kDCg): 16
+# points x 8 columns a lane, so 8 column groups in a warp.
+_D_COLUMN_GROUPS = 8
+
+
+def _density_order(packed, x):
+    """The f32 density variant's σ in plain PyTorch: the trunk as above,
+    then h @ A[:, 0] summed as its lane tile does. Each of the 4 warps
+    takes a quarter of the columns; in a warp, column c belongs to column
+    group (c // 4) % 8 (runs of 4 columns, 32 apart), which sums its
+    columns in order; the groups are added by an xor butterfly (group g
+    with g ^ 1, then g ^ 2, then g ^ 4), the warps' shares in warp order,
+    the bias last."""
+    _, h = _trunk(packed, x)
+    a = packed["A"][:, 0]
+    per_warp = h.shape[1] // 4
+    sigma = None
+    for wq in range(4):
+        groups = [h.new_zeros(h.shape[0]) for _ in range(_D_COLUMN_GROUPS)]
+        for c in range(per_warp):
+            col = wq * per_warp + c
+            g = (c // 4) % _D_COLUMN_GROUPS
+            groups[g] = groups[g] + h[:, col] * a[col]
+        bit = 1
+        while bit < _D_COLUMN_GROUPS:
+            groups = [groups[g] + groups[g ^ bit] for g in range(_D_COLUMN_GROUPS)]
+            bit *= 2
+        sigma = groups[0] if sigma is None else sigma + groups[0]
+    return (sigma + packed["bias"][0])[:, None]
+
+
+@pytest.mark.parametrize("width", [32, 256])
+@pytest.mark.parametrize("n", [133, 229])
+def test_density_dataflow_matches_plain(width, n):
+    """The density variant's σ order (133 and 229 points: neither a
+    multiple of the 64-point tile) against the plain version."""
+    cfg, params = _heads_cfg(width, 3)
+    packed = tff.pack_field_weights(params, cfg)
+    rng = np.random.default_rng(n)
+    pts = torch.from_numpy(rng.uniform(-1.5, 1.5, (n, 1, 3)).astype(np.float32))
+    x = tff._pack_inputs(pts, None)
+    ref = tff._field_plain(packed, x, density_only=True)
+    out = _density_order(packed, x)
+    assert out.shape == ref.shape == (n, 1)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-6, rtol=0)
